@@ -1,0 +1,90 @@
+"""Shared layers of the port: NHWC convolution, pre-LN transformer blocks.
+
+Sequences are batch-major ``(B, S, D)`` and feature maps NHWC, as in the
+JAX package.  The qkv projection stays packed so the attention kernel reads
+``[q | k | v]`` straight from one matmul's output (torch
+``nn.MultiheadAttention`` checkpoints map 1:1 onto ``in_proj``/``out_proj``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import seq_attention
+
+
+def LayerNorm(dim: int) -> nn.LayerNorm:
+    """torch LayerNorm (eps 1e-5; the JAX package sets the same)."""
+    return nn.LayerNorm(dim, eps=1e-5)
+
+
+class Conv2d(nn.Conv2d):
+    """Convolution on NHWC tensors with torch-layout (OIHW) weights.
+
+    Padding follows flax's SAME for the odd kernels used here.  A 1x1
+    stride-1 convolution runs as a matmul over the channel axis."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
+                 stride: int = 1, groups: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if stride == 1 else 0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel_size == (1, 1) and self.stride == (1, 1) \
+                and self.groups == 1:
+            return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+        y = super().forward(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the channel axis of an NHWC tensor."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Packed-qkv self attention through the sequence-attention kernel."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"{d_model} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.in_proj = nn.Linear(d_model, 3 * d_model)
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        head_dim = x.shape[-1] // self.num_heads
+        out = seq_attention(self.in_proj(x), head_dim ** -0.5, self.num_heads)
+        return self.out_proj(out)
+
+
+class MLP(nn.Module):
+    """Exact-GELU MLP (torch ``c_fc``/``c_proj`` naming)."""
+
+    def __init__(self, d_model: int, hidden: int):
+        super().__init__()
+        self.c_fc = nn.Linear(d_model, hidden)
+        self.c_proj = nn.Linear(hidden, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(F.gelu(self.c_fc(x)))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN transformer block (reference: titok/blocks.py:26-64)."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.ln_1 = LayerNorm(d_model)
+        self.attn = MultiheadSelfAttention(d_model, num_heads)
+        self.ln_2 = LayerNorm(d_model)
+        self.mlp = MLP(d_model, int(d_model * mlp_ratio))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))

@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (``sic_tpu_torch/_build/``, git-ignored), loaded
+through ctypes.  The build runs at first use and is keyed by a hash of the
+sources and flags; :func:`build` starts one ``nvcc`` per missing library,
+all at once.  Nothing here runs at import time: machines without ``nvcc``
+(CPU-only test runs) import the package and use the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("seq_attention", "window_attention", "rans_decode")
+_HEADERS = ("attention_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def nvcc_path() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from source at first use")
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *(CSRC / n for n in _HEADERS)):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every missing kernel library, one ``nvcc`` process per
+    source, all started together.  Returns ``{name: ptxas report}`` for
+    the libraries built by this call (registers, shared memory, spills)."""
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        out = lib_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True),
+                    tmp, out)
+    reports, errors = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"[{n}] nvcc exit {proc.returncode}\n{stdout}{stderr}")
+            continue
+        tmp.replace(out)
+        reports[n] = stderr
+        out.with_suffix(".ptxas.txt").write_text(stderr)
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if the C launcher reported a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

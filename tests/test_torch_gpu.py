@@ -1,0 +1,133 @@
+"""The CUDA kernels of the PyTorch port, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels
+have no CPU mode).  The file imports no JAX, so on a machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Attention kernels agree with their plain versions within 1e-4 in fp32
+(summation order only); the rANS kernel agrees with the native decoder and
+with its plain version exactly.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sic_tpu_torch import ops
+from sic_tpu_torch.entropy import EntropyCoder, build_gaussian_tables
+from sic_tpu_torch.ops.rans_decode import words_tensor
+
+pytestmark = pytest.mark.gpu
+GOLDEN = Path(__file__).resolve().parent / "fixtures" / "golden"
+TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from sic_tpu_torch.models import configure_numerics
+    configure_numerics()
+    return torch.device("cuda")
+
+
+def _randn(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, device=device, generator=g)
+
+
+@pytest.mark.parametrize("B,S,C,heads", [(4, 289, 1024, 16), (4, 545, 768, 12),
+                                         (3, 100, 128, 2)])
+def test_seq_attention_kernel_matches_plain(cuda, B, S, C, heads):
+    qkv = _randn((B, S, 3 * C), S, cuda)
+    before = ops.launch_counts()["seq_attention"]
+    out = ops.seq_attention(qkv, 0.125, heads)
+    assert ops.launch_counts()["seq_attention"] == before + 1
+    torch.testing.assert_close(out, ops.seq_attention_plain(qkv, 0.125, heads),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("C,heads", [(768, 12), (1024, 16)])
+def test_window_attention_kernel_matches_plain(cuda, shifted, C, heads):
+    """2x3 windows: a shared bias (nB = 1), or bias plus shift masks per
+    window (nB = nW), where some query rows see -inf key tiles."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    qkv = _randn((2, 32, 48, 3 * C), C, cuda)
+    bias = _randn((1, 256, 256), 1, cuda)
+    if shifted:
+        bias = (bias + torch.from_numpy(_full_shift_mask(2, 3, 16)).to(cuda)).contiguous()
+    out = ops.window_attention_nhwc(qkv, bias, 0.125, heads)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out, ops.window_attention_nhwc_plain(qkv, bias, 0.125, heads),
+        rtol=TOL, atol=TOL)
+
+
+def test_rans_kernel_matches_native_and_plain(cuda):
+    t = build_gaussian_tables("gaussian")
+    rng = np.random.default_rng(5)
+    n, nparts = 4096, 4
+    planes = []
+    for _ in range(4):
+        idx = rng.integers(0, t.levels, n).astype(np.int16)
+        idx[rng.random(n) < 0.2] = -1
+        sym = rng.integers(-6, 7, n).astype(np.int16)
+        esc = rng.random(n) < 0.1
+        sym[esc] = rng.integers(-4000, 4000, int(esc.sum())).astype(np.int16)
+        sym[idx < 0] = 0
+        planes.append((sym, idx))
+    coder = EntropyCoder(nparts)
+    g = coder.add_cdf(t.quantized_cdf, t.cdf_length, t.offset)
+    coder.reset()
+    for sym, idx in planes:
+        coder.encode_with_indexes(sym, idx, g)
+    coder.flush()
+    stream = coder.get_encoded_stream()
+    coder.set_stream(stream)
+    host = [coder.decode_stream(idx, g) for _, idx in planes]
+
+    words, lens, state = ops.pack_substreams(ops.split_substreams(stream))
+    npos = n // nparts
+    args = [words_tensor(words, cuda), torch.from_numpy(lens.reshape(-1)).to(cuda)]
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+              for a in (t.quantized_cdf, t.cdf_length, t.offset)]
+    st_k = st_p = torch.from_numpy(state).to(cuda)
+    for (_sym, idx), want in zip(planes, host):
+        rows = torch.from_numpy(idx.astype(np.int32).reshape(nparts, npos)).to(cuda)
+        got, st_k = ops.rans_decode_plane(rows, *args, st_k, *tables)
+        ref, st_p = ops.rans_decode_plane_plain(rows, *args, st_p, *tables)
+        np.testing.assert_array_equal(got.reshape(-1).cpu().numpy(),
+                                      want.astype(np.int32))
+        assert torch.equal(got, ref)
+        assert torch.equal(st_k, st_p)
+    # a fully decoded substream ends in its encoder's initial state
+    final = st_k.cpu().numpy()
+    assert (final[:, 0] == 1 << 23).all()
+    assert (final[:, 1] == lens[:, 0]).all()
+
+
+def test_golden_stream_on_the_card(cuda):
+    """The JAX-encoded golden stream, decoded on the card through the rANS
+    kernel, meets the JAX package's golden bound."""
+    from sic_tpu_torch.cli._common import load_runtime
+    from sic_tpu_torch.config import tiny_spec
+    from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
+    rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda")
+    rt.device_entropy = "device"
+    enc, header = unpack_c2df(GOLDEN / "golden.c2df")
+    enc = sanitize_enc_result_types(enc)
+    probe = {}
+    before = ops.launch_counts()["rans_decode_plane"]
+    x = rt.decode_only(**enc, z_coder=header["z_coder"],
+                       coding_batch=header["coding_batch"], output="u8",
+                       probe=probe)
+    rt.close()
+    assert probe["h_path"] == "device"
+    assert ops.launch_counts()["rans_decode_plane"] == before + 4
+    diff = np.abs(x[0].cpu().numpy().astype(np.int32)
+                  - np.load(GOLDEN / "expected_u8.npz")["u8"].astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 1e-3
