@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch port's decode path on one CUDA card.
+"""Chip check of the PyTorch port's encode and decode paths on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases, each printing one JSON line with the card's name and power limit:
 
-1. build   - the three CUDA kernels (one nvcc per source, in parallel) and
-             the native rANS coder, from the sources in the checkout;
-2. kernels - each kernel against its plain PyTorch version on the card at
-             the flagship decode's shapes, with CUDA-event times of the
-             kernel, the plain version and, for attention, one
-             scaled_dot_product_attention call as a yardstick;
-3. golden  - the JAX-encoded tests/fixtures/golden stream through the CLI
-             (host coder) and through the rANS kernel, against the
-             committed pixels;
-4. flagship - seeded flagship model (TiTok-L, fp32); streams made by the
-             port's bottleneck host encode (4 substreams, coding batch 8)
-             for one 512x512, one 256x768 and four 256x256 requests;
-             decode_only / decode_only_batched / the decompress CLI, with
-             every h_hat equal to the encoder's y_hat bit for bit and every
-             kernel launched on the way;
-5. cpu     - the 256x256 request decoded again on the CPU (plain versions):
-             CDF-index planes and pixels against the card's.
+1. build    - the four CUDA kernels (one nvcc per source, in parallel) and
+              the native rANS coder, from the sources in the checkout;
+2. kernels  - each kernel against its plain PyTorch version on the card at
+              the flagship's shapes (rANS encode also against the native
+              encoder, and through one forced buffer overflow), with
+              CUDA-event times of the kernel, the plain version and, for
+              attention, one scaled_dot_product_attention call as a
+              yardstick;
+3. golden   - the JAX-encoded tests/fixtures/golden stream through the CLI
+              (host coder) and through the rANS decode kernel, against the
+              committed pixels; then golden_input() encoded on the card by
+              the host coder and by the encode kernel, byte-equal, decoding
+              back bit for bit, and compared (not asserted) with
+              golden.c2df;
+4. encode   - seeded flagship model (TiTok-L, fp32) and seeded CLIP
+              ViT-B/32 on real images (artifacts_r05/heldout: eight 256x256,
+              a 512x512 mosaic, a 256x768 strip): the compress CLI over the
+              ten, encode_only / encode_only_batched with the encode kernel
+              and with the host coder (byte-equal), every stream decoding
+              back to the encoder's y_hat bit for bit, times and a profile;
+5. flagship - decode_only / decode_only_batched / the decompress CLI on
+              streams from phase 4 (one 512x512, one 256x768, four
+              256x256), every h_hat equal to the encoder's y_hat;
+6. cpu      - the first 256x256 request decoded again on the CPU (plain
+              versions): CDF-index planes and pixels against the card's;
+              and one 256x256 image encoded on the CPU, its differences
+              from the card's encode reported.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
-without a CUDA device, outside the repository, or if any phase fails.
-Work files go to chiprun_out/chip_smoke/.
+Each path's launch counts are set to 0 just before it is driven (phase 4
+for the encode, phase 5 for the decode) and read just after; every kernel
+of the path must have launched.  Then a ``{"kernels": [...]}`` line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Exits
+non-zero, with no result line, without a CUDA device, outside the
+repository, or if any phase fails.  Work files go to ``WORK`` below.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "chiprun_out" / "chip_smoke"
 GOLDEN = ROOT / "tests" / "fixtures" / "golden"
+HELDOUT = ROOT / "artifacts_r05" / "heldout"
 
 F32_TFLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
@@ -63,7 +76,8 @@ class Smoke:
         self.card = _card_line()
         self.failed = []
         self.kernels = {}
-        self.counts = None
+        self.counts = {}      # path -> launch counts of its main-path run
+        self.requests = {}    # stem -> decode_only kwargs + the encoder's y_hat
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -138,9 +152,11 @@ class Smoke:
         g = torch.Generator(device=dev).manual_seed(SEED)
         out = {}
 
-        # kernel 1: trunk (4 tiles of a 512x512 image) and cross blocks
+        # kernel 1: trunk (4 tiles of a 512x512 image), cross blocks, and
+        # the CLIP image tower (one image, 1 + 7*7 tokens)
         for tag, (B, S, C, heads) in {"trunk": (4, 289, 1024, 16),
-                                      "cross": (4, 545, 768, 12)}.items():
+                                      "cross": (4, 545, 768, 12),
+                                      "clip": (1, 50, 768, 12)}.items():
             qkv = torch.randn((B, S, 3 * C), device=dev, generator=g)
             scale = 64 ** -0.5
             k_out = ops.seq_attention(qkv, scale, heads)
@@ -204,6 +220,16 @@ class Smoke:
         self.kernels["window_attention_nhwc"] = out["window_attention_c768_nb4"]
 
         out["rans_decode"] = self.kernels["rans_decode_plane"] = self._rans_check()
+        enc = {f"{S}x{npos}": self._rans_encode_check(S, npos)
+               for S, npos in ((4, 1024), (32, 256))}
+        # the same plane with no escapes: how much of the time is the
+        # escape path, whose loops diverge across a warp's substreams; and
+        # one position a plane: the launch and the CDF-table fill alone
+        enc["4x1024_no_escapes"] = self._rans_encode_check(4, 1024, escape_rate=0.0)
+        enc["4x1"] = self._rans_encode_check(4, 1, escape_rate=0.0)
+        out["rans_encode"] = enc
+        out["rans_encode_overflow"] = self._rans_encode_overflow()
+        self.kernels["rans_encode_plane"] = enc["4x1024"]
         return out
 
     def _rans_check(self):
@@ -291,6 +317,129 @@ class Smoke:
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
+    def _rans_encode_check(self, S, npos, escape_rate=0.05):
+        """Four planes of S substreams x npos positions (4 x 1024: one
+        512x512 request; 32 x 256: eight 256x256), skips and escapes up
+        to the +-30000 clamp, encoded last plane first by the kernel, by
+        its plain version and by the native encoder: bytes must agree."""
+        import numpy as np
+        torch = self.torch
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.entropy import EntropyCoder, build_gaussian_tables
+        from sic_tpu_torch.models.bottleneck import worst_case_bytes
+        from sic_tpu_torch.ops import rans_encode as renc
+        t = build_gaussian_tables("gaussian")
+        rng = np.random.default_rng(SEED + S)
+        planes, n_esc = [], 0
+        for _ in range(4):
+            idx = rng.integers(0, t.levels, (S, npos)).astype(np.int16)
+            idx[rng.random((S, npos)) < 0.2] = -1
+            live = idx >= 0
+            off = t.offset[np.maximum(idx, 0)]
+            top = t.cdf_length[np.maximum(idx, 0)] - 2     # the escape slot
+            if escape_rate:
+                sym = rng.integers(-6, 7, (S, npos)).astype(np.int16)
+                esc = rng.random((S, npos)) < escape_rate
+                sym[esc] = rng.integers(-30000, 30001, int(esc.sum())).astype(np.int16)
+            else:   # every symbol inside its row's coded range
+                sym = (off + (rng.random((S, npos)) * top).astype(np.int64)).astype(np.int16)
+            sym[~live] = 0
+            value = sym.astype(np.int64) - off
+            n_esc += int((live & ((value < 0) | (value >= top))).sum())
+            planes.append((sym, idx))
+        # the native coder, one substream each (its per-part split of a
+        # plane is contiguous, so substream s codes row s of every plane)
+        native = []
+        for s_ in range(S):
+            coder = EntropyCoder(1)
+            g = coder.add_cdf(t.quantized_cdf, t.cdf_length, t.offset)
+            coder.reset()
+            for sym, idx in planes:
+                coder.encode_with_indexes(sym[s_], idx[s_], g)
+            coder.flush()
+            native.append(coder.get_encoded_stream()[1:])   # drop the flag byte
+
+        dev = torch.device("cuda")
+        tables = [torch.from_numpy(a.astype(np.int32)).to(dev)
+                  for a in (t.quantized_cdf, t.cdf_length, t.offset)]
+        rows = [[torch.from_numpy(a.astype(np.int32)).to(dev) for a in p]
+                for p in planes]
+        nwords = -(-worst_case_bytes(4 * npos) // 4)
+        words = torch.zeros((S, nwords), dtype=torch.int32, device=dev)
+        st0 = renc.initial_state(S, dev)
+
+        def run(fn):
+            st = st0
+            for sym, idx in reversed(rows):
+                _, st = fn(sym, idx, words, st, *tables)
+            return st
+
+        results = {}
+        for name, fn in (("kernel", ops.rans_encode_plane),
+                         ("plain", ops.rans_encode_plane_plain)):
+            words.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = run(fn)
+            torch.cuda.synchronize()
+            results[name] = (renc.finalize_streams(words.cpu().numpy(),
+                                                   st.cpu().numpy(), S),
+                             (time.perf_counter() - t0) * 1e3 / 4, st)
+        k_parts, _, k_st = results["kernel"]
+        p_parts, plain_ms, p_st = results["plain"]
+        mism = sum(a != b for a, b in zip(k_parts, native)) + \
+            sum(a != b for a, b in zip(k_parts, p_parts))
+        ms = self.time_ms(lambda: run(ops.rans_encode_plane), iters=10) / 4
+        # one plane's bytes, as ``ms`` is one plane's time: symbols and
+        # indexes in, the state in and out, the CDF table, and a quarter of
+        # the bytes the four planes emitted
+        emitted = int(k_st[:, 1].sum())
+        nbytes = (2 * S * npos * 4 + 2 * S * 4 * 8 + emitted / 4
+                  + (t.quantized_cdf.size + 2 * t.levels) * 4)
+        bound_ms, bound_by = self.bound(0, nbytes)
+        if mism or not torch.equal(k_st, p_st):
+            raise AssertionError(f"rans_encode {S}x{npos}: {mism} substreams "
+                                 f"differ; states equal {torch.equal(k_st, p_st)}")
+        return {"substreams": S, "npos": npos, "bytes_emitted": emitted,
+                "escape_rate": escape_rate, "escaped_positions": n_esc,
+                "max_abs_err": 0, "byte_mismatches": mism,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def _rans_encode_overflow(self):
+        """The bottleneck's device encode from a buffer of 4 words a
+        substream: it must overflow, double on the card until the streams
+        fit, and then equal the host coder's bytes."""
+        torch = self.torch
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.models import bottleneck
+        from sic_tpu_torch.models.bottleneck import (BottleneckCoder,
+                                                     CompressiveBottleneck)
+        from sic_tpu_torch.weights import init_seeded
+        dev = torch.device("cuda")
+        with torch.device(dev):
+            m = CompressiveBottleneck(768, 64)
+        init_seeded(m, SEED)
+        coder = BottleneckCoder(m.eval().requires_grad_(False), stream_part=4)
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        y = torch.randn((2, 16, 16, 768), device=dev, generator=g)
+        packed, y_hat = coder.compress_plan(y)
+        host = coder.encode_packed_many(packed)
+        before = ops.launch_counts()["rans_encode_plane"]
+        first = bottleneck.encode_buffer_words
+        bottleneck.encode_buffer_words = lambda npos: 4
+        try:
+            streams, y_hat_dev = coder.compress_device(y)
+        finally:
+            bottleneck.encode_buffer_words = first
+        launches = ops.launch_counts()["rans_encode_plane"] - before
+        rec = {"attempts": launches // 4, "streams_equal": streams == host,
+               "y_hat_equal": bool(torch.equal(y_hat, y_hat_dev)),
+               "stream_bytes": [len(s_) for s_ in streams]}
+        if not (rec["streams_equal"] and rec["y_hat_equal"] and launches > 4):
+            raise AssertionError(f"rans_encode overflow retry: {rec}")
+        return rec
+
     # -- phase 3 ----------------------------------------------------------------
     def golden(self):
         import numpy as np
@@ -339,53 +488,244 @@ class Smoke:
               and dev_frac < 1e-3)
         if not ok:
             raise AssertionError(f"golden decode outside its bound: {rec}")
+        rec["encode"] = self._golden_encode(devp)
+        return rec
+
+    def _golden_encode(self, golden_probe):
+        """golden_input() under the golden params, encoded on the card with
+        stream_part 1 by the host coder and by the encode kernel."""
+        torch = self.torch
+        sys.path.insert(0, str(ROOT / "tests"))
+        from fixtures.golden.generate import golden_input
+
+        from sic_tpu_torch.cli._common import load_runtime
+        from sic_tpu_torch.config import tiny_spec
+        from sic_tpu_torch.container import pack_c2df, unpack_c2df
+        rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
+                          stream_part=1)
+        encs, probes = {}, {}
+        for path in ("host", "device"):
+            rt.device_entropy = path
+            probes[path] = {}
+            encs[path] = rt.encode_only(golden_input()[None], probe=probes[path])
+        dec = {}
+        rt.decode_only(**encs["device"], coding_batch=8, probe=dec)
+        header = {"version": 2, "image_hw": [256, 256], "padding": [0, 0, 0, 0],
+                  "z_coder": "rans", "coding_batch": 8}
+        wire = pack_c2df(encs["device"], header)
+        z_card = rt._decode_z(encs["device"]["z_bit_stream"], 8, "rans")
+        genc, _ = unpack_c2df(GOLDEN / "golden.c2df")
+        z_gold = rt._decode_z(genc["z_bit_stream"], 8, "rans")
+        rt.close()
+        rec = {"paths": [probes["host"]["h_path"], probes["device"]["h_path"]],
+               "host_vs_kernel_bytes_equal":
+                   encs["host"]["h_bit_stream"] == encs["device"]["h_bit_stream"],
+               "h_hat_equal_y_hat": bool(torch.equal(dec["h_hat"],
+                                                     probes["device"]["y_hat"])),
+               "equals_golden_c2df": wire == (GOLDEN / "golden.c2df").read_bytes(),
+               "z_index_diffs_vs_golden": int((z_card != z_gold).sum()),
+               "symbol_diffs_vs_golden": int(sum(
+                   (a != b).sum().item() for a, b in
+                   zip(dec["symbol_planes"], golden_probe["symbol_planes"]))),
+               "stream_bytes": len(wire)}
+        if not (rec["host_vs_kernel_bytes_equal"] and rec["h_hat_equal_y_hat"]):
+            raise AssertionError(f"golden encode on the card: {rec}")
         return rec
 
     # -- phase 4 ----------------------------------------------------------------
+    def _write_inputs(self, src):
+        """The ten encode inputs as PNGs: heldout val0..7 (256x256), a
+        512x512 mosaic of val0..3 and a 256x768 strip of val4..6."""
+        import numpy as np
+        from PIL import Image
+        src.mkdir(parents=True, exist_ok=True)
+        val = [np.asarray(Image.open(HELDOUT / f"val{i}.png").convert("RGB"))
+               for i in range(8)]
+        for i, v in enumerate(val):
+            Image.fromarray(v).save(src / f"c_256x256_{i}.png")
+        Image.fromarray(np.concatenate([np.concatenate(val[0:2], axis=1),
+                                        np.concatenate(val[2:4], axis=1)])
+                        ).save(src / "a_512x512.png")
+        Image.fromarray(np.concatenate(val[4:7], axis=1)).save(src / "b_256x768.png")
+
+    def encode(self):
+        """The flagship encode on real images: the compress CLI over ten
+        images (routing "auto"), then encode_only (512x512, 256x768) and
+        encode_only_batched (eight 256x256) with the encode kernel and with
+        the host coder."""
+        import numpy as np
+        torch = self.torch
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.cli._common import load_clip_codec, load_runtime
+        from sic_tpu_torch.cli.compress import main as compress_main
+        from sic_tpu_torch.config import flagship_spec
+        from sic_tpu_torch.container import pack_c2df, unpack_c2df
+        from sic_tpu_torch.data import load_image
+        spec = flagship_spec()
+        t0 = time.perf_counter()
+        rt = self.rt = load_runtime(None, spec, device="cuda", stream_part=4)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in rt.model.parameters())
+        clip = load_clip_codec(None, device="cuda")
+        src, out_dir = WORK / "encode_in", WORK / "encode_out"
+        self._write_inputs(src)
+        img = {p.stem: load_image(p) for p in sorted(src.glob("*.png"))}
+        group = [f"c_256x256_{i}" for i in range(8)]
+        x = {"a_512x512": img["a_512x512"][None], "b_256x768": img["b_256x768"][None],
+             "group_of_8": np.stack([img[k] for k in group])}
+
+        def run(mode, probes=None):
+            rt.device_entropy = mode
+            out = {}
+            for stem in ("a_512x512", "b_256x768"):
+                out[stem] = rt.encode_only(
+                    x[stem], probe=None if probes is None else probes.setdefault(stem, {}))
+            out["group_of_8"] = rt.encode_only_batched(
+                x["group_of_8"],
+                probe=None if probes is None else probes.setdefault("group_of_8", {}))
+            torch.cuda.synchronize()
+            return out
+
+        # warm-up (cuBLAS/cuDNN handles and heuristics), not counted
+        run("device")
+        run("host")
+        clip.image_to_unit_vec(img["a_512x512"])
+
+        # -- the encode main path: counts from 0, read right after ------------
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        cli = compress_main(["--dataset_dir", str(src), "--save_dir", str(out_dir),
+                             "--spec", "flagship", "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        encs, probes = {}, {}
+        for mode in ("device", "host"):
+            probes[mode] = {}
+            encs[mode] = run(mode, probes[mode])
+        self.counts["encode"] = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # ---------------------------------------------------------------------
+        rt.device_entropy = "auto"
+
+        def streams(mode, key):
+            e = encs[mode][key]
+            return [d["h_bit_stream"] for d in e] if isinstance(e, list) \
+                else [e["h_bit_stream"]]
+
+        bytes_equal = {k: streams("device", k) == streams("host", k) for k in x}
+        paths = {m: {k: v["h_path"] for k, v in probes[m].items()} for m in probes}
+        # every stream the card wrote decodes back to the encoder's y_hat
+        exact = {}
+        for stem in ("a_512x512", "b_256x768"):
+            dec = {}
+            rt.decode_only(**encs["device"][stem], coding_batch=8, probe=dec)
+            exact[stem] = bool(torch.equal(dec["h_hat"],
+                                           probes["device"][stem]["y_hat"]))
+        dec = {}
+        rt.decode_only_batched([dict(e, coding_batch=8)
+                                for e in encs["device"]["group_of_8"]], probe=dec)
+        exact["group_of_8"] = bool(torch.equal(dec["h_hat"],
+                                               probes["device"]["group_of_8"]["y_hat"]))
+        # the CLI's files: ten streams, ten clip vecs, both index layouts,
+        # and its h streams equal to the runtime's for the same images
+        cli_h = {}
+        for f in sorted((out_dir / "bitstreams").glob("*.c2df")):
+            cli_h[f.stem] = unpack_c2df(f)[0]["h_bit_stream"]
+        cli_equal = (cli_h.get("a_512x512") == streams("host", "a_512x512")[0]
+                     and cli_h.get("b_256x768") == streams("host", "b_256x768")[0]
+                     and [cli_h.get(k) for k in group] == streams("host", "group_of_8"))
+        n_vecs = len(list((out_dir / "clip_vecs").glob("*.npy")))
+        index_files = sorted(p.name for p in (out_dir / "faiss").iterdir())
+
+        timing = self._encode_timing(rt, clip, x, img)
+        # the decode phase's requests: the kernel's streams, as files too
+        dst = WORK / "flagship_in"
+        dst.mkdir(parents=True, exist_ok=True)
+        for f in dst.glob("*.c2df"):
+            f.unlink()
+        reqs = {"a_512x512": (encs["device"]["a_512x512"],
+                              probes["device"]["a_512x512"]["y_hat"]),
+                "b_256x768": (encs["device"]["b_256x768"],
+                              probes["device"]["b_256x768"]["y_hat"])}
+        for i in range(4):
+            reqs[group[i]] = (encs["device"]["group_of_8"][i],
+                              probes["device"]["group_of_8"]["y_hat"][i:i + 1])
+        for stem, (enc, y_hat) in reqs.items():
+            H, W = enc["img_shape"]
+            header = {"version": 2, "image_hw": [H, W], "padding": [0, 0, 0, 0],
+                      "z_coder": "rans", "coding_batch": 8}
+            (dst / f"{stem}.c2df").write_bytes(pack_c2df(enc, header))
+            self.requests[stem] = dict(enc, coding_batch=8, z_coder="rans",
+                                       y_hat=y_hat)
+        rec = {"spec": "flagship", "params": n_params, "init_s": round(init_s, 3),
+               "dtype": "float32", "cli": cli, "cli_s": round(cli_s, 3),
+               "cli_files": len(cli_h), "cli_clip_vecs": n_vecs,
+               "cli_index_files": index_files,
+               "cli_streams_equal_runtime": cli_equal,
+               "h_paths": paths, "kernel_vs_host_bytes_equal": bytes_equal,
+               "h_hat_bit_exact": exact,
+               "stream_bytes": {k: [len(b) for b in streams("device", k)] for k in x},
+               "peak_mem_gb": peak_gb, "launches": self.counts["encode"],
+               **timing}
+        need = ("seq_attention", "window_attention_nhwc", "rans_encode_plane")
+        if len(cli_h) != 10 or n_vecs != 10 or not all(bytes_equal.values()) \
+                or not all(exact.values()) or not cli_equal \
+                or "faiss.index" not in index_files or "index.faiss" not in index_files \
+                or min(self.counts["encode"][k] for k in need) < 1 \
+                or set(paths["device"].values()) != {"device"}:
+            raise AssertionError(f"flagship encode check failed: {rec}")
+        return rec
+
+    def _encode_timing(self, rt, clip, x, img, reps=5):
+        """Request times (median of ``reps``) with the encode kernel and
+        with the host coder, CLIP ms per image, and one profiled 512x512
+        encode with the kernel."""
+        import statistics
+        torch = self.torch
+
+        def median_ms(fn):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        out = {"request_ms_p50": {}}
+        for mode in ("device", "host"):
+            rt.device_entropy = mode
+            out["request_ms_p50"][mode] = {
+                "a_512x512": median_ms(lambda: rt.encode_only(x["a_512x512"])),
+                "b_256x768": median_ms(lambda: rt.encode_only(x["b_256x768"])),
+                "group_of_8": median_ms(lambda: rt.encode_only_batched(x["group_of_8"]))}
+        rt.device_entropy = "device"
+        out["profile_512x512"] = self._profile(lambda: rt.encode_only(x["a_512x512"]))
+        rt.device_entropy = "auto"
+        imgs = list(img.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for im in imgs:
+            clip.image_to_unit_vec(im)
+        out["clip_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(imgs)
+        return out
+
+    # -- phase 5 ----------------------------------------------------------------
     def flagship(self):
+        """The flagship decode of phase 4's kernel-written streams."""
         import numpy as np
         torch = self.torch
         from PIL import Image
 
         from sic_tpu_torch import ops
-        from sic_tpu_torch.cli._common import load_runtime
         from sic_tpu_torch.cli.decompress import main as decompress_main
-        from sic_tpu_torch.config import flagship_spec
-        from sic_tpu_torch.container import pack_c2df
-        spec = flagship_spec()
-        dev = torch.device("cuda")
-        t0 = time.perf_counter()
-        rt = self.rt = load_runtime(None, spec, device="cuda", stream_part=4)
-        init_s = time.perf_counter() - t0
-        n_params = sum(p.numel() for p in rt.model.parameters())
-        g = torch.Generator(device=dev).manual_seed(SEED + 1)
-        rng = np.random.default_rng(SEED + 1)
+        rt = self.rt
         src, dst = WORK / "flagship_in", WORK / "flagship_out"
-        src.mkdir(parents=True, exist_ok=True)
-        for f in src.glob("*.c2df"):
-            f.unlink()
-        requests = {}   # stem -> enc dict (with y_hat)
-
-        def make(stems, B, H, W):
-            stack = (H // 256, W // 256)
-            y = 3.0 * torch.randn((B, H // 32, W // 32, spec.feat_width),
-                                  device=dev, generator=g)
-            z = rng.integers(0, spec.titok.codebook_size,
-                             (B * stack[0] * stack[1], spec.titok.num_latent_tokens))
-            for stem, enc in zip(stems, rt.encode_features(y, stack, z)):
-                enc["coding_batch"] = 8
-                enc["z_coder"] = "rans"
-                requests[stem] = enc
-                header = {"version": 2, "image_hw": [H, W], "padding": [0, 0, 0, 0],
-                          "z_coder": "rans", "coding_batch": 8}
-                wire = {k: v for k, v in enc.items()
-                        if k not in ("y_hat", "coding_batch", "z_coder")}
-                (src / f"{stem}.c2df").write_bytes(pack_c2df(wire, header))
-
-        make(["a_512x512"], 1, 512, 512)
-        make(["b_256x768"], 1, 256, 768)
+        requests = {k: {f: v for f, v in e.items() if f != "y_hat"}
+                    for k, e in self.requests.items()}
         group = [f"c_256x256_{i}" for i in range(4)]
-        make(group, 4, 256, 256)
 
         def decode_single(stem, probe=None):
             out = rt.decode_only(**requests[stem], output="u8", probe=probe)
@@ -403,7 +743,7 @@ class Smoke:
             decode_single(stem)
         decode_group()
 
-        # -- the main path: counts from 0, read right after ---------------------
+        # -- the decode main path: counts from 0, read right after --------------
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         probes, ms, u8 = {}, {}, {}
@@ -419,19 +759,19 @@ class Smoke:
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         t1 = time.perf_counter()
         n_cli = decompress_main(["--dataset_dir", str(src), "--save_dir", str(dst),
-                                 "--device", "cuda"])
+                                 "--spec", "flagship", "--device", "cuda"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t1
-        self.counts = ops.launch_counts()
+        self.counts["decode"] = counts = ops.launch_counts()
         # -----------------------------------------------------------------------
 
         exact = {}
         for stem in ("a_512x512", "b_256x768"):
             exact[stem] = bool(torch.equal(probes[stem]["h_hat"],
-                                           requests[stem]["y_hat"]))
+                                           self.requests[stem]["y_hat"]))
         exact["group"] = bool(torch.equal(
             probes["group"]["h_hat"],
-            torch.cat([requests[s]["y_hat"] for s in group])))
+            torch.cat([self.requests[s]["y_hat"] for s in group])))
         paths = {k: v["h_path"] for k, v in probes.items()}
         timing = self._flagship_timing(requests, group, decode_single, decode_group)
         cli_diff = {}
@@ -441,14 +781,15 @@ class Smoke:
         for i, stem in enumerate(group):
             png = np.asarray(Image.open(dst / f"{stem}.png")).astype(np.int32)
             cli_diff[stem] = int(np.abs(png - u8["group"][i].cpu().numpy()).max())
-        rec = {"spec": "flagship", "params": n_params, "init_s": round(init_s, 3),
-               "dtype": "float32", "files": n_cli,
+        rec = {"spec": "flagship", "dtype": "float32", "files": n_cli,
                "stream_bytes": {s: len(e["h_bit_stream"]) for s, e in requests.items()},
                "h_paths": paths, "h_hat_bit_exact": exact,
                "request_ms": ms, "cli_s": round(cli_s, 3), "peak_mem_gb": peak_gb,
                "cli_vs_runtime_max_u8_diff": cli_diff,
-               "launches": self.counts, **timing}
-        if n_cli != 6 or not all(exact.values()) or min(self.counts.values()) < 1 \
+               "launches": counts, **timing}
+        need = ("seq_attention", "window_attention_nhwc", "rans_decode_plane")
+        if n_cli != 6 or not all(exact.values()) \
+                or min(counts[k] for k in need) < 1 \
                 or paths["a_512x512"] != "device" or max(cli_diff.values()) > 1:
             raise AssertionError(f"flagship decode check failed: {rec}")
         return rec
@@ -530,7 +871,7 @@ class Smoke:
         rows.sort(reverse=True)
         mine = {n: round(sum(us for us, k, _ in rows if k.startswith(f"(anonymous namespace)::{n}")) / 1e3, 4)
                 for n in ("seq_attention_kernel", "window_attention_kernel",
-                          "rans_decode_kernel")}
+                          "rans_decode_kernel", "rans_encode_kernel")}
         return {"wall_ms_profiled": wall_ms, "trace_span_ms": span_us / 1e3,
                 "device_busy_ms": busy_us / 1e3,
                 "device_busy_share": busy_us / span_us,
@@ -538,7 +879,7 @@ class Smoke:
                 "top_kernels_ms": [[k[:90], round(us / 1e3, 4), n]
                                    for us, k, n in rows[:top]]}
 
-    # -- phase 5 ----------------------------------------------------------------
+    # -- phase 6 ----------------------------------------------------------------
     def cpu_compare(self):
         torch = self.torch
         from sic_tpu_torch.models import Codec, CodecRuntime
@@ -554,19 +895,50 @@ class Smoke:
         t0 = time.perf_counter()
         x_cpu = cpu_rt.decode_only(**enc, probe=cpu_p)
         cpu_s = time.perf_counter() - t0
-        cpu_rt.close()
         mism = sum(int((a != b).sum()) for a, b in
                    zip(gpu_p["index_planes"], cpu_p["index_planes"]))
         sym_mism = sum(int((a != b).sum()) for a, b in
                        zip(gpu_p["symbol_planes"], cpu_p["symbol_planes"]))
         max_diff = (x_gpu - x_cpu).abs().max().item()
+        h_gpu = gpu_p["h_hat"].cpu()
         rec = {"index_plane_mismatches": mism, "symbol_mismatches": sym_mism,
                "max_pixel_diff": max_diff, "bound": CPU_PIXEL_TOL,
                "cpu_paths": cpu_p["h_path"], "cpu_decode_s": round(cpu_s, 3),
-               "h_hat_max_diff": (gpu_p["h_hat"].cpu() - cpu_p["h_hat"]).abs().max().item()}
+               "h_hat_max_diff": (h_gpu - cpu_p["h_hat"]).abs().max().item(),
+               # the drift relative to the largest |h_hat|
+               "h_hat_rel_diff": ((h_gpu - cpu_p["h_hat"]).abs().max()
+                                  / h_gpu.abs().max()).item(),
+               "encode": self._cpu_encode(cpu_rt)}
+        cpu_rt.close()
         if mism or sym_mism or not max_diff <= CPU_PIXEL_TOL:
             raise AssertionError(f"card vs CPU: {rec}")
         return rec
+
+    def _cpu_encode(self, cpu_rt):
+        """One 256x256 image encoded on the card and on the CPU (plain
+        versions) with the same weights: the differences in z indices and
+        in the symbol and index planes are reported, not asserted (float
+        summation order differs)."""
+        torch = self.torch
+        from sic_tpu_torch.data import load_image
+        x = load_image(WORK / "encode_in" / "c_256x256_0.png")[None]
+        out = {}
+        for name, rt in (("card", self.rt), ("cpu", cpu_rt)):
+            xt = torch.from_numpy(x).to(rt.device)
+            with torch.no_grad():
+                z, h, _ = rt.model.encode_stage(xt * 0.5 + 0.5)
+                packed, _ = rt.h_coder.compress_plan(h)
+            out[name] = (z.cpu().numpy(), packed.cpu().numpy(), h.cpu())
+        (zg, pg, hg), (zc, pc, hc) = out["card"], out["cpu"]
+        cpu_rt.device_entropy = "device"
+        t0 = time.perf_counter()
+        cpu_rt.encode_only(x)
+        return {"z_index_diffs": int((zg != zc).sum()), "z_indices": int(zg.size),
+                "symbol_diffs": int((pg[:, 0] != pc[:, 0]).sum()),
+                "index_diffs": int((pg[:, 1] != pc[:, 1]).sum()),
+                "positions": int(pg[:, 0].size),
+                "feature_rel_diff": ((hg - hc).abs().max() / hg.abs().max()).item(),
+                "cpu_encode_s": round(time.perf_counter() - t0, 3)}
 
     def _first_256(self):
         from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
@@ -582,13 +954,16 @@ class Smoke:
                  "window_attention_nhwc": ("sic_tpu_torch/csrc/window_attention.cu",
                                            "sic_tpu/ops/window_attention.py:142"),
                  "rans_decode_plane": ("sic_tpu_torch/csrc/rans_decode.cu",
-                                       "sic_tpu/ops/rans_decode.py:165")}
+                                       "sic_tpu/ops/rans_decode.py:165"),
+                 "rans_encode_plane": ("sic_tpu_torch/csrc/rans_encode.cu",
+                                       "sic_tpu/ops/rans_encode.py:77")}
         rows = []
         for name, (source, replaces) in names.items():
             k = self.kernels.get(name, {})
+            # launches over both main-path runs (encode, then decode)
+            launches = sum(c.get(name, 0) for c in self.counts.values())
             rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces,
-                         "launches": (self.counts or {}).get(name, 0),
+                         "replaces": replaces, "launches": launches,
                          "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                          "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                          "bound_by": k.get("bound_by"),
@@ -616,8 +991,10 @@ def main() -> int:
         return 1
     smoke.phase("kernels", smoke.kernel_checks)
     smoke.phase("golden", smoke.golden)
-    smoke.phase("flagship", smoke.flagship)
-    if "flagship" not in smoke.failed:
+    smoke.phase("encode", smoke.encode)
+    if "encode" not in smoke.failed:
+        smoke.phase("flagship", smoke.flagship)
+    if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)
     if getattr(smoke, "rt", None) is not None:
         smoke.rt.close()

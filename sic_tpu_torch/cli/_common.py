@@ -1,7 +1,9 @@
-"""Shared CLI plumbing: runtime construction and PNG output."""
+"""Shared CLI plumbing: runtime and CLIP construction, determinism,
+progress and PNG output."""
 from __future__ import annotations
 
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -9,21 +11,21 @@ import torch
 
 from ..config import CodecSpec, flagship_spec
 from ..models import Codec, CodecRuntime, resolve_device
-from ..weights import ENCODER_PREFIXES, init_seeded, load_npz
+from ..weights import TEACHER_PREFIXES, init_seeded, load_npz
 
 
 def build_model(spec: CodecSpec, device,
                 ckpt_path: Optional[str] = None) -> Codec:
-    """The decode model on ``device``, from a flat ``params/...`` npz or,
-    without one, from the seeded initialisation."""
+    """The codec on ``device``, from a flat ``params/...`` npz or, without
+    one, from the seeded initialisation."""
     with torch.device(device):
         model = Codec(spec)
     if ckpt_path:
         unused = load_npz(model, ckpt_path)
-        stray = sorted(k for k in unused if not k.startswith(ENCODER_PREFIXES))
+        stray = sorted(k for k in unused if not k.startswith(TEACHER_PREFIXES))
         if stray:
             raise ValueError(f"{len(stray)} checkpoint leaves fit no parameter "
-                             f"of the decoder, e.g. {stray[:3]}")
+                             f"of the codec, e.g. {stray[:3]}")
     else:
         init_seeded(model)
     return model.eval().requires_grad_(False)
@@ -43,6 +45,37 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
               file=sys.stderr)
     model = build_model(spec, dev, ckpt_path)
     return CodecRuntime(spec, model, stream_part=stream_part)
+
+
+def load_clip_codec(clip_ckpt: Optional[str] = None, device=None):
+    """The CLIP image codec on ``device``, from an open_clip checkpoint or,
+    without one, from the seeded initialisation (with a warning, as the
+    JAX CLI does)."""
+    from ..retrieval import ClipCodec, port_open_clip_weights
+    state = port_open_clip_weights(clip_ckpt) if clip_ckpt else None
+    if state is None:
+        print("[WARN] no --clip_ckpt given; CLIP embeddings are "
+              "non-calibrated (random weights)", file=sys.stderr)
+    return ClipCodec(state, device=device)
+
+
+def init_func(seed: int = 0) -> None:
+    """Determinism hook (reference: src/compress.py:314-319)."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def progress(iterable, total=None, desc=""):
+    """Yield from ``iterable``, printing the rate about 20 times."""
+    total = total if total is not None else (
+        len(iterable) if hasattr(iterable, "__len__") else None)
+    t0 = time.time()
+    for i, item in enumerate(iterable):
+        yield item
+        if total and (i + 1) % max(1, total // 20) == 0:
+            rate = (i + 1) / (time.time() - t0)
+            print(f"[{desc}] {i + 1}/{total} ({rate:.2f}/s)", file=sys.stderr,
+                  flush=True)
 
 
 def save_png(path, img) -> None:

@@ -4,8 +4,8 @@ the host driver of its real bitstream.
 Counterpart of the JAX package's ``models/bottleneck.py`` (reference:
 src/models/sq_bottleneck.py:55-253).  :class:`BottleneckCoder` runs the
 4-step autoregressive chain: every step evaluates the prior CNN, derives the
-step's CDF-index plane, and gets the symbol plane from the host coder or
-from the device rANS kernel.  Encode and decode call the SAME step
+step's CDF-index plane, and writes or reads the symbol plane with the host
+coder or the device rANS kernels.  Encode and decode call the SAME step
 functions at the SAME coding batch, so both sides walk bit-identical float
 trajectories on one device (the float-trajectory contract): deterministic
 kernels and no TF32 (see ``codec.configure_numerics``) are part of it.
@@ -26,6 +26,9 @@ from ..entropy.fourpart import (combine_for_writing, four_part_masks,
 from ..entropy.gaussian import build_indexes, lower_bound
 from ..ops.rans_decode import (pack_substreams, rans_decode_plane,
                                split_substreams, words_tensor)
+from ..ops.rans_encode import (encode_buffer_words, finalize_streams,
+                               frame_substreams, initial_state,
+                               rans_encode_plane, split_plane_rows)
 from .dcvc import DepthConvBlock4
 from .layers import Conv2d
 
@@ -183,22 +186,35 @@ class BottleneckCoder:
         return (full + means) * mask
 
     @staticmethod
-    def _pack_planes(planes) -> np.ndarray:
-        """[(sym, idx) x 4] -> one (4, 2, B, H, W, C/4) int16 host array."""
+    def _pack_planes(planes) -> torch.Tensor:
+        """[(sym, idx) x 4] -> one (4, 2, B, H, W, C/4) int16 tensor (the
+        int16 clamp is the native coder's symbol width), so the host path
+        crosses to the host once."""
         return torch.stack([
             torch.stack([torch.clamp(s, -30000, 30000).to(torch.int16),
-                         i.to(torch.int16)]) for s, i in planes]).cpu().numpy()
+                         i.to(torch.int16)]) for s, i in planes])
+
+    @staticmethod
+    def _prep_rows(sym_plane, idx_plane, real: int, nparts: int):
+        """(Bc, H, W, C/4) planes -> (real*nparts, n/nparts) int32 rows of
+        the device encode, with the host path's int16 clamp."""
+        s = torch.clamp(sym_plane[:real], -30000, 30000).to(torch.int32)
+        return split_plane_rows(s.reshape(real, -1),
+                                idx_plane[:real].to(torch.int32).reshape(real, -1),
+                                nparts)
 
     def _chunk_batches(self, B: int, Bc: Optional[int] = None):
         """[(start, real count)] covering B images in coding-batch chunks."""
         Bc = Bc or self.coding_batch
         return [(s, min(Bc, B - s)) for s in range(0, B, Bc)]
 
-    # -- encode (host coder) ------------------------------------------------
+    # -- encode ---------------------------------------------------------------
     @torch.no_grad()
     def _plan_chunk(self, yc, q_idx: int):
         """One coding-batch chunk of the encode chain: the 4-step prior walk
-        giving the symbol/index planes and the simulated reconstruction."""
+        giving the symbol/index planes and the simulated reconstruction.
+        Shared by the host-coder and device-coder encodes, which must stay
+        float-trajectory identical."""
         m = self.module
         y_t = m.encode_transform(yc, q_idx)
         quant_step, scales, means, common, idx0 = self._prior(
@@ -218,9 +234,10 @@ class BottleneckCoder:
                                                            step)
         return planes, m.decode_transform(y_hat_so_far * quant_step, q_idx)
 
-    def compress_plan_chunks(self, y, q_idx: int = 0):
-        """The encode chain per coding-batch chunk: ``[(start, real,
-        packed (4, 2, real, H, W, C/4) int16 numpy, y_hat), ...]``."""
+    def _plan_chunks(self, y, q_idx: int):
+        """``[(start, real, planes, y_hat), ...]``: the encode chain of
+        every coding-batch chunk, all enqueued on the device before any of
+        it is read back (chunks padded with zero images)."""
         B = y.shape[0]
         Bc = self.coding_batch
         out = []
@@ -231,12 +248,86 @@ class BottleneckCoder:
                                   dtype=y.dtype, device=y.device)
                 yc = torch.cat([yc, pad])
             planes, y_hat = self._plan_chunk(yc, q_idx)
-            out.append((start, real, self._pack_planes(planes)[:, :, :real],
-                        y_hat[:real]))
+            out.append((start, real, planes, y_hat[:real]))
         return out
 
-    def encode_packed(self, packed: np.ndarray) -> bytes:
-        """Host rANS over a packed-planes array."""
+    def compress_plan_chunks(self, y, q_idx: int = 0):
+        """The encode chain per coding-batch chunk: ``[(start, real,
+        packed (4, 2, real, H, W, C/4) int16 tensor, y_hat), ...]`` on the
+        device.  Every chunk is enqueued before this returns, so a caller
+        that reads chunk j back waits only for chunk j while the later
+        chunks compute."""
+        return [(start, real, self._pack_planes(planes)[:, :, :real], y_hat)
+                for start, real, planes, y_hat in self._plan_chunks(y, q_idx)]
+
+    def compress_plan(self, y, q_idx: int = 0):
+        """One-shot form of :meth:`compress_plan_chunks`: ``(packed,
+        y_hat)`` concatenated over the chunks."""
+        chunks = self.compress_plan_chunks(y, q_idx)
+        return (torch.cat([c[2] for c in chunks], dim=2),
+                torch.cat([c[3] for c in chunks]))
+
+    def can_compress_on_device(self, latent_shape) -> bool:
+        """The device encoder needs each image's plane to split evenly into
+        this coder's substreams; the runtime routes other shapes to the
+        host coder before anything launches."""
+        _B, H, W, C = latent_shape
+        return (H * W * (C // 4)) % self.stream_part == 0
+
+    def compress_device(self, y, q_idx: int = 0):
+        """Device chain + device rANS encode (kernel 4): the symbol and
+        index planes stay on the device and only the finished bytes come
+        back.  Returns ``(streams, y_hat)`` with one framed stream per
+        image, byte-identical to :meth:`encode_packed_many`.
+
+        The emission buffer starts at :func:`encode_buffer_words` (2 bytes
+        a position, where the JAX package stops and hands over to its host
+        coder) and doubles on overflow, up to the worst case the escape
+        rule allows (:func:`worst_case_bytes`); an overflow there is a bug
+        and raises.  A plane that does not split into the substreams raises
+        too: there is no host fallback here."""
+        nparts = self.stream_part
+        chunks = self._plan_chunks(y, q_idx)
+        y_hat = torch.cat([c[3] for c in chunks])
+        H, W, Cq = chunks[0][2][0][0].shape[1:]
+        if not self.can_compress_on_device((1, H, W, 4 * Cq)):
+            raise ValueError(f"a {H}x{W}x{Cq} plane does not split into "
+                             f"{nparts} substreams; use the host coder")
+        S = y.shape[0] * nparts
+        npos = H * W * Cq // nparts
+        rows = []
+        for step in range(4):
+            per_chunk = [self._prep_rows(planes[step][0], planes[step][1],
+                                         real, nparts)
+                         for _start, real, planes, _yh in chunks]
+            rows.append((torch.cat([r[0] for r in per_chunk]).contiguous(),
+                         torch.cat([r[1] for r in per_chunk]).contiguous()))
+        cdf, cdf_len, cdf_off = self._tables_on(y.device)
+        cap = -(-worst_case_bytes(4 * npos) // 4)
+        nwords = min(cap, encode_buffer_words(4 * npos))
+        while True:
+            words = torch.zeros((S, nwords), dtype=torch.int32, device=y.device)
+            state = initial_state(S, y.device)
+            for step in (3, 2, 1, 0):           # last in, first out
+                words, state = rans_encode_plane(*rows[step], words, state,
+                                                 cdf, cdf_len, cdf_off)
+            state_np = state.cpu().numpy()
+            if not state_np[:, 2].any():
+                break
+            if nwords >= cap:
+                raise RuntimeError(
+                    f"rANS encode overflowed its worst-case buffer of {cap} "
+                    f"words per substream")
+            nwords = min(2 * nwords, cap)
+        parts = finalize_streams(words.cpu().numpy(), state_np, S)
+        streams = [frame_substreams(parts[b * nparts:(b + 1) * nparts])
+                   for b in range(y.shape[0])]
+        return streams, y_hat
+
+    def encode_packed(self, packed) -> bytes:
+        """Host rANS over a packed-planes array (one stream for the whole
+        batch)."""
+        packed = _host(packed)
         with self.lock:
             self.coder.reset()
             for step in range(packed.shape[0]):
@@ -245,9 +336,10 @@ class BottleneckCoder:
             self.coder.flush()
             return self.coder.get_encoded_stream()
 
-    def encode_packed_many(self, packed: np.ndarray) -> list:
+    def encode_packed_many(self, packed) -> list:
         """One stream per image of a batched packed array (4, 2, B, ...),
         each from its own pooled native encoder."""
+        packed = _host(packed)
         out = []
         for b in range(packed.shape[2]):
             try:
@@ -266,10 +358,10 @@ class BottleneckCoder:
         return out
 
     def compress(self, y, q_idx: int = 0):
-        """y: (B, H, W, feat_dim) -> (one stream for the batch, y_hat)."""
-        chunks = self.compress_plan_chunks(y, q_idx)
-        packed = np.concatenate([c[2] for c in chunks], axis=2)
-        return self.encode_packed(packed), torch.cat([c[3] for c in chunks])
+        """y: (B, H, W, feat_dim) -> (one host-coded stream for the batch,
+        y_hat)."""
+        packed, y_hat = self.compress_plan(y, q_idx)
+        return self.encode_packed(packed), y_hat
 
     # -- decode ---------------------------------------------------------------
     @torch.no_grad()
@@ -420,3 +512,25 @@ class BottleneckCoder:
         finally:
             for item in coders:
                 self._dec_pool.put(item)
+
+
+def worst_case_bytes(npos: int) -> int:
+    """Most bytes one substream can emit for ``npos`` coded positions.
+
+    A position codes one symbol of at most 16 bits (its frequency is at
+    least 1 of 2^16) and, if it escapes, count entries and 2-bit bypass
+    chunks of 2 bits each.  Symbols are clamped to +-30000 and table
+    offsets lie in [-50, -2], so a bypass value stays below 2^16: at most
+    8 chunks and 3 count entries (8 = 3 + 3 + 2), 38 bits in all.
+    Renormalisation adds under 0.012 bit a symbol (the state is then at
+    least freq * 2^7, so rounding grows it by a factor under 1 + 2^-7),
+    and the state starts at 2^23 and never drops below it, so the bytes
+    emitted stay under 38.012 / 8 = 4.752 a position: 5 a position, plus
+    4, is a safe cap."""
+    return 5 * npos + 4
+
+
+def _host(packed) -> np.ndarray:
+    """Packed planes on the host (a device tensor is copied back once)."""
+    return packed.cpu().numpy() if isinstance(packed, torch.Tensor) \
+        else np.asarray(packed)

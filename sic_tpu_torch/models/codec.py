@@ -1,20 +1,23 @@
-"""Top-level codec, decode side, and its deployment runtime.
+"""Top-level codec and its deployment runtime.
 
 Counterpart of the JAX package's ``models/codec.py`` (reference:
-src/models/codec_sq_fixbpp.py:442-922).  :class:`Codec` holds the decode
-modules; :class:`CodecRuntime` decodes real bitstreams: the semantic (TiTok
-token) stream through a uniform-CDF rANS coder, the detail (h) stream
-through the bottleneck's autoregressive chain on the host coder or on the
-device rANS kernel, then the generative decode to pixels.
+src/models/codec_sq_fixbpp.py:442-922).  :class:`Codec` holds the encode
+and decode modules (not the VQGAN teacher encoder, which only training
+runs); :class:`CodecRuntime` turns images into real bitstreams and back:
+the semantic (TiTok token) stream through a uniform-CDF rANS coder, the
+detail (h) stream through the bottleneck's autoregressive chain on the host
+coder or on the device rANS kernels, then the generative decode to pixels.
 """
 from __future__ import annotations
 
 import queue
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import CodecSpec
@@ -48,19 +51,45 @@ def configure_numerics() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def get_padding_size(height: int, width: int, p: int = 256):
+    """Pad to a multiple of ``p``, right and bottom only, as ``(l, r, t, b)``
+    (reference: compression_model.py:13-22)."""
+    new_h = (height + p - 1) // p * p
+    new_w = (width + p - 1) // p * p
+    return 0, new_w - width, 0, new_h - height
+
+
+def pad_replicate(x: torch.Tensor, pads) -> torch.Tensor:
+    """NHWC replicate padding by ``(l, r, t, b)`` (the reference's F.pad
+    'replicate')."""
+    if not any(pads):
+        return x
+    return F.pad(x.permute(0, 3, 1, 2), tuple(pads),
+                 mode="replicate").permute(0, 2, 3, 1)
+
+
 class Codec(nn.Module):
-    """Hybrid decoder + VQGAN pixel decoder + prior fusion (decode side;
-    parameter names mirror the JAX package's tree)."""
+    """Hybrid codec + VQGAN pixel decoder + prior fusion (parameter names
+    mirror the JAX package's tree)."""
 
     def __init__(self, spec: CodecSpec):
         super().__init__()
         s = spec
         self.spec = spec
-        self.hybrid_codec = HybridCodec(s.titok, s.insert_pos_dec, s.feat_width,
+        self.hybrid_codec = HybridCodec(s.titok, s.insert_pos_enc,
+                                        s.insert_pos_dec, s.feat_width,
                                         s.quant_dim, s.num_attns)
         self.vqgan = VQGAN(s.vqgan)
         self.prior_fusion = FeatMerge(s.titok.width, s.feat_width,
                                       s.vqgan.n_embed, s.merge_inner_width)
+
+    def encode_stage(self, x01):
+        """[0, 1] padded image -> (z token indices (BT, n_latent), detail
+        latent (B, H/32, W/32, feat_width), stack_shape)."""
+        hc = self.hybrid_codec
+        z, h, stack_shape = hc.encoder(x01, hc.latent_tokens)
+        _z_q, idx = hc.quantize(z)
+        return idx, h, stack_shape
 
     def decode_to_latent(self, titok_hat, feat_hat):
         """Soft codebook mixture from fused logits
@@ -96,14 +125,88 @@ def _nhwc_feat_shape(feat_shape, feat_width: int):
     return fs
 
 
+class EncodeRouter:
+    """Encode-path policy: host coder (fetch the packed planes, native
+    rANS) or device coder (rANS kernel, fetch only the finished stream).
+
+    Pure host-side state machine, ported as is from the JAX package, so
+    both packages route the same feed the same way:
+
+    1. Route on the realized host cost: ``host_spb`` is an EMA of seconds
+       per byte over actual packed-plane fetches.
+    2. Asymmetric adaptation: a worse-than-EMA observation weighs 0.7, a
+       better one 0.3.
+    3. Minority-path exploration: the kernel-cost EMA updates only on the
+       device path and the link cost only on the host path, so every
+       ``explore_every``-th decision takes the minority path.
+
+    The default priors (seconds of kernel walk per coding chunk, the
+    packed/stream byte ratio) are the JAX package's values, kept so that
+    routing agrees; they describe no measurement of this port."""
+
+    def __init__(self, dev_chunk_s: float = 0.09, dev_shrink: float = 8.0,
+                 explore_every: int = 16):
+        self.host_spb: Optional[float] = None   # realized host s/byte EMA
+        self.link_bw: Optional[float] = None    # bytes/s EMA (observability)
+        self.dev_chunk_s = dev_chunk_s          # kernel s/chunk EMA
+        self.dev_shrink = dev_shrink            # packed/stream byte ratio EMA
+        self.explore_every = explore_every
+        self._n = 0                             # auto decisions taken
+        self.last_explored = False              # observability
+
+    def note_fetch(self, nbytes: int, secs: float) -> None:
+        """Feed a realized device->host fetch (large transfers only: small
+        ones measure latency, not the transfer cost)."""
+        if nbytes < (1 << 18) or secs <= 0:
+            return
+        bw = nbytes / secs
+        self.link_bw = (bw if self.link_bw is None
+                        else 0.5 * self.link_bw + 0.5 * bw)
+        spb = secs / nbytes
+        if self.host_spb is None:
+            self.host_spb = spb
+        elif spb > self.host_spb:
+            self.host_spb = 0.3 * self.host_spb + 0.7 * spb
+        else:
+            self.host_spb = 0.7 * self.host_spb + 0.3 * spb
+
+    def note_device_encode(self, dev_s: float, stream_bytes: int,
+                           packed_bytes: int, n_chunks: int) -> None:
+        """Feed a realized device-path encode (kernel walk + stream fetch)."""
+        if self.host_spb is not None:
+            kern = max(dev_s - stream_bytes * self.host_spb, 1e-3)
+            self.dev_chunk_s = (0.5 * self.dev_chunk_s
+                                + 0.5 * kern / max(n_chunks, 1))
+        if packed_bytes and stream_bytes:
+            self.dev_shrink = (0.5 * self.dev_shrink
+                               + 0.5 * packed_bytes / stream_bytes)
+
+    def decide(self, packed_bytes: int, n_chunks: int) -> bool:
+        """True -> device path.  Call only for auto-routable batches."""
+        if self.host_spb is None:
+            self.last_explored = False
+            return False                 # the first batch measures the link
+        t_host = packed_bytes * self.host_spb
+        t_dev = (n_chunks * self.dev_chunk_s
+                 + packed_bytes / self.dev_shrink * self.host_spb)
+        choice = t_dev < t_host
+        self._n += 1
+        self.last_explored = bool(
+            self.explore_every and self._n % self.explore_every == 0)
+        if self.last_explored:
+            choice = not choice
+        return choice
+
+
 class CodecRuntime:
-    """Host driver of the real-bitstream decode (reference:
+    """Host side of the real-bitstream encode and decode (reference:
     codec_sq_fixbpp.py:849-922).
 
     ``device_entropy``: ``"auto"`` decodes the h stream with the device
-    rANS kernel on CUDA when the stream has >= 4 substreams, else with the
-    host coder; ``"device"`` forces the kernel path (on the CPU: its plain
-    version), ``"host"`` the host coder."""
+    rANS kernel on CUDA when the stream has >= 4 substreams, and lets
+    :class:`EncodeRouter` pick the encode path on CUDA; ``"device"`` forces
+    the kernel paths (on the CPU: their plain versions), ``"host"`` the
+    host coder."""
 
     def __init__(self, spec: CodecSpec, model: Codec, stream_part: int = 1,
                  device_entropy: str = "auto"):
@@ -127,8 +230,10 @@ class CodecRuntime:
         self._z_cdf[0, -1] = 1 << precision
         self._z_pool: "queue.SimpleQueue" = queue.SimpleQueue()
         self._z_pool.put(self._new_z_coder())
-        # host-side z decoding overlaps the h decode
+        # host-side z coding overlaps the h chain
         self._io = ThreadPoolExecutor(max_workers=4, thread_name_prefix="sic-z")
+        self.router = EncodeRouter()
+        self.encode_path_counts = {"device": 0, "host": 0}
 
     def close(self) -> None:
         self._io.shutdown(wait=True)
@@ -186,6 +291,25 @@ class CodecRuntime:
             return True
         nparts = (h_bit_stream[0] >> 4) + 1
         return self.device.type == "cuda" and nparts >= 4
+
+    def _use_device_encode(self, packed_bytes: int, n_chunks: int,
+                           latent_shape) -> bool:
+        """Route an encode batch: the device coder when the predicted
+        kernel walk beats the packed-plane fetch at the realized host cost
+        (on CUDA), or when forced.  A plane that does not split into the
+        substreams goes to the host coder before anything launches."""
+        if self.device_entropy == "host":
+            return False
+        if not self.h_coder.can_compress_on_device(latent_shape):
+            return False
+        if self.device_entropy == "device":
+            return True
+        if self.device.type != "cuda":
+            return False
+        return self.router.decide(packed_bytes, n_chunks)
+
+    def _count_path(self, use_dev: bool) -> None:
+        self.encode_path_counts["device" if use_dev else "host"] += 1
 
     @staticmethod
     def _check_coding_batch(cb):
@@ -273,32 +397,133 @@ class CodecRuntime:
         z = torch.from_numpy(z_future.result()).to(self.device)
         return self._decode_pixels(z, h_hat, first["stack_shape"], output)
 
-    # -- encode of the detail stream (host coder) -----------------------------
-    def encode_features(self, y: torch.Tensor, stack_shape: Tuple[int, int],
-                        z_indices: np.ndarray) -> list:
-        """Bitstreams for given detail features and semantic tokens, one
-        per image: y (B, H/32, W/32, feat_width) on the device, z_indices
-        (B * tiles, n_latent) int.  The pixel encoder is not ported yet;
-        this is the bottleneck's host encode the decoder must invert.
-        Returns ``decode_only`` keyword dicts with ``y_hat`` (the encoder's
-        reconstruction, which a decode must reproduce bit for bit)."""
-        B, Hf, Wf, _ = y.shape
-        n_tiles = stack_shape[0] * stack_shape[1]
-        tp = self.spec.tile_px
-        out = []
-        for start, real, packed, y_hat in self.h_coder.compress_plan_chunks(y):
-            streams = self.h_coder.encode_packed_many(packed)
-            for k, stream in enumerate(streams):
-                b = start + k
-                z = z_indices[b * n_tiles:(b + 1) * n_tiles]
-                out.append({
-                    "z_bit_stream": self.encode_z(z),
-                    "h_bit_stream": stream,
-                    "img_shape": (stack_shape[0] * tp, stack_shape[1] * tp),
-                    "feat_shape": (1, Hf, Wf, int(y.shape[-1])),
-                    "stack_shape": tuple(stack_shape),
-                    "token_length": int(z.size),
-                    "z_indices_shape": tuple(z.shape),
-                    "y_hat": y_hat[k:k + 1],
-                })
+    # -- encode entry points ----------------------------------------------------
+    def _fetch_packed(self, packed: torch.Tensor) -> np.ndarray:
+        """Packed planes to the host, feeding the router the realized cost."""
+        t0 = time.perf_counter()
+        out = packed.cpu().numpy()
+        self.router.note_fetch(out.nbytes, time.perf_counter() - t0)
         return out
+
+    def _images(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+    @torch.no_grad()
+    def encode_only(self, x, probe: Optional[Dict] = None) -> Dict:
+        """x: (B, H, W, 3) in [-1, 1], H and W multiples of the tile.  One
+        stream pair for the batch.  ``probe`` (optional dict) receives
+        ``y_hat``, the reconstruction a decode must reproduce bit for bit,
+        and ``h_path``."""
+        x = self._images(x)
+        B, H, W, _ = x.shape
+        q = self.spec.quant_dim
+        latent_shape = (B, H // 32, W // 32, q)
+        # only a single image may take the device coder here: it writes one
+        # stream per image, this entry point one stream per batch
+        use_dev = B == 1 and self._use_device_encode(
+            4 * (H // 32) * (W // 32) * q, 1, latent_shape)
+        self._count_path(use_dev)
+        z_indices, h, _ = self.model.encode_stage(x * 0.5 + 0.5)
+        stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
+        if use_dev:
+            streams, y_hat = self.h_coder.compress_device(h)
+            h_bit_stream = streams[0]
+        else:
+            packed, y_hat = self.h_coder.compress_plan(h)
+            h_bit_stream = self.h_coder.encode_packed(self._fetch_packed(packed))
+        if probe is not None:
+            probe["y_hat"] = y_hat
+            probe["h_path"] = "device" if use_dev else "host"
+        z_np = z_indices.cpu().numpy()
+        return {
+            "z_bit_stream": self.encode_z(z_np),
+            "h_bit_stream": h_bit_stream,
+            "img_shape": (H, W),
+            "feat_shape": tuple(h.shape),
+            "stack_shape": stack_shape,
+            "token_length": int(z_np.size),
+            "z_indices_shape": tuple(z_np.shape),
+        }
+
+    @torch.no_grad()
+    def encode_only_batched(self, x, probe: Optional[Dict] = None) -> list:
+        """Batched encode: one device pass for B images, then B independent
+        per-image bitstreams (each decodable alone).  The throughput path
+        for corpus indexing.
+
+        On the host path the work streams per coding-batch chunk: every
+        chunk's chain is enqueued first, then chunk j's packed planes come
+        back as soon as its chain completes and go to the host rANS on a
+        worker thread while chunks j+1.. still compute (the native coder
+        releases the GIL).  ``probe`` as for :meth:`encode_only`."""
+        x = self._images(x)
+        B, H, W, _ = x.shape
+        if B == 1:
+            # single requests take the latency path, field-compatible
+            return [self.encode_only(x, probe=probe)]
+        stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
+        n_tiles = stack_shape[0] * stack_shape[1]
+        z_indices, h, _ = self.model.encode_stage(x * 0.5 + 0.5)
+        n_chunks = len(self.h_coder._chunk_batches(B))
+        q = self.spec.quant_dim
+        packed_bytes = 4 * B * int(h.shape[1]) * int(h.shape[2]) * q
+        use_dev = self._use_device_encode(
+            packed_bytes, n_chunks, (B, int(h.shape[1]), int(h.shape[2]), q))
+        self._count_path(use_dev)
+
+        def _z_all():
+            z_np = z_indices.cpu().numpy()
+            return [self.encode_z(z_np[b * n_tiles:(b + 1) * n_tiles])
+                    for b in range(B)]
+
+        if use_dev:
+            t0 = time.perf_counter()
+            h_streams, y_hat = self.h_coder.compress_device(h)
+            self.router.note_device_encode(
+                time.perf_counter() - t0, sum(len(s) for s in h_streams),
+                packed_bytes, n_chunks)
+            z_streams = _z_all()
+        else:
+            chunk_plans = self.h_coder.compress_plan_chunks(h)
+            z_future = self._io.submit(_z_all)
+            h_streams: list = [None] * B
+            pending = []
+            for start, real, packed_dev, _yh in chunk_plans:
+                packed = self._fetch_packed(packed_dev)    # waits for this chunk
+                pending.append((start, real, self._io.submit(
+                    self.h_coder.encode_packed_many, packed)))
+            for start, real, fut in pending:
+                h_streams[start:start + real] = fut.result()
+            z_streams = z_future.result()
+            y_hat = torch.cat([c[3] for c in chunk_plans])
+        if probe is not None:
+            probe["y_hat"] = y_hat
+            probe["h_path"] = "device" if use_dev else "host"
+        feat_shape_1 = (1, int(h.shape[1]), int(h.shape[2]), int(h.shape[3]))
+        n_latent = int(z_indices.shape[-1])
+        return [{
+            "z_bit_stream": z_streams[b],
+            "h_bit_stream": h_streams[b],
+            "img_shape": (H, W),
+            "feat_shape": feat_shape_1,
+            "stack_shape": stack_shape,
+            "token_length": n_tiles * n_latent,
+            "z_indices_shape": (n_tiles, n_latent),
+        } for b in range(B)]
+
+    def encode_decode(self, x, original_shape: Tuple[int, int]):
+        """Round trip with bpp accounting (reference:
+        codec_sq_fixbpp.py:904-922)."""
+        enc_result = self.encode_only(x)
+        x_hat = self.decode_only(**enc_result)
+        z_bits = len(enc_result["z_bit_stream"]) * 8
+        h_bits = len(enc_result["h_bit_stream"]) * 8
+        overhead_bits = 8 * 6  # 4 B height/width + 2 B token-stream length
+        h, w = original_shape
+        bpp_dict = {
+            "z_bpp": z_bits / (h * w),
+            "h_bpp": h_bits / (h * w),
+            "overhead_bpp": overhead_bits / (h * w),
+            "total_bpp": (z_bits + h_bits + overhead_bits) / (h * w),
+        }
+        return x_hat, bpp_dict, enc_result

@@ -1,11 +1,10 @@
-"""Hybrid TiTok + detail-branch codec, decode side (NHWC, tile-batched).
+"""Hybrid TiTok + detail-branch codec (NHWC, tile-batched).
 
 Counterpart of the JAX package's ``models/hybrid.py`` (reference:
-src/models/codec_sq_fixbpp.py:186-439): the TiTok ViT decoder interleaved
-with the detail branch's cross-attention and refiners, and FeatMerge, the
-prior fusion into VQGAN codebook logits.  Images are tiled into 256-px
-tiles that form one batch axis.  The encoder (``HybridEncoder``) is not
-ported yet.
+src/models/codec_sq_fixbpp.py:48-439): the TiTok ViT encoder and decoder,
+each interleaved with the detail branch's cross-attention and refiners, and
+FeatMerge, the prior fusion into VQGAN codebook logits.  Images are tiled
+into 256-px tiles that form one batch axis.
 """
 from __future__ import annotations
 
@@ -18,7 +17,8 @@ from torch import nn
 from ..config import TiTokSpec
 from .bottleneck import CompressiveBottleneck
 from .convnext import ConvNeXtBlock
-from .cross import InteractiveCrossAttn, tokens_to_tile_nhwc
+from .cross import (InteractiveCrossAttn, tile_nhwc_to_tokens,
+                    tokens_to_tile_nhwc)
 from .layers import Conv2d, LayerNorm, ResidualAttentionBlock
 from .quantizer import L2VectorQuantizer
 from .swin import SwinStack
@@ -48,6 +48,77 @@ class FeatBlock(nn.Module):
 
 def _scaled_normal(shape, scale: float) -> nn.Parameter:
     return nn.Parameter(scale * torch.randn(shape))
+
+
+class HybridEncoder(nn.Module):
+    """TiTok ViT encoder interleaved with the detail branch
+    (reference: codec_sq_fixbpp.py:48-183)."""
+
+    def __init__(self, spec: TiTokSpec, insert_pos: Tuple[int, ...],
+                 feat_width: int, num_attns: int = 2):
+        super().__init__()
+        s = spec
+        self.spec = spec
+        self.insert_pos = tuple(p for p in insert_pos if p < s.num_layers)
+        scale = s.width ** -0.5
+        self.patch_embed = Conv2d(3, s.width, s.patch_size, stride=s.patch_size)
+        self.class_embedding = _scaled_normal((1, s.width), scale)
+        self.positional_embedding = _scaled_normal((s.grid_size ** 2 + 1, s.width), scale)
+        self.latent_token_positional_embedding = _scaled_normal(
+            (s.num_latent_tokens, s.width), scale)
+        self.ln_pre = LayerNorm(s.width)
+        self.transformer = nn.ModuleList(
+            ResidualAttentionBlock(s.width, s.num_heads) for _ in range(s.num_layers))
+        self.ln_post = LayerNorm(s.width)
+        self.conv_out = nn.Linear(s.width, s.token_size)
+        self.pix_emb_proj = nn.Linear(s.width, feat_width)
+        self.feat_in = SwinStack(feat_width, 4)
+        self.inter_blocks = nn.ModuleDict({
+            str(i): InteractiveCrossAttn(s.width, feat_width, num_attns,
+                                         s.grid_size, s.grid_size,
+                                         s.num_latent_tokens + 1)
+            for i in self.insert_pos})
+        self.feat_blocks = nn.ModuleDict({str(i): FeatBlock(feat_width)
+                                          for i in self.insert_pos})
+        self.feat_out_swin = SwinStack(feat_width, 2)
+        self.feat_out_down = Conv2d(feat_width, feat_width, 2, stride=2)
+        self.feat_out_ln = LayerNorm(feat_width)
+        self.feat_out_fc = nn.Linear(feat_width, feat_width)
+
+    def forward(self, pixel_values, latent_tokens):
+        """pixel_values: (B, H, W, 3) in [0, 1], H and W multiples of the
+        tile; latent_tokens: (num_latent_tokens, width).  Returns (z (BT,
+        n_latent, token_size), feat (B, H/32, W/32, feat_width),
+        stack_shape)."""
+        s = self.spec
+        x_emb = self.patch_embed(pixel_values)            # (B, H/16, W/16, width)
+        feat_emb = self.pix_emb_proj(x_emb)
+        x, stack_shape = tile_nhwc_to_tokens(x_emb, s.grid_size)
+        BT = x.shape[0]
+        cls = self.class_embedding.expand(BT, 1, s.width)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        lat = latent_tokens[None].expand(BT, s.num_latent_tokens, s.width) \
+            + self.latent_token_positional_embedding
+        x = torch.cat([x, lat], dim=1)                    # (BT, 1+256+n, width)
+
+        feat = self.feat_in(feat_emb)
+        x = self.ln_pre(x)
+        for i, blk in enumerate(self.transformer):
+            x = blk(x)
+            if i in self.insert_pos:
+                feat, x = self.inter_blocks[str(i)](feat, x, stack_shape)
+                feat = self.feat_blocks[str(i)](feat)
+
+        z = self.ln_post(x[:, 1 + s.grid_size ** 2:])
+        # TiTok's "fake 2D" projection: the torch original reshapes
+        # (BT, N, width) row-major to (BT, width, N, 1) before its 1x1
+        # conv_out, a channel scramble that trained weights expect
+        # (reference: titok/blocks.py:140-143)
+        BT2, N, Wd = z.shape
+        z = self.conv_out(z.reshape(BT2, Wd, N).transpose(1, 2))
+
+        feat = self.feat_out_down(self.feat_out_swin(feat))  # stride 16 -> 32
+        return z, self.feat_out_fc(self.feat_out_ln(feat)), stack_shape
 
 
 class HybridDecoder(nn.Module):
@@ -139,13 +210,17 @@ class FeatMerge(nn.Module):
 
 
 class HybridCodec(nn.Module):
-    """Decoder + semantic codebook + detail bottleneck (the decode half of
-    reference: codec_sq_fixbpp.py:303-392)."""
+    """Encoder + decoder + semantic quantizer + detail bottleneck
+    (reference: codec_sq_fixbpp.py:303-392)."""
 
-    def __init__(self, spec: TiTokSpec, insert_pos_dec: Tuple[int, ...],
-                 feat_width: int, quant_dim: int, num_attns: int = 2):
+    def __init__(self, spec: TiTokSpec, insert_pos_enc: Tuple[int, ...],
+                 insert_pos_dec: Tuple[int, ...], feat_width: int,
+                 quant_dim: int, num_attns: int = 2):
         super().__init__()
+        self.encoder = HybridEncoder(spec, insert_pos_enc, feat_width, num_attns)
         self.decoder = HybridDecoder(spec, insert_pos_dec, feat_width, num_attns)
+        self.latent_tokens = _scaled_normal((spec.num_latent_tokens, spec.width),
+                                            spec.width ** -0.5)
         self.quantize = L2VectorQuantizer(spec.codebook_size, spec.token_size,
                                           spec.use_l2_norm)
         self.quantize_feat = CompressiveBottleneck(feat_width, quant_dim)

@@ -1,7 +1,7 @@
-"""Codebooks of the decode path: the semantic stream's l2-normalized
-codebook (reference: src/titok/quantizer.py:30-95) and the VQGAN codebook
-(reference: src/taming/modules/vqvae/quantize.py:213-330).  The encode-side
-nearest-code search is not ported yet."""
+"""Codebooks: the semantic stream's l2-normalized vector quantizer
+(reference: src/titok/quantizer.py:30-95) and the VQGAN codebook
+(reference: src/taming/modules/vqvae/quantize.py:213-330).  Inference only:
+the training losses are not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +10,15 @@ from torch import nn
 
 def _l2n(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), eps)
+
+
+def nearest_code(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """argmin_j ||z - c_j||^2 as the argmax of ``2 z.c_j - ||c_j||^2``, in
+    fp32, the JAX package's formula, so near-ties break the same way."""
+    z32 = z_flat.float()
+    cb32 = codebook.float()
+    scores = 2.0 * (z32 @ cb32.T) - torch.sum(cb32 * cb32, dim=-1)[None, :]
+    return torch.argmax(scores, dim=-1)
 
 
 class L2VectorQuantizer(nn.Module):
@@ -23,6 +32,22 @@ class L2VectorQuantizer(nn.Module):
 
     def codebook(self) -> torch.Tensor:
         return _l2n(self.embedding) if self.use_l2_norm else self.embedding
+
+    def forward(self, z: torch.Tensor):
+        """z: (B, N, token_size) -> (z_q, indices (B, N)), quantized in fp32
+        whatever the input type."""
+        B, N, C = z.shape
+        z32 = z.float()
+        z_flat = z32.reshape(-1, C)
+        if self.use_l2_norm:
+            z_flat = _l2n(z_flat)
+        cb = self.codebook()
+        idx = nearest_code(z_flat, cb)
+        z_q = cb[idx].reshape(B, N, C)
+        z_cmp = _l2n(z32) if self.use_l2_norm else z32
+        # the straight-through sum of the JAX package, kept for its floats
+        z_q = z_cmp + (z_q - z_cmp)
+        return z_q.to(z.dtype), idx.reshape(B, N)
 
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """(..,) int -> (.., token_size), l2-normalized to match encode."""

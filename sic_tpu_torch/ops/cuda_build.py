@@ -22,7 +22,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("seq_attention", "window_attention", "rans_decode")
+KERNELS = ("seq_attention", "window_attention", "rans_decode", "rans_encode")
 _HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

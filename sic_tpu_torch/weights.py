@@ -22,11 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-# leaves of the encode side, which the decode-only port does not hold
-ENCODER_PREFIXES = ("params/hybrid_codec/encoder/",
-                    "params/hybrid_codec/latent_tokens",
-                    "params/vqgan/encoder/",
-                    "params/vqgan/quant_conv/")
+# leaves of the VQGAN teacher encoder, which only training runs (the
+# port's Codec does not hold it)
+TEACHER_PREFIXES = ("params/vqgan/encoder/", "params/vqgan/quant_conv/")
 
 
 def flax_key(torch_name: str, module: nn.Module) -> str:

@@ -99,8 +99,6 @@ def tiny512():
     jspec = jtiny(insert_pos_enc=(0, 1), insert_pos_dec=(0, 1))
     params = {"params": unflatten_dict(export_flax_params(rt.model),
                                        sep="/")["params"]}
-    # an encode-side leaf the flax setup asks for; the decode never reads it
-    params["params"]["hybrid_codec"]["latent_tokens"] = jnp.zeros((8, 128))
     jrt = JRuntime(jspec, params, stream_part=4)
     y = (2.0 * rng.standard_normal((3, 16, 16, 64))).astype(np.float32)
     packed, _ = jrt.h_coder.compress_plan(jnp.asarray(y))
@@ -146,18 +144,23 @@ def test_tiny_512_batched_decode_matches_jax_and_single(tiny512):
 
 
 def test_port_encode_features_round_trip(tiny512):
-    """The port's own host encode (used to make the flagship streams on the
-    card): every decode reproduces the encoder's y_hat bit for bit."""
+    """The port's own encode of images (one 256x512 image, and a batch of
+    2): every decode, single or batched, reproduces the encoder's y_hat
+    bit for bit."""
     rt, _jrt, _ = tiny512
     rng = np.random.default_rng(5)
-    y = torch.from_numpy((2.0 * rng.standard_normal((2, 8, 24, 64)))
-                         .astype(np.float32))
-    z = rng.integers(0, 64, (6, 8))
-    encs = rt.encode_features(y, (1, 3), z)
-    for enc in encs:
-        probe = {}
-        rt.decode_only(**enc, coding_batch=8, probe=probe)
-        assert torch.equal(probe["h_hat"], enc["y_hat"])
+    x = np.clip(rng.standard_normal((2, 256, 512, 3)), -1, 1).astype(np.float32)
     probe = {}
-    rt.decode_only_batched([dict(e, coding_batch=8) for e in encs], probe=probe)
-    assert torch.equal(probe["h_hat"], torch.cat([e["y_hat"] for e in encs]))
+    enc = rt.encode_only(x[:1], probe=probe)
+    out = {}
+    rt.decode_only(**enc, coding_batch=8, probe=out)
+    assert torch.equal(out["h_hat"], probe["y_hat"])
+    probe = {}
+    encs = rt.encode_only_batched(x, probe=probe)
+    for b, e in enumerate(encs):
+        out = {}
+        rt.decode_only(**e, coding_batch=8, probe=out)
+        assert torch.equal(out["h_hat"], probe["y_hat"][b:b + 1])
+    out = {}
+    rt.decode_only_batched([dict(e, coding_batch=8) for e in encs], probe=out)
+    assert torch.equal(out["h_hat"], probe["y_hat"])

@@ -6,8 +6,8 @@ have no CPU mode).  The file imports no JAX, so on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Attention kernels agree with their plain versions within 1e-4 in fp32
-(summation order only); the rANS kernel agrees with the native decoder and
-with its plain version exactly.
+(summation order only); the rANS kernels agree with the native coder and
+with their plain versions exactly.
 """
 from pathlib import Path
 
@@ -131,3 +131,106 @@ def test_golden_stream_on_the_card(cuda):
                   - np.load(GOLDEN / "expected_u8.npz")["u8"].astype(np.int32))
     assert diff.max() <= 1
     assert (diff != 0).mean() < 1e-3
+
+
+def _encode_planes(rng, t, B, n, escape_rate=0.1):
+    planes = []
+    for _ in range(4):
+        idx = rng.integers(0, t.levels, (B, n)).astype(np.int16)
+        idx[rng.random((B, n)) < 0.2] = -1
+        sym = rng.integers(-6, 7, (B, n)).astype(np.int16)
+        esc = rng.random((B, n)) < escape_rate
+        sym[esc] = rng.integers(-30000, 30001, int(esc.sum())).astype(np.int16)
+        sym[idx < 0] = 0
+        planes.append((sym, idx))
+    return planes
+
+
+@pytest.mark.parametrize("B,nparts,npos", [(1, 4, 1024), (8, 4, 256), (3, 8, 100)])
+def test_rans_encode_kernel_matches_native_and_plain(cuda, B, nparts, npos):
+    """Four planes last to first, skips and escapes up to the int16 clamp:
+    the kernel's bytes equal the native encoder's and the plain version's,
+    and so do the final states."""
+    from sic_tpu_torch.models.bottleneck import worst_case_bytes
+    from sic_tpu_torch.ops import rans_encode as renc
+    t = build_gaussian_tables("gaussian")
+    n = nparts * npos
+    planes = _encode_planes(np.random.default_rng(B * npos), t, B, n)
+    want = []
+    for b in range(B):
+        coder = EntropyCoder(nparts)
+        g = coder.add_cdf(t.quantized_cdf, t.cdf_length, t.offset)
+        coder.reset()
+        for sym, idx in planes:
+            coder.encode_with_indexes(sym[b], idx[b], g)
+        coder.flush()
+        want.append(coder.get_encoded_stream())
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+              for a in (t.quantized_cdf, t.cdf_length, t.offset)]
+    S = B * nparts
+    nwords = -(-worst_case_bytes(4 * npos) // 4)
+    out = {}
+    for name, fn in (("kernel", ops.rans_encode_plane),
+                     ("plain", ops.rans_encode_plane_plain)):
+        words = torch.zeros((S, nwords), dtype=torch.int32, device=cuda)
+        st = renc.initial_state(S, cuda)
+        for sym, idx in reversed(planes):
+            rows = [torch.from_numpy(a.astype(np.int32).reshape(S, npos)).to(cuda)
+                    for a in (sym, idx)]
+            words, st = fn(*rows, words, st, *tables)
+        out[name] = (words.cpu().numpy(), st.cpu().numpy())
+    np.testing.assert_array_equal(out["kernel"][1], out["plain"][1])
+    parts = renc.finalize_streams(*out["kernel"], S)
+    assert parts == renc.finalize_streams(*out["plain"], S)
+    got = [renc.frame_substreams(parts[b * nparts:(b + 1) * nparts])
+           for b in range(B)]
+    assert got == want
+
+
+def test_device_encode_doubles_and_matches_host_on_the_card(cuda, monkeypatch):
+    """The bottleneck's device encode from a buffer of 4 words a substream: it
+    doubles on the card until the streams fit and then equals the host
+    coder's bytes; each attempt launches the kernel once a plane."""
+    from sic_tpu_torch.models import bottleneck
+    from sic_tpu_torch.models.bottleneck import (BottleneckCoder,
+                                                 CompressiveBottleneck)
+    from sic_tpu_torch.weights import init_seeded
+    monkeypatch.setattr(bottleneck, "encode_buffer_words", lambda npos: 4)
+    with torch.device(cuda):
+        m = CompressiveBottleneck(64, 16)
+    init_seeded(m, 0)
+    coder = BottleneckCoder(m.eval().requires_grad_(False), stream_part=4)
+    y = _randn((3, 8, 8, 64), 2, cuda)
+    packed, y_hat = coder.compress_plan(y)
+    host = coder.encode_packed_many(packed)
+    before = ops.launch_counts()["rans_encode_plane"]
+    streams, y_hat_dev = coder.compress_device(y)
+    launches = ops.launch_counts()["rans_encode_plane"] - before
+    assert streams == host
+    assert torch.equal(y_hat_dev, y_hat)
+    assert launches > 4 and launches % 4 == 0
+
+
+def test_golden_input_encodes_on_the_card(cuda):
+    """golden_input() under the golden params on the card: the kernel's
+    stream equals the host coder's and decodes back to the encoder's
+    y_hat.  Whether it equals golden.c2df is not asserted (a float flip
+    across frameworks is the known limit); the CPU test asserts that."""
+    import sys
+    from sic_tpu_torch.cli._common import load_runtime
+    from sic_tpu_torch.config import tiny_spec
+    sys.path.insert(0, str(GOLDEN.parents[1]))
+    from fixtures.golden.generate import golden_input
+    rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
+                      stream_part=1)
+    encs, probes = {}, {}
+    for path in ("host", "device"):
+        rt.device_entropy = path
+        probes[path] = {}
+        encs[path] = rt.encode_only(golden_input()[None], probe=probes[path])
+    assert encs["host"]["h_bit_stream"] == encs["device"]["h_bit_stream"]
+    assert encs["host"]["z_bit_stream"] == encs["device"]["z_bit_stream"]
+    out = {}
+    rt.decode_only(**encs["device"], coding_batch=8, probe=out)
+    rt.close()
+    assert torch.equal(out["h_hat"], probes["device"]["y_hat"])

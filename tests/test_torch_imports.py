@@ -26,7 +26,15 @@ def _imported_roots(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def _source_id(path: Path) -> str:
+    """The file's name; a module of ``retrieval/`` with its package too,
+    since ``retrieval/codec.py`` repeats ``models/codec.py``'s name."""
+    rel = path.relative_to(ROOT).parts
+    return "/".join(rel[1:]) if rel[:2] == ("sic_tpu_torch", "retrieval") \
+        else path.name
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=_source_id)
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_roots(path)
            if m.split(".")[0] in FORBIDDEN]

@@ -117,6 +117,118 @@ def test_quantizers():
     _close(m.decode_indices(torch.from_numpy(idx)), ref)
 
 
+def test_l2_quantizer_encode():
+    """Nearest-code search: indices exactly, z_q within 1e-4."""
+    from sic_tpu.models.quantizer import L2VectorQuantizer as JL2
+    from sic_tpu_torch.models.quantizer import L2VectorQuantizer
+    m = _randomize(L2VectorQuantizer(64, 8), 21)
+    z = _x((6, 8, 8), 22)
+    z_q_ref, info = JL2(64, 8).apply(_flax_vars(m), jnp.asarray(z))
+    z_q, idx = m(torch.from_numpy(z))
+    np.testing.assert_array_equal(idx.numpy(),
+                                  np.asarray(info["min_encoding_indices"]))
+    _close(z_q, z_q_ref)
+    assert len(np.unique(idx.numpy())) > 8
+
+
+def test_hybrid_encoder_and_encode_stage():
+    """Inserts at layers 0 and 1 on a 512x512 image (2x2 tiles): the patch
+    embed, class/position/latent embeddings, cross-attention, refiners,
+    the stride-2 feat_out_down and TiTok's channel scramble all run; z
+    within 1e-4, the VQ indices of the whole encode stage exactly."""
+    from sic_tpu.config import tiny_spec as jtiny
+    from sic_tpu.models.codec import Codec as JCodec
+    from sic_tpu.models.hybrid import HybridEncoder as JEnc
+    from sic_tpu_torch.models import Codec
+    from sic_tpu_torch.models.hybrid import HybridEncoder
+    js = jtiny(insert_pos_enc=(0, 1))
+    ts = tcfg.tiny_spec(insert_pos_enc=(0, 1))
+    enc = _randomize(HybridEncoder(ts.titok, ts.insert_pos_enc, 64), 23)
+    x = np.random.default_rng(24).random((1, 512, 512, 3)).astype(np.float32)
+    lat = _x((8, 128), 25, 128 ** -0.5)
+    z_ref, f_ref, stack = JEnc(js.titok, js.insert_pos_enc, 64).apply(
+        _flax_vars(enc), jnp.asarray(x), jnp.asarray(lat))
+    z, f, stack_t = enc(torch.from_numpy(x), torch.from_numpy(lat))
+    assert tuple(stack) == stack_t == (2, 2)
+    assert tuple(f.shape) == (1, 16, 16, 64)
+    _close(z, z_ref)
+    _close(f, f_ref)
+
+    codec = _randomize(Codec(ts), 26)
+    vars_ = _flax_vars(codec)
+    idx_ref, h_ref, _ = JCodec(js).apply(vars_, jnp.asarray(x),
+                                         method=JCodec.encode_stage)
+    idx, h, _ = codec.encode_stage(torch.from_numpy(x))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
+    _close(h, h_ref)
+
+
+def _clip_spec(jax_pkg: bool):
+    mod = __import__("sic_tpu.retrieval.clip_model" if jax_pkg else
+                     "sic_tpu_torch.retrieval.clip_model", fromlist=["CLIPSpec"])
+    return mod.CLIPSpec(vision_width=128, vision_layers=2, vision_heads=2,
+                        embed_dim=64, text_width=64, text_layers=1,
+                        text_heads=1, context_length=8, vocab_size=100)
+
+
+def test_clip_vision_tower():
+    """2 layers at width 128 (S = 50 tokens at 224 px)."""
+    from sic_tpu.retrieval.clip_model import CLIPVisionTower as JTower
+    from sic_tpu_torch.retrieval import CLIPVisionTower
+    tower = _randomize(CLIPVisionTower(_clip_spec(False)), 27)
+    x = _x((2, 224, 224, 3), 28)
+    ref = JTower(_clip_spec(True)).apply(_flax_vars(tower), jnp.asarray(x))
+    _close(tower(torch.from_numpy(x)), ref)
+
+
+def test_open_clip_loader(tmp_path):
+    """A fake open_clip state dict, saved with torch.save, loads into the
+    port's tower the weights the JAX package's loader gives its own."""
+    from sic_tpu.retrieval.clip_model import CLIPModel
+    from sic_tpu.retrieval.clip_model import \
+        port_open_clip_weights as jport
+    from sic_tpu_torch.retrieval import CLIPVisionTower, port_open_clip_weights
+    rng = np.random.default_rng(29)
+    w, e, tw = 128, 64, 64
+
+    def t(*shape):
+        return torch.from_numpy(0.05 * rng.standard_normal(shape).astype(np.float32))
+
+    def block(prefix, d):
+        return {f"{prefix}.ln_1.weight": 1 + t(d), f"{prefix}.ln_1.bias": t(d),
+                f"{prefix}.ln_2.weight": 1 + t(d), f"{prefix}.ln_2.bias": t(d),
+                f"{prefix}.attn.in_proj_weight": t(3 * d, d),
+                f"{prefix}.attn.in_proj_bias": t(3 * d),
+                f"{prefix}.attn.out_proj.weight": t(d, d),
+                f"{prefix}.attn.out_proj.bias": t(d),
+                f"{prefix}.mlp.c_fc.weight": t(4 * d, d),
+                f"{prefix}.mlp.c_fc.bias": t(4 * d),
+                f"{prefix}.mlp.c_proj.weight": t(d, 4 * d),
+                f"{prefix}.mlp.c_proj.bias": t(d)}
+
+    sd = {"visual.conv1.weight": t(w, 3, 32, 32),
+          "visual.class_embedding": t(w), "visual.positional_embedding": t(50, w),
+          "visual.ln_pre.weight": 1 + t(w), "visual.ln_pre.bias": t(w),
+          "visual.ln_post.weight": 1 + t(w), "visual.ln_post.bias": t(w),
+          "visual.proj": t(w, e),
+          "token_embedding.weight": t(100, tw), "positional_embedding": t(8, tw),
+          "ln_final.weight": 1 + t(tw), "ln_final.bias": t(tw),
+          "text_projection": t(tw, e)}
+    for i in range(2):
+        sd.update(block(f"visual.transformer.resblocks.{i}", w))
+    sd.update(block("transformer.resblocks.0", tw))
+    path = tmp_path / "open_clip.pt"
+    torch.save(sd, path)
+
+    tower = CLIPVisionTower(_clip_spec(False))
+    tower.load_state_dict(port_open_clip_weights(path, _clip_spec(False)))
+    jparams = jport(str(path), _clip_spec(True))
+    x = _x((1, 224, 224, 3), 30)
+    ref = CLIPModel(_clip_spec(True)).apply(
+        jparams, jnp.asarray(x), method=lambda m, v: m.visual(v))
+    _close(tower.eval()(torch.from_numpy(x)), ref)
+
+
 def test_vqgan_decode():
     from sic_tpu.models.vqgan import VQGAN as JVQGAN
     from sic_tpu_torch.models.vqgan import VQGAN
@@ -175,14 +287,31 @@ def test_four_part_masks_and_indexes_exact():
 
 def test_golden_params_bridge_consumes_all_but_the_encoder():
     """Every leaf of the golden tree lands in exactly one parameter, except
-    the encode-side subtrees this slice does not port."""
+    the VQGAN teacher encoder, which only training runs."""
     from sic_tpu_torch.models import Codec
-    from sic_tpu_torch.weights import ENCODER_PREFIXES, load_npz
+    from sic_tpu_torch.weights import TEACHER_PREFIXES, load_npz
     m = Codec(tcfg.tiny_spec())
     with np.load(GOLDEN) as z:
         keys = set(z.files)
     unused = load_npz(m, GOLDEN)
-    assert unused == {k for k in keys if k.startswith(ENCODER_PREFIXES)}
+    assert unused == {k for k in keys if k.startswith(TEACHER_PREFIXES)}
     assert len(keys) - len(unused) == sum(1 for _ in m.parameters())
-    for prefix in ENCODER_PREFIXES:
+    for prefix in TEACHER_PREFIXES:
         assert any(k.startswith(prefix) for k in unused), prefix
+    assert any(k.startswith("params/hybrid_codec/encoder/") for k in keys - unused)
+    assert "params/hybrid_codec/latent_tokens" not in unused
+
+
+def test_export_round_trips_the_encoder():
+    """export_flax_params writes the encoder's leaves back under the JAX
+    package's names, and loading them again changes nothing."""
+    from sic_tpu_torch.models import Codec
+    from sic_tpu_torch.weights import export_flax_params, load_flax_params
+    m = _randomize(Codec(tcfg.tiny_spec()), 31)
+    flat = export_flax_params(m)
+    assert "params/hybrid_codec/latent_tokens" in flat
+    assert flat["params/hybrid_codec/encoder/patch_embed/kernel"].shape == (16, 16, 3, 128)
+    m2 = Codec(tcfg.tiny_spec())
+    assert load_flax_params(m2, flat) == set()
+    for a, b in zip(m.parameters(), m2.parameters()):
+        assert torch.equal(a, b)
