@@ -5,14 +5,16 @@
 
 Phases, each printing one JSON line with the card's name and power limit:
 
-1. build    - the four CUDA kernels (one nvcc per source, in parallel) and
+1. build    - the five CUDA kernels (one nvcc per source, in parallel) and
               the native rANS coder, from the sources in the checkout;
 2. kernels  - each kernel against its plain PyTorch version on the card at
               the flagship's shapes (rANS encode also against the native
-              encoder, and through one forced buffer overflow), with
-              CUDA-event times of the kernel, the plain version and, for
-              attention, one scaled_dot_product_attention call as a
-              yardstick;
+              encoder, and through one forced buffer overflow; the
+              window-attention backward against the plain version's
+              autograd at the training shapes, -inf shift masks included),
+              with CUDA-event times of the kernel, the plain version and,
+              for attention, one scaled_dot_product_attention call (its
+              backward alone for the backward kernel) as a yardstick;
 3. golden   - the JAX-encoded tests/fixtures/golden stream through the CLI
               (host coder) and through the rANS decode kernel, against the
               committed pixels; then golden_input() encoded on the card by
@@ -28,14 +30,30 @@ Phases, each printing one JSON line with the card's name and power limit:
 5. flagship - decode_only / decode_only_batched / the decompress CLI on
               streams from phase 4 (one 512x512, one 256x768, four
               256x256), every h_hat equal to the encoder's y_hat;
-6. cpu      - the first 256x256 request decoded again on the CPU (plain
+6. train    - the seeded flagship trained through create_train_state and
+              Trainer at 256 px, batch 2, on the heldout images: four steps
+              of each stage (feat_wo_bpp, feat, pix) and an eval step after
+              each, every loss finite, frozen leaves bit-unchanged,
+              trainable leaves moved, the VQGAN decoder side unchanged
+              after the feat stages and moved after pix, the discriminator
+              moved; then the train CLI at the 512-px preset (starts in
+              pix) for one epoch, its `last` checkpoint and
+              deploy_params.npz, and one image compressed and decompressed
+              with those params, h_hat equal to the encoder's y_hat; step
+              times, peak memory and one profiled pix step;
+7. cpu      - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
-              and one 256x256 image encoded on the CPU, its differences
-              from the card's encode reported.
+              one 256x256 image encoded on the CPU, its differences from
+              the card's encode reported; and one tiny-spec feat step and
+              pix step on the card against the CPU (losses within 1e-4
+              relative, each leaf's gradient within 1e-3 of its norm; the
+              pix step within 1e-3 and 5e-3, its adaptive weight being
+              ill-conditioned in f32), the CPU's own spread (one thread
+              against all) reported beside them.
 
 Each path's launch counts are set to 0 just before it is driven (phase 4
-for the encode, phase 5 for the decode) and read just after; every kernel
-of the path must have launched.  Then a ``{"kernels": [...]}`` line, the
+for the encode, phase 5 for the decode, phase 6 for training) and read just
+after; every kernel of the path must have launched.  Then a ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, with no result line, without a CUDA device, outside the
 repository, or if any phase fails.  Work files go to ``WORK`` below.
@@ -43,6 +61,7 @@ repository, or if any phase fails.  Work files go to ``WORK`` below.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -52,12 +71,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "chiprun_out" / "chip_smoke"
+# training checkpoints (gigabytes at flagship width): beside the checkout,
+# git-ignored, removed at the end
+TRAIN_WORK = ROOT / ".chip_smoke_train"
 GOLDEN = ROOT / "tests" / "fixtures" / "golden"
 HELDOUT = ROOT / "artifacts_r05" / "heldout"
 
 F32_TFLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 ATTN_TOL = 1e-4         # kernel vs plain, fp32: only the summation order differs
+# backward kernel vs the plain version's autograd, relative to the largest
+# magnitude: f32 summation order, and dbias summed over batch, heads, windows
+BWD_TOL = 1e-4
+TRAIN_LOSS_TOL = 1e-4   # card vs CPU training step: losses, relative
+TRAIN_GRAD_TOL = 1e-3   # card vs CPU: each leaf's gradient, relative to its norm
+# the pix step's limits: its adaptive weight is a ratio of two gradient
+# norms of a seeded network, and f32 summation order alone moves it.  On an
+# H100 80GB HBM3 at 700 W the card was off by 3.1e-4 (losses) and 2.2e-3
+# (worst leaf), the CPU with one thread against all by 4.2e-4 and 3.8e-3.
+PIX_LOSS_TOL = 1e-3
+PIX_GRAD_TOL = 5e-3
 CPU_PIXEL_TOL = 1e-3    # card vs CPU decode of the flagship, [-1, 1] floats
 SEED = 0
 
@@ -218,6 +251,8 @@ class Smoke:
                     raise AssertionError(f"window_attention C={C} nB={nB}: err {err}")
                 out[f"window_attention_c{C}_nb{nB}"] = rec
         self.kernels["window_attention_nhwc"] = out["window_attention_c768_nb4"]
+        out["window_attention_bwd"] = bwd = self._window_bwd_checks(g)
+        self.kernels["window_attention_nhwc_bwd"] = bwd["256px_c768_nb1"]
 
         out["rans_decode"] = self.kernels["rans_decode_plane"] = self._rans_check()
         enc = {f"{S}x{npos}": self._rans_encode_check(S, npos)
@@ -230,6 +265,69 @@ class Smoke:
         out["rans_encode"] = enc
         out["rans_encode_overflow"] = self._rans_encode_overflow()
         self.kernels["rans_encode_plane"] = enc["4x1024"]
+        return out
+
+    def _window_bwd_checks(self, g):
+        """Kernel 5 against the plain version's autograd at the training
+        path's shapes: the 256-px detail branch and FeatMerge (one window
+        a map, nB 1, also with the shifted layers' -inf masks) and the
+        512-px maps (2x2 windows, nB 1 and nB 4), batch 1 and 2."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.models.swin import _full_shift_mask
+        dev = torch.device("cuda")
+        ws, s, scale = 16, 256, 64 ** -0.5
+        cases = {"256px_c768_nb1": (2, 16, 16, 768, False),
+                 "256px_c1024_nb1": (2, 16, 16, 1024, False),
+                 "256px_c1024_nb1_shifted": (2, 16, 16, 1024, True),
+                 "512px_c768_nb1": (2, 32, 32, 768, False),
+                 "512px_c768_nb4": (2, 32, 32, 768, True),
+                 "512px_c1024_nb4_b1": (1, 32, 32, 1024, True)}
+        out = {}
+        for tag, (B, H, W, C, shifted) in cases.items():
+            heads, d = C // 64, 64
+            nwh, nww = H // ws, W // ws
+            nW = nwh * nww
+            qkv = torch.randn((B, H, W, 3 * C), device=dev, generator=g)
+            gout = torch.randn((B, H, W, C), device=dev, generator=g)
+            bias = torch.randn((1, s, s), device=dev, generator=g)
+            if shifted:
+                bias = (bias + torch.from_numpy(_full_shift_mask(nwh, nww, ws))
+                        .to(dev)).contiguous()
+            nB = bias.shape[0]
+            dq, db = ops.window_attention_nhwc_bwd(qkv, bias, gout, scale, heads)
+            pq, pb = ops.window_attention_nhwc_bwd_plain(qkv, bias, gout, scale, heads)
+            abs_err = max((dq - pq).abs().max().item(), (db - pb).abs().max().item())
+            err_q = ((dq - pq).abs().max() / pq.abs().max()).item()
+            err_b = ((db - pb).abs().max() / pb.abs().max()).item()
+            finite = bool(torch.isfinite(dq).all() and torch.isfinite(db).all())
+            # SDPA yardstick: its backward alone, on pre-windowed
+            # (B*nW, heads, s, d) tensors and the bias as a float mask
+            t = qkv.reshape(B, nwh, ws, nww, ws, 3, heads, d).permute(
+                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B * nW, heads, s, d)
+            q, k, v = (t[i].contiguous().requires_grad_(True) for i in range(3))
+            leaf = bias.clone().requires_grad_(True)
+            win = torch.arange(B * nW, device=dev) % nW % nB
+            lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=leaf[win][:, None],
+                                                     scale=scale)
+            lib_g = torch.randn_like(lib_out)
+            rec = {"shape": [B, H, W, 3 * C], "heads": heads, "nB": nB,
+                   "shift_masks": shifted, "max_abs_err": abs_err,
+                   "dqkv_rel_err": err_q, "dbias_rel_err": err_b,
+                   "ms": self.time_ms(lambda: ops.window_attention_nhwc_bwd(
+                       qkv, bias, gout, scale, heads), iters=10),
+                   "plain_ms": self.time_ms(lambda: ops.window_attention_nhwc_bwd_plain(
+                       qkv, bias, gout, scale, heads), iters=10),
+                   "library_ms": self.time_ms(lambda: torch.autograd.grad(
+                       lib_out, (q, k, v, leaf), lib_g, retain_graph=True), iters=10)}
+            rec["bound_ms"], rec["bound_by"] = self.bound(
+                10 * B * nW * heads * s * s * d,
+                (B * H * W * (3 * C + C + 3 * C) + 2 * nB * s * s) * 4)
+            if not (finite and err_q <= BWD_TOL and err_b <= BWD_TOL):
+                raise AssertionError(f"window_attention_bwd {tag}: {rec}")
+            out[tag] = rec
         return out
 
     def _rans_check(self):
@@ -869,9 +967,15 @@ class Smoke:
             if dev_us > 0:
                 rows.append((dev_us, e.key, e.count))
         rows.sort(reverse=True)
-        mine = {n: round(sum(us for us, k, _ in rows if k.startswith(f"(anonymous namespace)::{n}")) / 1e3, 4)
-                for n in ("seq_attention_kernel", "window_attention_kernel",
-                          "rans_decode_kernel", "rans_encode_kernel")}
+        kernel_names = {"seq_attention": ("seq_attention_kernel",),
+                        "window_attention_nhwc": ("window_attention_kernel",),
+                        "window_attention_nhwc_bwd": ("bwd_stats_kernel", "bwd_dkdv_kernel",
+                                                      "bwd_dq_kernel", "bwd_dbias_kernel"),
+                        "rans_decode_plane": ("rans_decode_kernel",),
+                        "rans_encode_plane": ("rans_encode_kernel",)}
+        mine = {n: round(sum(us for us, k, _ in rows if k.startswith(tuple(
+                    f"(anonymous namespace)::{f}" for f in fs))) / 1e3, 4)
+                for n, fs in kernel_names.items()}
         return {"wall_ms_profiled": wall_ms, "trace_span_ms": span_us / 1e3,
                 "device_busy_ms": busy_us / 1e3,
                 "device_busy_share": busy_us / span_us,
@@ -880,6 +984,167 @@ class Smoke:
                                    for us, k, n in rows[:top]]}
 
     # -- phase 6 ----------------------------------------------------------------
+    def train(self):
+        """(a) the seeded flagship through create_train_state and Trainer
+        at 256 px, batch 2: one epoch (four steps, then an eval step) of
+        each stage; (b) the train CLI at the 512-px preset for one epoch,
+        then one image compressed and decompressed with its params."""
+        import dataclasses
+        import gc
+        import statistics
+        import warnings
+        torch = self.torch
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.config import flagship_spec, qp_strategy
+        from sic_tpu_torch.data import ImageDataset
+        from sic_tpu_torch.train import Trainer, create_train_state
+        from sic_tpu_torch.train.state import is_vqgan_decoder_side, named_codec_params
+        spec = flagship_spec()
+        base = qp_strategy(0, 256)
+        strategy = dataclasses.replace(base, stages=tuple(
+            dataclasses.replace(st, epoch_num=1) for st in base.stages))
+        paths = [HELDOUT / f"val{i}.png" for i in range(8)]
+        train_ds = ImageDataset(paths, 256, train=True)
+        val_ds = ImageDataset(paths[:2], 256, train=False)
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+
+        # -- the training main path: counts from 0, read after (a) and (b) ---
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():   # uncalibrated LPIPS: no weights here
+            warnings.simplefilter("ignore")
+            model, state, steps = create_train_state(spec, strategy, SEED, device="cuda")
+        init_s = time.perf_counter() - t0
+        pix_step = steps.pix_step
+        step_ms = {}
+
+        def timed(fn):
+            def run(st, x, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(st, x, **kw)
+                torch.cuda.synchronize()
+                stage = strategy.stage_at(st.epoch_for_strategy)[0]
+                step_ms.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
+                return out
+            return run
+
+        steps.feat_step, steps.pix_step = timed(steps.feat_step), timed(steps.pix_step)
+        logs = []
+        trainer = Trainer(model, state, steps, strategy, log_fn=logs.append, log_every=1)
+        named = named_codec_params(model)
+        frozen0 = {k: p.detach().clone() for k, p in named if not p.requires_grad}
+        train0 = {k: p.detach().clone() for k, p in state.trainable}
+        disc0 = [p.detach().clone() for p in state.disc.parameters()]
+
+        def moved(keys):
+            return sum(not torch.equal(dict(state.trainable)[k], train0[k]) for k in keys)
+
+        decoder_side = [k for k in train0 if is_vqgan_decoder_side(k)]
+        rest = [k for k in train0 if not is_vqgan_decoder_side(k)]
+        for _ in range(2):                # feat_wo_bpp, feat
+            trainer.fit(lambda: train_ds.batches(2, epoch=state.epoch_for_strategy),
+                        lambda: val_ds.batches(2, shuffle=False), epochs=1)
+        after_feat = {"decoder_side_moved": moved(decoder_side),
+                      "other_trainable_moved": moved(rest)}
+        trainer.fit(lambda: train_ds.batches(2, epoch=state.epoch_for_strategy),
+                    lambda: val_ds.batches(2, shuffle=False), epochs=1)       # pix
+        after_pix = {"decoder_side_moved": moved(decoder_side),
+                     "other_trainable_moved": moved(rest)}
+        frozen_equal = all(torch.equal(p, frozen0[k]) for k, p in named if k in frozen0)
+        n_frozen = len(frozen0)
+        disc_moved = sum(not torch.equal(a, b) for a, b in
+                         zip(state.disc.parameters(), disc0))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        numbers = [v for d in logs for v in d.values() if isinstance(v, float)]
+        finite = all(v == v and abs(v) != float("inf") for v in numbers)
+        stages_run = sorted({d["stage"] for d in logs if "stage" in d and "epoch" in d})
+        x = torch.as_tensor(next(train_ds.batches(2, epoch=0)), device="cuda")
+        profile = self._profile(lambda: pix_step(state, x))
+        del model, state, steps, trainer, frozen0, train0, disc0, named
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = self._train_cli()
+        self.counts["train"] = counts = ops.launch_counts()
+        # ----------------------------------------------------------------------
+        rec = {"spec": "flagship", "dtype": "float32", "init_s": round(init_s, 3),
+               "stages_run": stages_run, "steps": {k: len(v) for k, v in step_ms.items()},
+               "step_ms_median": {k: statistics.median(v) for k, v in step_ms.items()},
+               "step_ms": step_ms, "losses_finite": finite, "log_lines": len(logs),
+               "last_logs": logs[-2:], "frozen_leaves": n_frozen,
+               "frozen_bit_unchanged": frozen_equal,
+               "trainable_leaves": {"decoder_side": len(decoder_side), "other": len(rest)},
+               "after_feat_stages": after_feat, "after_pix": after_pix,
+               "disc_leaves_moved": disc_moved, "peak_mem_gb": peak_gb,
+               "profile_pix_step": profile, "cli_512px": cli, "launches": counts}
+        need = ("seq_attention", "window_attention_nhwc", "window_attention_nhwc_bwd")
+        ok = (finite and frozen_equal and stages_run == ["feat", "feat_wo_bpp", "pix"]
+              and after_feat["decoder_side_moved"] == 0
+              and after_feat["other_trainable_moved"] >= 0.9 * len(rest)
+              and after_pix["decoder_side_moved"] >= 0.9 * len(decoder_side)
+              and disc_moved > 0 and min(counts[k] for k in need) >= 1
+              and cli["ok"])
+        if not ok:
+            raise AssertionError(f"training check failed: {rec}")
+        return rec
+
+    def _train_cli(self):
+        """The train CLI at the 512-px preset (qp 0: straight into pix),
+        one epoch over the heldout images with validation; then one
+        512x512 image through the compress and decompress CLIs with its
+        deploy_params.npz, and h_hat against the encoder's y_hat."""
+        import gc
+        torch = self.torch
+
+        from sic_tpu_torch.cli._common import load_runtime
+        from sic_tpu_torch.cli.compress import main as compress_main
+        from sic_tpu_torch.cli.decompress import main as decompress_main
+        from sic_tpu_torch.cli.train import main as train_main
+        from sic_tpu_torch.config import flagship_spec
+        from sic_tpu_torch.data import load_image
+        ckpt = TRAIN_WORK / "ckpt"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_main(["--qp", "0", "--train_px", "512", "--epochs", "1",
+                          "--batch_size", "2", "--train_dir", str(HELDOUT),
+                          "--val_dir", str(HELDOUT), "--ckpt_dir", str(ckpt),
+                          "--device", "cuda"])
+        torch.cuda.synchronize()
+        rec = {"train_s": round(time.perf_counter() - t0, 3), "result": out,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "files": sorted(p.name for p in ckpt.iterdir()),
+               "last_bytes": (ckpt / "last").stat().st_size}
+        gc.collect()
+        torch.cuda.empty_cache()
+        deploy = ckpt / "deploy_params.npz"
+        src = TRAIN_WORK / "one"
+        src.mkdir(parents=True, exist_ok=True)
+        shutil.copy(WORK / "encode_in" / "a_512x512.png", src / "a_512x512.png")
+        t0 = time.perf_counter()
+        compress_main(["--dataset_dir", str(src), "--save_dir", str(TRAIN_WORK / "c"),
+                       "--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda"])
+        n_dec = decompress_main(["--dataset_dir", str(TRAIN_WORK / "c" / "bitstreams"),
+                                 "--save_dir", str(TRAIN_WORK / "d"), "--ckpt_path",
+                                 str(deploy), "--spec", "flagship", "--device", "cuda"])
+        rec["cli_round_trip_s"] = round(time.perf_counter() - t0, 3)
+        rt = load_runtime(str(deploy), flagship_spec(), device="cuda", stream_part=4)
+        probe, dec = {}, {}
+        enc = rt.encode_only(load_image(src / "a_512x512.png")[None], probe=probe)
+        rt.decode_only(**enc, coding_batch=8, probe=dec)
+        rt.close()
+        rec["h_hat_equal_y_hat"] = bool(torch.equal(dec["h_hat"], probe["y_hat"]))
+        rec["decoded_files"] = n_dec
+        rec["ok"] = (out["global_step"] == 4 and "last" in rec["files"]
+                     and "deploy_params.npz" in rec["files"] and n_dec == 1
+                     and rec["h_hat_equal_y_hat"])
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    # -- phase 7 ----------------------------------------------------------------
     def cpu_compare(self):
         torch = self.torch
         from sic_tpu_torch.models import Codec, CodecRuntime
@@ -910,8 +1175,91 @@ class Smoke:
                                   / h_gpu.abs().max()).item(),
                "encode": self._cpu_encode(cpu_rt)}
         cpu_rt.close()
-        if mism or sym_mism or not max_diff <= CPU_PIXEL_TOL:
+        rec["train_step"] = train = self._train_cpu_compare()
+        if mism or sym_mism or not max_diff <= CPU_PIXEL_TOL or not train["ok"]:
             raise AssertionError(f"card vs CPU: {rec}")
+        return rec
+
+    def _train_cpu_compare(self):
+        """One tiny-spec feat step and one pix step, each from the same
+        fresh weights, batch and noise on the card and on the CPU (the
+        bottleneck at O(1) weights, as trained weights keep it, so that no
+        rounding of the straight-through quantizer sits on a float's last
+        bit).  The pix step is held to ``PIX_LOSS_TOL`` and
+        ``PIX_GRAD_TOL``; the same steps on the CPU with one thread instead
+        of all (another summation order on one device) are reported as the
+        witness of how far f32 order alone moves them."""
+        import dataclasses
+        import warnings
+
+        import numpy as np
+        torch = self.torch
+        from sic_tpu_torch.config import qp_strategy, tiny_spec
+        from sic_tpu_torch.data import ImageDataset
+        from sic_tpu_torch.train import create_train_state
+        from sic_tpu_torch.weights import export_flax_params
+        base = qp_strategy(0, 256)
+        strategy = dataclasses.replace(base, stages=tuple(
+            dataclasses.replace(st, epoch_num=1) for st in base.stages))
+
+        def fresh():
+            """(cpu, card, cpu again) states with the same weights."""
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, cpu, steps = create_train_state(tiny_spec(), strategy, SEED,
+                                                   device="cpu")
+                rng = np.random.default_rng(SEED)
+                with torch.no_grad():
+                    for p in cpu.model.hybrid_codec.quantize_feat.parameters():
+                        fan_in = p[0].numel() if p.dim() > 1 else p.numel()
+                        scale = 0.05 if p.dim() == 1 else 0.5 * fan_in ** -0.5
+                        gain = 1.0 if p.dim() == 2 and p.shape[0] == 1 else 0.0
+                        p.copy_(torch.from_numpy(
+                            gain + scale * rng.standard_normal(p.shape).astype(np.float32)))
+                out = {"cpu": cpu}
+                for name, dev in (("card", "cuda"), ("cpu_1_thread", "cpu")):
+                    _, st, _ = create_train_state(tiny_spec(), strategy, SEED, device=dev,
+                                                  codec_params=export_flax_params(cpu.model))
+                    st.disc.load_state_dict(cpu.disc.state_dict())
+                    st.lpips.load_state_dict(cpu.lpips.state_dict())
+                    out[name] = st
+            return out, steps
+
+        def diff(logs, grads, a, b):
+            loss = max(abs(float(logs[a][k]) - float(v)) / max(abs(float(v)), 1e-12)
+                       for k, v in logs[b].items() if abs(float(v)) > 1e-6)
+            floor = 1e-6 * float(torch.sqrt(sum((g * g).sum() for _, g in grads[b])))
+            leaf = max((float((ga - gb).norm()) - floor) / max(float(gb.norm()), 1e-30)
+                       for (_, gb), (_, ga) in zip(grads[b], grads[a]))
+            return loss, leaf
+
+        x = next(ImageDataset([HELDOUT / f"val{i}.png" for i in range(2)], 256,
+                              train=False).batches(2))
+        noise = torch.rand((2, 8, 8, 16), generator=torch.Generator().manual_seed(SEED)) - 0.5
+        threads = torch.get_num_threads()
+        rec = {}
+        for name in ("feat_step", "pix_step"):
+            states, steps = fresh()
+            logs = {}
+            for dev, st in states.items():
+                torch.set_num_threads(1 if dev == "cpu_1_thread" else threads)
+                try:
+                    logs[dev] = getattr(steps, name)(st, torch.as_tensor(x, device=st.device),
+                                                     noise=noise.to(st.device))
+                finally:
+                    torch.set_num_threads(threads)
+            grads = {dev: [(path, p.grad.double().cpu()) for path, p in st.trainable]
+                     for dev, st in states.items()}
+            card = diff(logs, grads, "card", "cpu")
+            spread = diff(logs, grads, "cpu_1_thread", "cpu")
+            rec[name] = {"max_loss_rel_err": card[0], "max_leaf_grad_rel_err": card[1],
+                         "cpu_spread_loss": spread[0], "cpu_spread_leaf_grad": spread[1],
+                         "leaves": len(grads["cpu"])}
+        feat, pix = rec["feat_step"], rec["pix_step"]
+        rec["ok"] = (feat["max_loss_rel_err"] <= TRAIN_LOSS_TOL
+                     and feat["max_leaf_grad_rel_err"] <= TRAIN_GRAD_TOL
+                     and pix["max_loss_rel_err"] <= PIX_LOSS_TOL
+                     and pix["max_leaf_grad_rel_err"] <= PIX_GRAD_TOL)
         return rec
 
     def _cpu_encode(self, cpu_rt):
@@ -953,6 +1301,8 @@ class Smoke:
                                    "sic_tpu/ops/seq_attention.py:35"),
                  "window_attention_nhwc": ("sic_tpu_torch/csrc/window_attention.cu",
                                            "sic_tpu/ops/window_attention.py:142"),
+                 "window_attention_nhwc_bwd": ("sic_tpu_torch/csrc/window_attention_bwd.cu",
+                                               "sic_tpu/ops/window_attention.py:231"),
                  "rans_decode_plane": ("sic_tpu_torch/csrc/rans_decode.cu",
                                        "sic_tpu/ops/rans_decode.py:165"),
                  "rans_encode_plane": ("sic_tpu_torch/csrc/rans_encode.cu",
@@ -960,7 +1310,7 @@ class Smoke:
         rows = []
         for name, (source, replaces) in names.items():
             k = self.kernels.get(name, {})
-            # launches over both main-path runs (encode, then decode)
+            # launches over the main-path runs (encode, decode, training)
             launches = sum(c.get(name, 0) for c in self.counts.values())
             rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "launches": launches,
@@ -994,10 +1344,13 @@ def main() -> int:
     smoke.phase("encode", smoke.encode)
     if "encode" not in smoke.failed:
         smoke.phase("flagship", smoke.flagship)
+    if "encode" not in smoke.failed:
+        smoke.phase("train", smoke.train)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)
     if getattr(smoke, "rt", None) is not None:
         smoke.rt.close()
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
     print(json.dumps(smoke.kernels_line()), flush=True)
     if smoke.failed:
         print(f"failed phases: {smoke.failed}", file=sys.stderr)

@@ -11,7 +11,7 @@ import torch
 
 from ..config import CodecSpec, flagship_spec
 from ..models import Codec, CodecRuntime, resolve_device
-from ..weights import TEACHER_PREFIXES, init_seeded, load_npz
+from ..weights import init_seeded, load_npz
 
 
 def build_model(spec: CodecSpec, device,
@@ -21,8 +21,7 @@ def build_model(spec: CodecSpec, device,
     with torch.device(device):
         model = Codec(spec)
     if ckpt_path:
-        unused = load_npz(model, ckpt_path)
-        stray = sorted(k for k in unused if not k.startswith(TEACHER_PREFIXES))
+        stray = sorted(load_npz(model, ckpt_path))
         if stray:
             raise ValueError(f"{len(stray)} checkpoint leaves fit no parameter "
                              f"of the codec, e.g. {stray[:3]}")

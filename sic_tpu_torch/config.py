@@ -2,8 +2,9 @@
 
 Plain dataclasses with the same fields and defaults as the JAX package's
 ``CodecSpec`` / ``TiTokSpec`` / ``VQGANSpec`` and its three presets, so one
-spec names the same geometry in both packages.  The reference-YAML loader and
-the training presets are not ported yet.
+spec names the same geometry in both packages, and the eight training rate
+presets (:func:`qp_strategy`).  The reference-YAML loader is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -116,3 +117,42 @@ def tiny_spec(**overrides) -> CodecSpec:
                         n_embed=64, resolution=256),
         feat_width=64, quant_dim=16, merge_inner_width=128)
     return dataclasses.replace(base, **overrides)
+
+
+# -- training presets (reference: src/config/train/config_qp{0..3}_{256,512}train.yaml)
+
+_S1_256 = (4.0, 4.78, 5.72, 6.85, 8.19, 9.8, 11.72, 14.02, 16.77, 20.06, 24.0, 26.0)
+
+_QP_256 = {
+    0: ((1.0, 4.0, 8.0, 9.24, 10.61, 12.19, 14.0, 16.08, 18.47, 21.22, 24.38, 28.0),
+        (0.003, 0.008), (0.008, 0.015)),
+    1: ((1.0, 4.0, 6.0, 8.26, 8.97, 9.74, 10.58, 11.5, 12.49, 13.56, 14.73, 16.0),
+        (0.005, 0.010), (0.008, 0.015)),
+    2: ((1.0, 4.0, 4.31, 4.65, 5.01, 5.41, 5.83, 6.29, 6.78, 7.31, 7.88, 8.5),
+        (0.010, 0.015), (0.010, 0.015)),
+    3: ((1.0, 4.0, 4.15, 4.31, 4.47, 4.64, 4.82, 5.0, 5.19, 5.38, 5.59, 5.8),
+        (0.015, 0.020), (0.010, 0.015)),
+}
+_QP_512 = {0: (28.0, (0.001, 0.003)), 1: (16.0, (0.003, 0.010)),
+           2: (8.5, (0.010, 0.015)), 3: (5.8, (0.015, 0.020))}
+
+
+def qp_strategy(qp: int, train_px: int = 256):
+    """The eight shipped rate presets (4 QPs x {256, 512} train size); the
+    512-px presets start directly in stage pix."""
+    from .train.strategy import StageSpec, TrainingStrategy
+    if train_px == 256:
+        s2_lams, s2_band, s1_band = _QP_256[qp]
+        return TrainingStrategy(
+            learning_rate=4e-5, start_epoch=0,
+            stages=(StageSpec(1, 0, (1e-3,) * 12, 2.0, 0.001),
+                    StageSpec(7, 0, _S1_256, s1_band[1], s1_band[0]),
+                    StageSpec(90, 0, s2_lams, s2_band[1], s2_band[0])))
+    if train_px == 512:
+        lam, band = _QP_512[qp]
+        return TrainingStrategy(
+            learning_rate=2e-5, start_epoch=0,
+            stages=(StageSpec(0, 0, (lam,), 2.0, 0.001),
+                    StageSpec(0, 0, (lam,), 0.015, 0.008),
+                    StageSpec(90, 0, (lam,), band[1], band[0])))
+    raise ValueError(f"train_px must be 256 or 512, got {train_px}")

@@ -12,6 +12,7 @@ kernels and no TF32 (see ``codec.configure_numerics``) are part of it.
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from typing import Optional, Tuple
@@ -21,9 +22,10 @@ import torch
 from torch import nn
 
 from ..entropy import EntropyCoder, build_gaussian_tables
-from ..entropy.fourpart import (combine_for_writing, four_part_masks,
+from ..entropy.fourpart import (add_uniform_noise, combine_for_writing,
+                                forward_four_part_prior, four_part_masks,
                                 process_with_mask, separate_prior)
-from ..entropy.gaussian import build_indexes, lower_bound
+from ..entropy.gaussian import build_indexes, gaussian_bits, lower_bound
 from ..ops.rans_decode import (pack_substreams, rans_decode_plane,
                                split_substreams, words_tensor)
 from ..ops.rans_encode import (encode_buffer_words, finalize_streams,
@@ -34,7 +36,9 @@ from .layers import Conv2d
 
 
 class CompressiveBottleneck(nn.Module):
-    """Analysis/synthesis transforms + learned prior over the detail latent."""
+    """Analysis/synthesis transforms + learned prior over the detail latent;
+    :meth:`forward` is the training pass, :class:`BottleneckCoder` the
+    real bitstream."""
 
     def __init__(self, feat_dim: int, quant_dim: int, bpp_num: int = 1):
         super().__init__()
@@ -92,6 +96,36 @@ class CompressiveBottleneck(nn.Module):
             p = blk(p)
         scales, means = torch.chunk(p, 2, dim=-1)
         return scales, means
+
+    def forward(self, y, img_hw: Tuple[int, int], q_idx: int = 0,
+                training: bool = False, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                force_zero_thres: Optional[float] = None):
+        """The fused four-step pass (training and bpp evaluation): returns
+        (y_hat, {"y_hat", "bpp", "bpp_direct", "bpp_noise"}).  ``bpp_noise``
+        is the differentiable noise-proxy rate, with uniform noise from
+        ``noise`` or ``generator`` (neither: no noise); ``bpp_direct`` the
+        hard-quant rate (reference: sq_bottleneck.py:140-156)."""
+        y = self.encode_transform(y, q_idx)
+        common = self.prior_params(tuple(y.shape[:3]), q_idx)
+        step_fns = [functools.partial(self.spatial_step, i) for i in (1, 2, 3)]
+        out = forward_four_part_prior(
+            y, common, step_fns, reduction_fn=self.reduce_common,
+            training=training,
+            force_zero_thres=None if training else force_zero_thres)
+        y_hat = self.decode_transform(out.y_hat, q_idx)
+        pixel_num = img_hw[0] * img_hw[1]
+        y_noise = out.y_res
+        if noise is not None or generator is not None:
+            y_noise = add_uniform_noise(out.y_res, generator, noise)
+        bits_noise = gaussian_bits(y_noise, out.scales_hat, training=True)
+        bpp_noise = torch.mean(torch.sum(bits_noise, dim=(1, 2, 3)) / pixel_num)
+        bits_direct = gaussian_bits(out.y_q.detach(), out.scales_hat,
+                                    training=training)
+        bpp_direct = torch.mean(torch.sum(bits_direct, dim=(1, 2, 3)) / pixel_num)
+        bpp = bpp_noise if training else bpp_direct
+        return y_hat, {"y_hat": y_hat, "bpp": bpp, "bpp_direct": bpp_direct,
+                       "bpp_noise": bpp_noise}
 
 
 class BottleneckCoder:

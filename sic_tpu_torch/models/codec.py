@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``models/codec.py`` (reference:
 src/models/codec_sq_fixbpp.py:442-922).  :class:`Codec` holds the encode
-and decode modules (not the VQGAN teacher encoder, which only training
-runs); :class:`CodecRuntime` turns images into real bitstreams and back:
+and decode modules, the VQGAN teacher encoder that only training runs, and
+the training forward; :class:`CodecRuntime` turns images into real bitstreams and back:
 the semantic (TiTok token) stream through a uniform-CDF rANS coder, the
 detail (h) stream through the bottleneck's autoregressive chain on the host
 coder or on the device rANS kernels, then the generative decode to pixels.
@@ -69,8 +69,8 @@ def pad_replicate(x: torch.Tensor, pads) -> torch.Tensor:
 
 
 class Codec(nn.Module):
-    """Hybrid codec + VQGAN pixel decoder + prior fusion (parameter names
-    mirror the JAX package's tree)."""
+    """Hybrid codec + VQGAN (pixel decoder and teacher encoder) + prior
+    fusion (parameter names mirror the JAX package's tree)."""
 
     def __init__(self, spec: CodecSpec):
         super().__init__()
@@ -88,8 +88,13 @@ class Codec(nn.Module):
         latent (B, H/32, W/32, feat_width), stack_shape)."""
         hc = self.hybrid_codec
         z, h, stack_shape = hc.encoder(x01, hc.latent_tokens)
-        _z_q, idx = hc.quantize(z)
-        return idx, h, stack_shape
+        return hc.quantize.encode_indices(z), h, stack_shape
+
+    def encode_to_vqgan(self, x):
+        """x in [-1, 1] -> (teacher latent, teacher indices) from the frozen
+        VQGAN encoder (reference: codec_sq_fixbpp.py:650-655)."""
+        h_q, _, info = self.vqgan.quantize(self.vqgan.encode_latent(x))
+        return h_q, info["indices"]
 
     def decode_to_latent(self, titok_hat, feat_hat):
         """Soft codebook mixture from fused logits
@@ -99,8 +104,29 @@ class Codec(nn.Module):
         latent = torch.matmul(probs, self.vqgan.quantize.codebook())
         return latent.to(logits.dtype), logits
 
-    def decode_to_image(self, quantized_latent):
-        return self.vqgan.decode(quantized_latent)
+    def decode_to_image(self, quantized_latent, return_pre: bool = False):
+        return self.vqgan.decode(quantized_latent, return_pre=return_pre)
+
+    def forward(self, x, need_full_decode: bool = True, training: bool = False,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                return_pre_out: bool = False) -> Dict:
+        """The training forward: x (B, H, W, 3) in [-1, 1] (the hybrid
+        branch sees [0, 1]; reference: codec_sq_fixbpp.py:673).  ``noise``
+        or ``generator`` feed the bottleneck's rate noise."""
+        enc = self.hybrid_codec(x * 0.5 + 0.5, training, noise, generator)
+        latent, logits = self.decode_to_latent(enc["titok_hat"], enc["feat_hat"])
+        x_hat = pre_out = None
+        if need_full_decode:
+            if return_pre_out:
+                x_hat, pre_out = self.decode_to_image(latent, return_pre=True)
+            else:
+                x_hat = self.decode_to_image(latent)
+        return {"x": x, "x_hat": x_hat, "pre_out": pre_out,
+                "bpp_loss": enc["h_result_dict"]["bpp"],
+                "bpp_hard_quant": enc["h_result_dict"]["bpp_direct"],
+                "vq_loss": enc["z_result_dict"]["quantizer_loss"],
+                "logits": logits, "vqgan_latent": latent}
 
     def decode_stage(self, z_indices, h_hat, stack_shape):
         """Token indices + decoded detail latent -> [-1, 1] image."""

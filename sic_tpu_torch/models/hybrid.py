@@ -8,7 +8,7 @@ into 256-px tiles that form one batch axis.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -224,6 +224,28 @@ class HybridCodec(nn.Module):
         self.quantize = L2VectorQuantizer(spec.codebook_size, spec.token_size,
                                           spec.use_l2_norm)
         self.quantize_feat = CompressiveBottleneck(feat_width, quant_dim)
+
+    def encode(self, x, training: bool = False,
+               noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) in [0, 1] -> both quantized latents and their
+        result dicts (``noise``/``generator``: the bottleneck's rate noise)."""
+        z, h, stack_shape = self.encoder(x, self.latent_tokens)
+        z_quantized, z_result = self.quantize(z)
+        h_quantized, h_result = self.quantize_feat(
+            h, (x.shape[1], x.shape[2]), q_idx=0, training=training,
+            noise=noise, generator=generator)
+        return {"z_quantized": z_quantized, "z_result_dict": z_result,
+                "h_quantized": h_quantized, "h_result_dict": h_result,
+                "stack_shape": stack_shape}
+
+    def forward(self, x, training: bool = False,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        out = self.encode(x, training, noise, generator)
+        out["titok_hat"], out["feat_hat"] = self.decoder(
+            out["z_quantized"], out["h_quantized"], out["stack_shape"])
+        return out
 
     def decode_z_indices(self, indices: torch.Tensor) -> torch.Tensor:
         return self.quantize.decode_indices(indices)

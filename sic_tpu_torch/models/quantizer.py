@@ -1,7 +1,7 @@
 """Codebooks: the semantic stream's l2-normalized vector quantizer
 (reference: src/titok/quantizer.py:30-95) and the VQGAN codebook
-(reference: src/taming/modules/vqvae/quantize.py:213-330).  Inference only:
-the training losses are not ported yet."""
+(reference: src/taming/modules/vqvae/quantize.py:213-330), with their
+straight-through gradients and training losses."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +21,9 @@ def nearest_code(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return torch.argmax(scores, dim=-1)
 
 
+COMMITMENT_COST = 0.25   # the commitment weight of both codebooks' losses
+
+
 class L2VectorQuantizer(nn.Module):
     def __init__(self, codebook_size: int = 4096, token_size: int = 12,
                  use_l2_norm: bool = True):
@@ -33,21 +36,33 @@ class L2VectorQuantizer(nn.Module):
     def codebook(self) -> torch.Tensor:
         return _l2n(self.embedding) if self.use_l2_norm else self.embedding
 
-    def forward(self, z: torch.Tensor):
-        """z: (B, N, token_size) -> (z_q, indices (B, N)), quantized in fp32
-        whatever the input type."""
+    def encode_indices(self, z: torch.Tensor) -> torch.Tensor:
+        """z: (B, N, token_size) -> nearest code indices (B, N), in fp32
+        whatever the input type (the inference path: no losses)."""
         B, N, C = z.shape
-        z32 = z.float()
-        z_flat = z32.reshape(-1, C)
+        z_flat = z.float().reshape(-1, C)
         if self.use_l2_norm:
             z_flat = _l2n(z_flat)
-        cb = self.codebook()
-        idx = nearest_code(z_flat, cb)
-        z_q = cb[idx].reshape(B, N, C)
+        return nearest_code(z_flat, self.codebook()).reshape(B, N)
+
+    def forward(self, z: torch.Tensor):
+        """The training forward: z (B, N, token_size) -> (z_q, result); z_q
+        passes the gradient straight through to z, and ``result`` holds
+        ``quantizer_loss``, ``commitment_loss``, ``codebook_loss`` and
+        ``min_encoding_indices`` (B, N)."""
+        idx = self.encode_indices(z)
+        z_q = self.codebook()[idx]
+        z32 = z.float()
         z_cmp = _l2n(z32) if self.use_l2_norm else z32
-        # the straight-through sum of the JAX package, kept for its floats
-        z_q = z_cmp + (z_q - z_cmp)
-        return z_q.to(z.dtype), idx.reshape(B, N)
+        commitment = COMMITMENT_COST * torch.mean((z_q.detach() - z_cmp) ** 2)
+        codebook_loss = torch.mean((z_q - z_cmp.detach()) ** 2)
+        z_q = z_cmp + (z_q - z_cmp).detach()
+        return z_q.to(z.dtype), {
+            "quantizer_loss": commitment + codebook_loss,
+            "commitment_loss": commitment,
+            "codebook_loss": codebook_loss,
+            "min_encoding_indices": idx,
+        }
 
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """(..,) int -> (.., token_size), l2-normalized to match encode."""
@@ -63,3 +78,16 @@ class VQGANQuantizer(nn.Module):
 
     def codebook(self) -> torch.Tensor:
         return self.embedding
+
+    def forward(self, z: torch.Tensor):
+        """z: (B, H, W, C) -> (z_q, loss, {"indices": (B, H, W)}), the
+        commitment-weighted loss and a straight-through z_q."""
+        B, H, W, C = z.shape
+        z32 = z.float()
+        cb = self.codebook()
+        idx = nearest_code(z32.reshape(-1, C), cb)
+        z_q = cb[idx].reshape(B, H, W, C)
+        loss = (torch.mean((z_q.detach() - z32) ** 2) * COMMITMENT_COST
+                + torch.mean((z_q - z32.detach()) ** 2))
+        z_q = z32 + (z_q - z32).detach()
+        return z_q.to(z.dtype), loss, {"indices": idx.reshape(B, H, W)}

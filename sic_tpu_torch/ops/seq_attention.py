@@ -4,7 +4,9 @@ CUDA kernel: ``csrc/seq_attention.cu`` (replaces the TPU kernel
 ``sic_tpu/ops/seq_attention.py::_seq_attn_kernel``).  The ViT trunks
 (S = 289) and the cross-attention blocks (S = 545) run it in every layer.
 :func:`seq_attention_plain` is the same function in plain PyTorch: it
-serves CPU tensors and is the kernel's oracle on the card.
+serves CPU tensors and is the kernel's oracle on the card.  On a CUDA tensor
+:func:`seq_attention` is a ``torch.autograd.Function``: the kernel forward,
+and a backward that recomputes through the plain version.
 """
 from __future__ import annotations
 
@@ -36,12 +38,7 @@ def seq_attention_plain(qkv: torch.Tensor, scale: float,
     return out.transpose(1, 2).reshape(B, S, C)
 
 
-def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
-    """qkv: (B, S, 3C) float32, channel layout [q heads*d | k | v]; returns
-    (B, S, C) in head-major channel order.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (head dim 64) or raises."""
-    if qkv.device.type == "cpu":
-        return seq_attention_plain(qkv, scale, heads)
+def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
     cuda_build.require_cuda(qkv, "qkv", torch.float32)
     B, S, c3 = qkv.shape
     C = c3 // 3
@@ -56,6 +53,37 @@ def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
     cuda_build.check_launch(rc, "seq_attention")
     seq_attention.launches += 1
     return out
+
+
+class _SeqAttention(torch.autograd.Function):
+    """Forward kernel; the backward recomputes through the plain version
+    under autograd, as the JAX package's custom VJP recomputes through its
+    reference (it has no backward kernel for this function)."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale, heads):
+        ctx.save_for_backward(qkv)
+        ctx.scale, ctx.heads = scale, heads
+        return _forward_kernel(qkv, scale, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            a = qkv.detach().requires_grad_(True)
+            out = seq_attention_plain(a, ctx.scale, ctx.heads)
+            (dqkv,) = torch.autograd.grad(out, a, g)
+        return dqkv, None, None
+
+
+def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
+    """qkv: (B, S, 3C) float32, channel layout [q heads*d | k | v]; returns
+    (B, S, C) in head-major channel order.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (head dim 64) or raises, and
+    its gradient recomputes through the plain version."""
+    if qkv.device.type == "cpu":
+        return seq_attention_plain(qkv, scale, heads)
+    return _SeqAttention.apply(qkv, scale, heads)
 
 
 seq_attention.launches = 0

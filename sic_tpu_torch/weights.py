@@ -12,6 +12,9 @@ re-laid out by the kind of module that owns it:
 - convolutions: ``weight`` <- ``kernel`` HWIO, permuted to OIHW;
 - ``LayerNorm`` / ``GroupNorm``: ``weight`` <- ``scale``;
 - every other parameter keeps its name and layout.
+
+Persistent buffers (the discriminator's BatchNorm statistics) map onto the
+flax ``batch_stats`` collection the same way: ``batch_stats/<path>/<leaf>``.
 """
 from __future__ import annotations
 
@@ -22,20 +25,21 @@ import numpy as np
 import torch
 from torch import nn
 
-# leaves of the VQGAN teacher encoder, which only training runs (the
-# port's Codec does not hold it)
-TEACHER_PREFIXES = ("params/vqgan/encoder/", "params/vqgan/quant_conv/")
+# the VQGAN teacher encoder, which only training runs; the seeded
+# initialisation draws it last (see init_seeded)
+TEACHER = ("vqgan.encoder.", "vqgan.quant_conv.")
 
 
-def flax_key(torch_name: str, module: nn.Module) -> str:
-    """Flat JAX-package key of the torch parameter ``torch_name``, owned by
-    ``module``."""
+def flax_key(torch_name: str, module: nn.Module,
+             collection: str = "params") -> str:
+    """Flat JAX-package key of the torch parameter (or, with ``collection``
+    ``"batch_stats"``, buffer) ``torch_name``, owned by ``module``."""
     path, leaf = torch_name.rsplit(".", 1) if "." in torch_name else ("", torch_name)
     path = re.sub(r"\.(\d+)(?=\.|$)", r"_\1", path).replace(".", "/")
     if leaf == "weight":
         leaf = "scale" if isinstance(module, (nn.LayerNorm, nn.GroupNorm)) \
             else "kernel"
-    return "params/" + (f"{path}/{leaf}" if path else leaf)
+    return f"{collection}/" + (f"{path}/{leaf}" if path else leaf)
 
 
 def _to_torch_layout(value: np.ndarray, module: nn.Module, leaf: str) -> np.ndarray:
@@ -54,6 +58,22 @@ def _owners(model: nn.Module):
             yield name, mod, leaf, p
 
 
+def named_flax_params(model: nn.Module):
+    """(JAX-package key, parameter) for every parameter of ``model``."""
+    for name, mod, _leaf, p in _owners(model):
+        yield flax_key(name, mod), p
+
+
+def _buffers(model: nn.Module):
+    """(flax key, buffer) for every persistent buffer."""
+    for mod_name, mod in model.named_modules():
+        for leaf, b in mod.named_buffers(recurse=False):
+            if leaf in mod._non_persistent_buffers_set:
+                continue
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            yield flax_key(name, mod, "batch_stats"), b
+
+
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> set:
     """Copy a flat ``params/...`` dict into ``model``.  Every parameter must
     find its leaf; returns the set of leaves no parameter consumed."""
@@ -69,6 +89,11 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> set:
                                  f"{name} {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.ascontiguousarray(value)))
             unused.discard(key)
+        for key, b in _buffers(model):
+            if key not in flat:
+                raise KeyError(f"no leaf {key} for a buffer")
+            b.copy_(torch.from_numpy(np.asarray(flat[key], np.float32)))
+            unused.discard(key)
     return unused
 
 
@@ -82,7 +107,9 @@ def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
             value = value.T
         elif leaf == "weight" and isinstance(mod, nn.Conv2d):
             value = value.transpose(2, 3, 1, 0)
-        flat[flax_key(name, mod)] = np.ascontiguousarray(value)
+        flat[flax_key(name, mod)] = np.array(value, order="C")   # a copy
+    for key, b in _buffers(model):
+        flat[key] = b.detach().cpu().numpy().copy()
     return flat
 
 
@@ -95,10 +122,13 @@ def init_seeded(model: nn.Module, seed: int = 0) -> None:
     """Seeded initialisation of every parameter, drawn on the model's
     device from one explicit generator (the flax initializers' scales:
     lecun-normal matrices, zero biases, unit norms, N(0, 1) position
-    biases, width**-0.5 embeddings, +-1/K codebooks)."""
+    biases, width**-0.5 embeddings, +-1/K codebooks).  The VQGAN teacher
+    encoder draws after every other parameter, so the rest of a codec gets
+    the weights it had before the teacher was part of it."""
     g = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    owners = sorted(_owners(model), key=lambda o: o[0].startswith(TEACHER))
     with torch.no_grad():
-        for name, mod, leaf, p in _owners(model):
+        for name, mod, leaf, p in owners:
             if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
                 p.fill_(1.0 if leaf == "weight" else 0.0)
             elif leaf == "bias":

@@ -66,6 +66,80 @@ def test_window_attention_kernel_matches_plain(cuda, shifted, C, heads):
         rtol=TOL, atol=TOL)
 
 
+def _rel_err(got, want):
+    """Largest difference relative to the largest magnitude of ``want``."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("B,H,W,C,heads,nB", [
+    (2, 16, 16, 768, 12, 1),      # 256 px, one window a map
+    (2, 16, 16, 1024, 16, 1),
+    (1, 32, 32, 1024, 16, 4),     # 512 px, shifted: a bias per window
+    (2, 32, 32, 768, 12, 1),
+    (2, 32, 48, 128, 2, 6)])
+def test_window_attention_bwd_kernel_matches_plain(cuda, B, H, W, C, heads, nB):
+    """dqkv and dbias of the backward kernel against the plain version's
+    autograd, within 1e-4 of their largest magnitude (f32 summation order;
+    dbias sums over batch, heads and windows).  nB > 1 carries the shift
+    masks' -inf entries."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    ws = 16
+    qkv = _randn((B, H, W, 3 * C), C + nB, cuda)
+    g = _randn((B, H, W, C), 7, cuda)
+    bias = _randn((1, 256, 256), 3, cuda)
+    if nB > 1:
+        mask = _full_shift_mask(H // ws, W // ws, ws)
+        bias = (bias + torch.from_numpy(mask).to(cuda)).contiguous()
+    before = ops.launch_counts()["window_attention_nhwc_bwd"]
+    dqkv, dbias = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, heads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["window_attention_nhwc_bwd"] == before + 1
+    want_q, want_b = ops.window_attention_nhwc_bwd_plain(qkv, bias, g, 0.125, heads)
+    assert dbias.shape == (nB, 256, 256)
+    assert torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()
+    assert _rel_err(dqkv, want_q) <= TOL
+    assert _rel_err(dbias, want_b) <= TOL
+
+
+def test_window_attention_bwd_rejects_a_partly_shared_bias(cuda):
+    qkv = _randn((1, 32, 32, 3 * 128), 1, cuda)
+    g = _randn((1, 32, 32, 128), 2, cuda)
+    with pytest.raises(ValueError, match="bias rows"):
+        ops.window_attention_nhwc_bwd(qkv, _randn((2, 256, 256), 3, cuda), g,
+                                      0.125, 2)
+
+
+def test_attention_gradients_on_the_card(cuda):
+    """A grad-requiring CUDA input comes out of kernels 1 and 2 with a
+    grad_fn, and its gradients (to qkv, and to the bias of window
+    attention) equal the plain versions' within 1e-4."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    qkv = _randn((2, 289, 3 * 1024), 11, cuda).requires_grad_(True)
+    g = _randn((2, 289, 1024), 12, cuda)
+    out = ops.seq_attention(qkv, 0.125, 16)
+    assert out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, qkv, g)
+    ref = ops.seq_attention_plain(qkv, 0.125, 16)
+    (want,) = torch.autograd.grad(ref, qkv, g)
+    assert _rel_err(got, want) <= TOL
+
+    qkv = _randn((1, 32, 32, 3 * 768), 13, cuda).requires_grad_(True)
+    rel = _randn((1, 256, 256), 14, cuda).requires_grad_(True)
+    mask = torch.from_numpy(_full_shift_mask(2, 2, 16)).to(cuda)
+    g = _randn((1, 32, 32, 768), 15, cuda)
+    before = ops.launch_counts()
+    out = ops.window_attention_nhwc(qkv, (rel + mask).contiguous(), 0.125, 12)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (qkv, rel), g)
+    after = ops.launch_counts()
+    assert after["window_attention_nhwc"] == before["window_attention_nhwc"] + 1
+    assert after["window_attention_nhwc_bwd"] == before["window_attention_nhwc_bwd"] + 1
+    ref = ops.window_attention_nhwc_plain(qkv, rel + mask, 0.125, 12)
+    want = torch.autograd.grad(ref, (qkv, rel), g)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL
+
+
 def test_rans_kernel_matches_native_and_plain(cuda):
     t = build_gaussian_tables("gaussian")
     rng = np.random.default_rng(5)

@@ -124,9 +124,12 @@ def test_l2_quantizer_encode():
     m = _randomize(L2VectorQuantizer(64, 8), 21)
     z = _x((6, 8, 8), 22)
     z_q_ref, info = JL2(64, 8).apply(_flax_vars(m), jnp.asarray(z))
-    z_q, idx = m(torch.from_numpy(z))
+    z_q, result = m(torch.from_numpy(z))
+    idx = result["min_encoding_indices"]
     np.testing.assert_array_equal(idx.numpy(),
                                   np.asarray(info["min_encoding_indices"]))
+    np.testing.assert_array_equal(m.encode_indices(torch.from_numpy(z)).numpy(),
+                                  idx.numpy())
     _close(z_q, z_q_ref)
     assert len(np.unique(idx.numpy())) > 8
 
@@ -286,20 +289,20 @@ def test_four_part_masks_and_indexes_exact():
 
 
 def test_golden_params_bridge_consumes_all_but_the_encoder():
-    """Every leaf of the golden tree lands in exactly one parameter, except
-    the VQGAN teacher encoder, which only training runs."""
+    """Every leaf of the golden tree lands in exactly one parameter, the
+    VQGAN teacher encoder's too (the port's VQGAN holds it for training)."""
     from sic_tpu_torch.models import Codec
-    from sic_tpu_torch.weights import TEACHER_PREFIXES, load_npz
+    from sic_tpu_torch.weights import load_npz
     m = Codec(tcfg.tiny_spec())
     with np.load(GOLDEN) as z:
         keys = set(z.files)
     unused = load_npz(m, GOLDEN)
-    assert unused == {k for k in keys if k.startswith(TEACHER_PREFIXES)}
-    assert len(keys) - len(unused) == sum(1 for _ in m.parameters())
-    for prefix in TEACHER_PREFIXES:
-        assert any(k.startswith(prefix) for k in unused), prefix
-    assert any(k.startswith("params/hybrid_codec/encoder/") for k in keys - unused)
-    assert "params/hybrid_codec/latent_tokens" not in unused
+    assert unused == set()
+    assert len(keys) == sum(1 for _ in m.parameters())
+    for prefix in ("params/vqgan/encoder/", "params/vqgan/quant_conv/",
+                   "params/hybrid_codec/encoder/"):
+        assert any(k.startswith(prefix) for k in keys), prefix
+    assert "params/hybrid_codec/latent_tokens" in keys
 
 
 def test_export_round_trips_the_encoder():
