@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch port's encode and decode paths on one CUDA card.
+"""Chip check of the PyTorch port on one CUDA card: encode, decode, the
+(G, s, d) window-attention op, the HTTP service with search, and training.
 
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases, each printing one JSON line with the card's name and power limit:
 
-1. build    - the five CUDA kernels (one nvcc per source, in parallel) and
+1. build    - the six CUDA kernels (one nvcc per source, in parallel) and
               the native rANS coder, from the sources in the checkout;
 2. kernels  - each kernel against its plain PyTorch version on the card at
               the flagship's shapes (rANS encode also against the native
               encoder, and through one forced buffer overflow; the
               window-attention backward against the plain version's
-              autograd at the training shapes, -inf shift masks included),
-              with CUDA-event times of the kernel, the plain version and,
-              for attention, one scaled_dot_product_attention call (its
-              backward alone for the backward kernel) as a yardstick;
+              autograd at the training shapes, -inf shift masks included;
+              the (G, s, d) window attention at bench.py:kernel_check's
+              geometry, forward and gradient), with CUDA-event times of
+              the kernel, the plain version and, for attention, one
+              scaled_dot_product_attention call (its backward alone for
+              the backward kernel) as a yardstick;
 3. golden   - the JAX-encoded tests/fixtures/golden stream through the CLI
               (host coder) and through the rANS decode kernel, against the
               committed pixels; then golden_input() encoded on the card by
@@ -29,8 +32,27 @@ Phases, each printing one JSON line with the card's name and power limit:
               back to the encoder's y_hat bit for bit, times and a profile;
 5. flagship - decode_only / decode_only_batched / the decompress CLI on
               streams from phase 4 (one 512x512, one 256x768, four
-              256x256), every h_hat equal to the encoder's y_hat;
-6. train    - the seeded flagship trained through create_train_state and
+              256x256), every h_hat equal to the encoder's y_hat; the
+              pixel decoder and the encoder at 4 and 8 x 256x256 run
+              batched and one stream at a time, timed A B B A, and the
+              outputs of the two compared (batch invariance);
+6. op       - the (G, s, d) window-attention op, forward and gradient, at
+              kernel_check's geometry and on one flagship Swin layer's real
+              qkv (FeatMerge's shifted feat_in layer on the 512x512
+              request, -inf masks included), whose output must equal
+              kernel 2's on the same qkv;
+7. serve    - the port's HTTP service in process (flagship spec, seeded
+              codec and CLIP, INDEX_DIR at phase 4's faiss/): /compress and
+              /decompress against the runtime's encode_only / decode_only,
+              four concurrent requests of each byte-equal to the serial
+              ones, /search/stream/{c2df,image,text} (the committed
+              artifacts_r05 index ranks val3, val4, val6 first; image and
+              text hits equal the search CLI's), the search and build CLIs
+              on the card equal to their CPU runs, latencies and one
+              profiled /decompress; one search wave of 256 queries over
+              100k seeded vectors of 512, its top k against a full stable
+              sort, timed;
+8. train    - the seeded flagship trained through create_train_state and
               Trainer at 256 px, batch 2, on the heldout images: four steps
               of each stage (feat_wo_bpp, feat, pix) and an eval step after
               each, every loss finite, frozen leaves bit-unchanged,
@@ -41,7 +63,7 @@ Phases, each printing one JSON line with the card's name and power limit:
               deploy_params.npz, and one image compressed and decompressed
               with those params, h_hat equal to the encoder's y_hat; step
               times, peak memory and one profiled pix step;
-7. cpu      - the first 256x256 request decoded again on the CPU (plain
+9. cpu      - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
               one 256x256 image encoded on the CPU, its differences from
               the card's encode reported; and one tiny-spec feat step and
@@ -52,11 +74,13 @@ Phases, each printing one JSON line with the card's name and power limit:
               against all) reported beside them.
 
 Each path's launch counts are set to 0 just before it is driven (phase 4
-for the encode, phase 5 for the decode, phase 6 for training) and read just
-after; every kernel of the path must have launched.  Then a ``{"kernels": [...]}`` line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Exits
-non-zero, with no result line, without a CUDA device, outside the
-repository, or if any phase fails.  Work files go to ``WORK`` below.
+for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
+serving, phase 8 for training) and read just after; every kernel of the
+path must have launched, and the (G, s, d) kernel on no model path.  Then
+a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
+without a CUDA device, outside the repository, or if any phase fails.
+Work files go to ``WORK`` below.
 """
 from __future__ import annotations
 
@@ -67,6 +91,8 @@ import sys
 import threading
 import time
 import traceback
+import urllib.request
+import uuid
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -92,6 +118,14 @@ TRAIN_GRAD_TOL = 1e-3   # card vs CPU: each leaf's gradient, relative to its nor
 PIX_LOSS_TOL = 1e-3
 PIX_GRAD_TOL = 5e-3
 CPU_PIXEL_TOL = 1e-3    # card vs CPU decode of the flagship, [-1, 1] floats
+# the (G, s, d) window-attention kernel vs its plain version: the forward
+# within this share of the output's largest magnitude, each gradient (q, k,
+# v, bias) within GSD_GRAD_TOL of its own largest magnitude; f32 summation
+# order only
+GSD_FWD_TOL = 1e-5
+GSD_GRAD_TOL = 1e-4
+# the JAX CLI's three best scores for val3.c2df over artifacts_r05/faiss
+R05_VAL3_TOP3 = (("val3", 0.99724), ("val4", 0.99316), ("val6", 0.99262))
 SEED = 0
 
 
@@ -101,6 +135,15 @@ def _card_line() -> str:
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def _multipart(filename: str, payload: bytes):
+    """A multipart/form-data body with one ``file`` field, and its type."""
+    boundary = uuid.uuid4().hex
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: application/octet-stream"
+            f"\r\n\r\n").encode() + payload + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
 
 
 class Smoke:
@@ -253,6 +296,8 @@ class Smoke:
         self.kernels["window_attention_nhwc"] = out["window_attention_c768_nb4"]
         out["window_attention_bwd"] = bwd = self._window_bwd_checks(g)
         self.kernels["window_attention_nhwc_bwd"] = bwd["256px_c768_nb1"]
+        out["window_attention_gsd"] = self.kernels["window_attention"] = \
+            self._gsd_check(*self._gsd_bench_inputs(g), 64 ** -0.5)
 
         out["rans_decode"] = self.kernels["rans_decode_plane"] = self._rans_check()
         enc = {f"{S}x{npos}": self._rans_encode_check(S, npos)
@@ -329,6 +374,59 @@ class Smoke:
                 raise AssertionError(f"window_attention_bwd {tag}: {rec}")
             out[tag] = rec
         return out
+
+    def _gsd_bench_inputs(self, g):
+        """bench.py:kernel_check's geometry: G 32, s 256, d 64, nW 2,
+        unit-normal q, k, v and bias."""
+        torch = self.torch
+        dev = torch.device("cuda")
+        q, k, v = (torch.randn((32, 256, 64), device=dev, generator=g)
+                   for _ in range(3))
+        return q, k, v, torch.randn((2, 256, 256), device=dev, generator=g)
+
+    def _gsd_grads(self, fn, q, k, v, bias, scale):
+        """fn(q, k, v, bias) and the autograd gradient of sum(sin(out)) for
+        all four inputs."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, bias)]
+        out = fn(*leaves, scale)
+        return out.detach(), self.torch.autograd.grad(out.sin().sum(), leaves)
+
+    def _gsd_check(self, q, k, v, bias, scale):
+        """Kernel 6 against its plain version on the card: the forward, and
+        the autograd gradient of sum(sin(out)) for q, k, v and bias (the
+        kernel's autograd Function, whose backward is the plain f32
+        recompute, against autograd through the plain forward); CUDA-event
+        times of the kernel, the plain version and one SDPA call with the
+        bias as a float mask."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from sic_tpu_torch import ops
+        G, s, d = q.shape
+        nW = bias.shape[0]
+        out, grads = self._gsd_grads(ops.window_attention, q, k, v, bias, scale)
+        ref, want = self._gsd_grads(ops.window_attention_plain, q, k, v, bias, scale)
+        err = (out - ref).abs().max().item()
+        fwd_rel = err / ref.abs().max().item()
+        grad_rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+                    for n, a, b in zip("qkvb", grads, want)}
+        finite = bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(a).all()) for a in grads)
+        qb, kb, vb = (t.view(G // nW, nW, s, d) for t in (q, k, v))
+        mask = bias[None]
+        rec = {"shape": [G, s, d], "nW": nW, "max_abs_err": err,
+               "fwd_rel_err": fwd_rel, "grad_rel_err": grad_rel,
+               "ms": self.time_ms(lambda: ops.window_attention(q, k, v, bias, scale)),
+               "plain_ms": self.time_ms(
+                   lambda: ops.window_attention_plain(q, k, v, bias, scale)),
+               "library_ms": self.time_ms(lambda: F.scaled_dot_product_attention(
+                   qb, kb, vb, attn_mask=mask, scale=scale))}
+        rec["bound_ms"], rec["bound_by"] = self.bound(
+            4 * G * s * s * d, (4 * G * s * d + nW * s * s) * 4)
+        if not (finite and fwd_rel <= GSD_FWD_TOL
+                and max(grad_rel.values()) <= GSD_GRAD_TOL):
+            raise AssertionError(f"window_attention (G, s, d): {rec}")
+        return rec
 
     def _rans_check(self):
         """Four 512x512 planes (16x16 latent, 64 channels -> 4096 positions
@@ -738,6 +836,7 @@ class Smoke:
         index_files = sorted(p.name for p in (out_dir / "faiss").iterdir())
 
         timing = self._encode_timing(rt, clip, x, img)
+        self.group_x = x["group_of_8"]
         # the decode phase's requests: the kernel's streams, as files too
         dst = WORK / "flagship_in"
         dst.mkdir(parents=True, exist_ok=True)
@@ -928,6 +1027,62 @@ class Smoke:
 
         out["profile_512x512"] = self._profile(lambda: decode_single("a_512x512"))
         out["profile_group_of_4"] = self._profile(decode_group)
+        out["network_batching"] = self._network_batching(requests, group)
+        return out
+
+    def _network_batching(self, requests, group, rounds=3):
+        """The network passes of a group of 256x256 streams, the pixel
+        decoder (four streams, and the four twice) and the encoder (four and
+        eight images), run as one batch (A) and one stream at a time (B),
+        timed A B B A (CUDA events, ``rounds`` calls a reading), and the
+        batch's outputs against the single passes' (batch invariance)."""
+        import numpy as np
+        torch = self.torch
+        from sic_tpu_torch.models.codec import to_u8
+        rt, model = self.rt, self.rt.model
+        probe = {}
+        rt.decode_only_batched([requests[s] for s in group], probe=probe)
+        n_latent = int(requests[group[0]]["z_indices_shape"][-1])
+        z4 = torch.cat([torch.from_numpy(rt._decode_z(
+            requests[s]["z_bit_stream"], requests[s]["token_length"], "rans"
+        ).astype(np.int64).reshape(-1, n_latent)) for s in group]).cuda()
+        h4, stack = probe["h_hat"], requests[group[0]]["stack_shape"]
+        nt = z4.shape[0] // len(group)
+        x8 = torch.from_numpy(self.group_x).cuda() * 0.5 + 0.5
+
+        def decode(b, batched):
+            z, h = torch.cat([z4] * (b // 4)), torch.cat([h4] * (b // 4))
+            if batched:
+                return model.decode_stage(z, h, stack)
+            return torch.cat([model.decode_stage(z[i * nt:(i + 1) * nt], h[i:i + 1], stack)
+                              for i in range(b)])
+
+        def encode(b, batched):
+            if batched:
+                return model.encode_stage(x8[:b])[:2]
+            outs = [model.encode_stage(x8[i:i + 1])[:2] for i in range(b)]
+            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+        out = {}
+        with torch.no_grad():
+            for name, fn in (("decode", decode), ("encode", encode)):
+                for b in (4, 8):
+                    ms = {True: [], False: []}
+                    for batched in (True, False, False, True):
+                        ms[batched].append(self.time_ms(lambda: fn(b, batched),
+                                                        iters=rounds, warmup=1))
+                    one, per = fn(b, True), fn(b, False)
+                    row = {"batched_ms": ms[True], "per_stream_ms": ms[False]}
+                    if name == "decode":
+                        row["max_abs_diff"] = (one - per).abs().max().item()
+                        row["u8_pixels_differing"] = int((to_u8(one) != to_u8(per)).sum())
+                    else:
+                        row["z_equal"] = bool(torch.equal(one[0], per[0]))
+                        row["h_max_abs_diff"] = (one[1] - per[1]).abs().max().item()
+                        row["y_hat_equal"] = bool(torch.equal(
+                            rt.h_coder.compress_plan(one[1])[1],
+                            rt.h_coder.compress_plan(per[1])[1]))
+                    out[f"{name}_{b}x256x256"] = row
         return out
 
     def _profile(self, fn, top=12):
@@ -972,7 +1127,8 @@ class Smoke:
                         "window_attention_nhwc_bwd": ("bwd_stats_kernel", "bwd_dkdv_kernel",
                                                       "bwd_dq_kernel", "bwd_dbias_kernel"),
                         "rans_decode_plane": ("rans_decode_kernel",),
-                        "rans_encode_plane": ("rans_encode_kernel",)}
+                        "rans_encode_plane": ("rans_encode_kernel",),
+                        "window_attention": ("window_attention_gsd_kernel",)}
         mine = {n: round(sum(us for us, k, _ in rows if k.startswith(tuple(
                     f"(anonymous namespace)::{f}" for f in fs))) / 1e3, 4)
                 for n, fs in kernel_names.items()}
@@ -984,6 +1140,377 @@ class Smoke:
                                    for us, k, n in rows[:top]]}
 
     # -- phase 6 ----------------------------------------------------------------
+    def _layer_qkv(self):
+        """The packed qkv of a shifted flagship Swin layer on the 512x512
+        request (FeatMerge's feat_in layer 1: (1, 32, 32, 2304), 12 heads,
+        2x2 windows) and its bias: position bias plus the -inf shift masks,
+        (4, 256, 256)."""
+        rt = self.rt
+        wa = rt.model.prior_fusion.feat_in.block[1].attention_block
+        got = {}
+        hook = wa.to_qkv.register_forward_hook(
+            lambda _m, _i, o: got.setdefault("qkv", o.detach().clone()))
+        try:
+            req = {f: v for f, v in self.requests["a_512x512"].items() if f != "y_hat"}
+            rt.decode_only(**req, output="u8")
+        finally:
+            hook.remove()
+        qkv = got["qkv"]
+        ws = wa.window_size
+        nwh, nww = qkv.shape[1] // ws, qkv.shape[2] // ws
+        bias = (wa.pos_embedding.float()[None]
+                + wa._shift_mask(nwh, nww, qkv.device)).contiguous()
+        return qkv, bias, wa.heads, wa.head_dim ** -0.5
+
+    @staticmethod
+    def _to_gsd(qkv, heads, ws):
+        """(B, H, W, 3C) packed qkv -> q, k, v (G = B * heads * nW, s, d),
+        windows innermost, so window-head g takes bias[g % nW]."""
+        B, H, W, c3 = qkv.shape
+        d = c3 // 3 // heads
+        nwh, nww = H // ws, W // ws
+        t = qkv.reshape(B, nwh, ws, nww, ws, 3, heads, d).permute(
+            5, 0, 6, 1, 3, 2, 4, 7).reshape(3, B * heads * nwh * nww, ws * ws, d)
+        return [t[i].contiguous() for i in range(3)]
+
+    @staticmethod
+    def _from_gsd(out, B, H, W, heads, ws):
+        """Inverse of :meth:`_to_gsd` for the output: (G, s, d) ->
+        (B, H, W, heads * d)."""
+        d = out.shape[-1]
+        nwh, nww = H // ws, W // ws
+        o = out.reshape(B, heads, nwh, nww, ws, ws, d)
+        return o.permute(0, 2, 4, 3, 5, 1, 6).reshape(B, H, W, heads * d)
+
+    def op(self):
+        """Kernel 6's own path.  No model layer calls the (G, s, d) op, in
+        the JAX package either; its entry point is the op itself, which
+        this phase drives as bench.py's kernel_check drives the JAX one:
+        forward and gradient at kernel_check's geometry, and on the (G, s,
+        d) relayout of one flagship Swin layer's real qkv (with its -inf
+        shift masks).  Then the layer's output against kernel 2's on the
+        same qkv, and the layer shape against the plain version, timed."""
+        torch = self.torch
+
+        from sic_tpu_torch import ops
+        g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        bench = self._gsd_bench_inputs(g)
+        qkv, bias, heads, scale = self._layer_qkv()
+        B, H, W, _ = qkv.shape
+        layer = (*self._to_gsd(qkv, heads, 16), bias)
+
+        # -- the op's path: counts from 0, read right after ----------------------
+        ops.reset_launch_counts()
+        for inputs, sc in ((bench, 64 ** -0.5), (layer, scale)):
+            self._gsd_grads(ops.window_attention, *inputs, sc)
+        torch.cuda.synchronize()
+        self.counts["op"] = counts = ops.launch_counts()
+        # -------------------------------------------------------------------------
+
+        out6 = ops.window_attention(*layer, scale)
+        out2 = ops.window_attention_nhwc(qkv, bias, scale, heads)
+        vs_k2 = (self._from_gsd(out6, B, H, W, heads, 16) - out2).abs().max().item()
+        rec = {"layer": "prior_fusion.feat_in.block.1 (shifted), 512x512 request",
+               "qkv_shape": list(qkv.shape), "heads": heads, "nW": bias.shape[0],
+               "qkv_max_abs": qkv.abs().max().item(),
+               "vs_window_attention_nhwc_max_abs_err": vs_k2,
+               "vs_window_attention_nhwc_rel_err": vs_k2 / out2.abs().max().item(),
+               "layer_check": self._gsd_check(*layer, scale),
+               "launches": counts,
+               "model_path_launches": {p: c.get("window_attention", 0)
+                                       for p, c in self.counts.items() if p != "op"}}
+        if counts["window_attention"] < 1 or \
+                rec["vs_window_attention_nhwc_rel_err"] > GSD_FWD_TOL:
+            raise AssertionError(f"window_attention op path: {rec}")
+        return rec
+
+    # -- phase 7 ----------------------------------------------------------------
+    def serve(self):
+        """The port's HTTP service in process on 127.0.0.1, flagship spec,
+        seeded codec and CLIP, INDEX_DIR at phase 4's faiss/: compress and
+        decompress, four concurrent requests of each against the serial
+        answers, the three search streams, then the search and build CLIs
+        on the card against their CPU runs."""
+        import gc
+        import os
+        torch = self.torch
+
+        from sic_tpu_torch.service import ServiceState, make_server
+        env = {"INDEX_DIR": str(WORK / "encode_out" / "faiss"),
+               "MEDIA_ROOT": str(WORK), "PREVIEW_CACHE": str(WORK / "previews")}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            state = ServiceState("flagship", device="cuda")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        allocated_gb = torch.cuda.memory_allocated() / 2 ** 30
+        alive = self._alive()
+        srv = make_server(state, host="127.0.0.1", port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            rec = self._serve_checks(state, f"http://127.0.0.1:{srv.server_address[1]}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join()
+            state.close()
+            del state, srv, th     # the server's handler class holds the state
+            gc.collect()
+            torch.cuda.empty_cache()
+        # device memory held before the service and after it is gone, and
+        # what is still alive then: runtimes and CLIP codecs besides phase
+        # 4's, and the CUDA tensors' bytes
+        rec["allocated_gb_before_after"] = [
+            allocated_gb, torch.cuda.memory_allocated() / 2 ** 30]
+        rec["alive_before_after"] = [alive, self._alive()]
+        return rec
+
+    def _alive(self):
+        import gc
+
+        from sic_tpu_torch.models.codec import CodecRuntime
+        from sic_tpu_torch.retrieval.codec import ClipCodec
+        torch = self.torch
+        gc.collect()
+        models, storages = [], {}
+        for o in gc.get_objects():
+            if isinstance(o, (CodecRuntime, ClipCodec)) and o is not self.rt:
+                models.append(type(o).__name__)
+            elif isinstance(o, torch.Tensor) and o.is_cuda:
+                st = o.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        return {"models": models, "cuda_tensor_gb": sum(storages.values()) / 2 ** 30}
+
+    def _serve_checks(self, state, base):
+        import concurrent.futures
+        import contextlib
+        import io
+        import statistics
+
+        import numpy as np
+        torch = self.torch
+        from PIL import Image
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.cli.build import main as build_main
+        from sic_tpu_torch.cli.search import main as search_main
+        from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
+        from sic_tpu_torch.data import load_image
+
+        src = WORK / "encode_in"
+        mosaic = (src / "a_512x512.png").read_bytes()
+        vals = [(src / f"c_256x256_{i}.png").read_bytes() for i in range(4)]
+        val3_c2df = (ROOT / "artifacts_r05" / "bitstreams" / "val3.c2df").read_bytes()
+        val3_png = (HELDOUT / "val3.png").read_bytes()
+        text = "a photo of a red apple on a table"
+        r05 = ROOT / "artifacts_r05" / "faiss"
+
+        def post(path, payload, name=None):
+            if name is None:
+                req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                             headers={"Content-Type": "application/json"})
+            else:
+                body, ctype = _multipart(name, payload)
+                req = urllib.request.Request(base + path, data=body,
+                                             headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.read(), dict(resp.headers)
+
+        def ndjson(raw):
+            lines = [json.loads(ln) for ln in raw.decode().splitlines() if ln.strip()]
+            kinds = [ln["type"] for ln in lines]
+            ok = (kinds[0] == "meta" and lines[0]["stage"] == "start"
+                  and kinds[1] == "meta" and lines[1]["stage"] == "searched"
+                  and kinds[-1] == "done"
+                  and kinds.count("item") == lines[1]["count"] == len(kinds) - 3)
+            return [(ln["path"], ln["score"]) for ln in lines if ln["type"] == "item"], ok
+
+        def cli_json(argv):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                search_main(argv)
+            return [(r["path"], r["score"]) for r in json.loads(out.getvalue())]
+
+        # warm-up (models loaded, cuBLAS/cuDNN handles), not counted
+        t0 = time.perf_counter()
+        _ = (state.runtime, state.clip)
+        load_s = time.perf_counter() - t0
+        c2df_w, _ = post("/compress", vals[0], "w.png")
+        post("/decompress", c2df_w, "w.c2df")
+        post("/search/stream/text", {"text": "warm-up"})
+
+        # -- the serving path: counts from 0, read right after --------------------
+        ops.reset_launch_counts()
+        c2df_a, hdr = post("/compress", mosaic, "a_512x512.png")
+        png_a, hdr_d = post("/decompress", c2df_a, "a_512x512.c2df")
+        serial_c = [post("/compress", v, f"v{i}.png")[0] for i, v in enumerate(vals)]
+        serial_d = [post("/decompress", c, f"v{i}.c2df")[0] for i, c in enumerate(serial_c)]
+        # wide windows, so that the four concurrent requests form one group;
+        # the default ones again afterwards, for the latencies below
+        batchers = (state.enc_batcher, state.batcher)
+        window_s = [b.window_s for b in batchers]
+        before = [(b.batches_dispatched, b.requests_served) for b in batchers]
+        for b in batchers:
+            b.window_s = 0.5
+        with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+            conc_c = list(pool.map(lambda iv: post("/compress", iv[1], f"v{iv[0]}.png")[0],
+                                   enumerate(vals)))
+            conc_d = list(pool.map(lambda ic: post("/decompress", ic[1], f"v{ic[0]}.c2df")[0],
+                                   enumerate(serial_c)))
+        # [groups, requests] the concurrent requests took, per batcher
+        groups = {name: [b.batches_dispatched - n0, b.requests_served - r0]
+                  for name, b, (n0, r0) in zip(("encode", "decode"), batchers, before)}
+        for b, w in zip(batchers, window_s):
+            b.window_s = w
+        search_c2df, ok_c = ndjson(post(f"/search/stream/c2df?topk=8&index_dir={r05}",
+                                        val3_c2df, "val3.c2df")[0])
+        search_img, ok_i = ndjson(post("/search/stream/image?topk=8", val3_png, "val3.png")[0])
+        search_txt, ok_t = ndjson(post("/search/stream/text", {"text": text, "topk": 8})[0])
+
+        def median_ms(fn, reps=5):
+            times = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t1) * 1e3)
+            return statistics.median(times)
+
+        latency = {
+            "compress_512x512": median_ms(lambda: post("/compress", mosaic, "a.png")),
+            "decompress_512x512": median_ms(lambda: post("/decompress", c2df_a, "a.c2df")),
+            "compress_256x256": median_ms(lambda: post("/compress", vals[0], "v.png")),
+            "decompress_256x256": median_ms(lambda: post("/decompress", serial_c[0], "v.c2df")),
+            "search_c2df": median_ms(lambda: post(f"/search/stream/c2df?index_dir={r05}",
+                                                  val3_c2df, "val3.c2df")),
+            "search_image": median_ms(lambda: post("/search/stream/image", val3_png, "v.png")),
+            "search_text": median_ms(lambda: post("/search/stream/text", {"text": text}))}
+        torch.cuda.synchronize()
+        self.counts["serve"] = counts = ops.launch_counts()
+        # -------------------------------------------------------------------------
+
+        # /compress then /decompress against the runtime on the same image
+        rt = state.runtime
+        enc, header = unpack_c2df(c2df_a)
+        enc = sanitize_enc_result_types(enc)
+        enc["z_coder"], enc["coding_batch"] = header["z_coder"], header["coding_batch"]
+        dec = {}
+        want = rt.decode_only(**enc, output="u8", probe=dec)[0].cpu().numpy()
+        got = np.asarray(Image.open(io.BytesIO(png_a)))
+        probe = {}
+        x = torch.from_numpy(load_image(src / "a_512x512.png"))[None]
+        ref = rt.encode_only(x, probe=probe)
+        rec = {"load_s": round(load_s, 3),
+               "compress_headers": {k: v for k, v in hdr.items() if k.startswith("X-SIC")},
+               "decompress_headers": {k: v for k, v in hdr_d.items()
+                                      if k.startswith("X-SIC")},
+               "decompress_equals_decode_only": bool(np.array_equal(got, want)),
+               "compress_equals_encode_only": ref["h_bit_stream"] == enc["h_bit_stream"]
+               and ref["z_bit_stream"] == enc["z_bit_stream"],
+               "h_hat_equal_y_hat": bool(torch.equal(dec["h_hat"], probe["y_hat"])),
+               "concurrent_compress_equal_serial": conc_c == serial_c,
+               "concurrent_decompress_equal_serial": conc_d == serial_d,
+               "concurrent_groups": groups,
+               "search_c2df_top3": search_c2df[:3],
+               "ndjson_ok": [ok_c, ok_i, ok_t],
+               "latency_ms_p50": latency, "launches": counts}
+
+        # the search CLI over the same indexes, same queries, in this run.
+        # query-image reads the file through [-1, 1] floats as the JAX CLI
+        # does, the service takes the PIL image as the JAX one does; the two
+        # differ only on pixel values 1-63, and val3's lie in 97-183
+        idx4 = str(WORK / "encode_out" / "faiss")
+        rec["search_image_equals_cli"] = search_img == cli_json(
+            ["query-image", "--index_dir", idx4, "--image", str(HELDOUT / "val3.png"),
+             "--topk", "8", "--device", "cuda"])
+        rec["search_text_equals_cli"] = search_txt == cli_json(
+            ["query-text", "--index_dir", idx4, "--text", text, "--topk", "8",
+             "--device", "cuda"])
+        qc = ["query-c2df", "--index_dir", str(r05), "--c2df",
+              str(ROOT / "artifacts_r05" / "bitstreams" / "val3.c2df"), "--topk", "8"]
+        card = cli_json(qc + ["--device", "cuda"])
+        rec["query_c2df_card_equals_cpu"] = card == cli_json(qc + ["--device", "cpu"])
+        rec["query_c2df_card_equals_service"] = card == search_c2df
+        # the build CLI as a user runs it, and in process on the CPU
+        bits = str(ROOT / "artifacts_r05" / "bitstreams")
+        res = subprocess.run([sys.executable, "-m", "sic_tpu_torch.cli.build", "build",
+                              "--c2df_dir", bits, "--index_dir", str(WORK / "build_card")],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        with contextlib.redirect_stdout(io.StringIO()):
+            build_main(["build", "--c2df_dir", bits, "--index_dir", str(WORK / "build_cpu")])
+        rec["build_cli_rc"] = res.returncode
+        rec["build_files_equal"] = res.returncode == 0 and all(
+            (WORK / "build_card" / n).read_bytes() == (WORK / "build_cpu" / n).read_bytes()
+            for n in ("faiss.index", "paths.json", "meta.json", "index.faiss", "ids.txt"))
+        rec["profile_decompress_512x512"] = self._profile(
+            lambda: post("/decompress", c2df_a, "a.c2df"))
+        rec["search_wave_100k"] = wave = self._search_wave()
+
+        top3 = [(Path(p).stem, s_) for p, s_ in search_c2df[:3]]
+        top3_ok = [n for n, _ in top3] == [n for n, _ in R05_VAL3_TOP3] and all(
+            abs(s_ - want_s) < 1e-4 for (_, s_), (_, want_s) in zip(top3, R05_VAL3_TOP3))
+        need = ("seq_attention", "window_attention_nhwc", "rans_decode_plane")
+        flags = ("decompress_equals_decode_only", "compress_equals_encode_only",
+                 "h_hat_equal_y_hat", "concurrent_compress_equal_serial",
+                 "concurrent_decompress_equal_serial", "search_image_equals_cli",
+                 "search_text_equals_cli", "query_c2df_card_equals_cpu",
+                 "query_c2df_card_equals_service", "build_files_equal")
+        if not (all(rec[f] for f in flags) and all(rec["ndjson_ok"]) and top3_ok
+                and all(n < 4 and r == 4 for n, r in groups.values())
+                and rec["decompress_headers"].get("X-SIC-Stage") == "decompress"
+                and len(search_img) == len(search_txt) == 8
+                and min(counts[k] for k in need) >= 1
+                and counts["window_attention"] == 0
+                and wave["ids_equal_stable_sort"] and wave["scores_equal_stable_sort"]):
+            raise AssertionError(f"serve check failed: {rec}")
+        return rec
+
+    def _search_wave(self, n=100_000, dim=512, nq=256, k=10, reps=5):
+        """One search wave at the JAX package's documented search traffic
+        (256 queries over 100k vectors, sic_tpu/retrieval/index.py:132):
+        seeded unit vectors; the top k against a full stable sort of the
+        same scores; the wave's time on the card (CUDA events, the query's
+        upload included) beside the sort's, and through search() with the
+        copy back (median of ``reps``); the database's bytes on the card."""
+        import statistics
+
+        import numpy as np
+        torch = self.torch
+        from sic_tpu_torch.retrieval import VectorIndex
+        from sic_tpu_torch.retrieval.index import _round_bf16
+        rng = np.random.default_rng(SEED + 7)
+        index = VectorIndex(dim, device="cuda")
+        index.add_batch(rng.standard_normal((n, dim), dtype=np.float32),
+                        [str(i) for i in range(n)])
+        q = rng.standard_normal((nq, dim), dtype=np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        db = index._db()
+        s, i = index.search_device(q, k)
+
+        def full_sort():
+            scores = torch.matmul(_round_bf16(torch.from_numpy(q).cuda()), db.T).float()
+            return torch.sort(scores, dim=-1, descending=True, stable=True)
+
+        ref = full_sort()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            index.search(q, k)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return {"n": n, "dim": dim, "queries": nq, "k": k,
+                "db_gb": db.numel() * db.element_size() / 2 ** 30,
+                "ids_equal_stable_sort": bool(torch.equal(i, ref.indices[:, :k])),
+                "scores_equal_stable_sort": bool(torch.equal(s, ref.values[:, :k])),
+                "search_device_ms": self.time_ms(lambda: index.search_device(q, k)),
+                "full_sort_ms": self.time_ms(full_sort),
+                "search_ms_p50": statistics.median(times)}
+
+    # -- phase 8 ----------------------------------------------------------------
     def train(self):
         """(a) the seeded flagship through create_train_state and Trainer
         at 256 px, batch 2: one epoch (four steps, then an eval step) of
@@ -1144,7 +1671,7 @@ class Smoke:
         torch.cuda.empty_cache()
         return rec
 
-    # -- phase 7 ----------------------------------------------------------------
+    # -- phase 9 ----------------------------------------------------------------
     def cpu_compare(self):
         torch = self.torch
         from sic_tpu_torch.models import Codec, CodecRuntime
@@ -1306,11 +1833,14 @@ class Smoke:
                  "rans_decode_plane": ("sic_tpu_torch/csrc/rans_decode.cu",
                                        "sic_tpu/ops/rans_decode.py:165"),
                  "rans_encode_plane": ("sic_tpu_torch/csrc/rans_encode.cu",
-                                       "sic_tpu/ops/rans_encode.py:77")}
+                                       "sic_tpu/ops/rans_encode.py:77"),
+                 "window_attention": ("sic_tpu_torch/csrc/window_attention_gsd.cu",
+                                      "sic_tpu/ops/window_attention.py:27")}
         rows = []
         for name, (source, replaces) in names.items():
             k = self.kernels.get(name, {})
-            # launches over the main-path runs (encode, decode, training)
+            # launches over the main-path runs (encode, decode, the
+            # (G, s, d) op, serving, training)
             launches = sum(c.get(name, 0) for c in self.counts.values())
             rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "launches": launches,
@@ -1344,7 +1874,8 @@ def main() -> int:
     smoke.phase("encode", smoke.encode)
     if "encode" not in smoke.failed:
         smoke.phase("flagship", smoke.flagship)
-    if "encode" not in smoke.failed:
+        smoke.phase("op", smoke.op)
+        smoke.phase("serve", smoke.serve)
         smoke.phase("train", smoke.train)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)

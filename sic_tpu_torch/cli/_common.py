@@ -46,16 +46,18 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
     return CodecRuntime(spec, model, stream_part=stream_part)
 
 
-def load_clip_codec(clip_ckpt: Optional[str] = None, device=None):
-    """The CLIP image codec on ``device``, from an open_clip checkpoint or,
-    without one, from the seeded initialisation (with a warning, as the
-    JAX CLI does)."""
+def load_clip_codec(clip_ckpt: Optional[str] = None,
+                    bpe_path: Optional[str] = None, device=None):
+    """The CLIP codec (both towers) on ``device``, from an open_clip
+    checkpoint or, without one, from the seeded initialisation (with a
+    warning, as the JAX CLI does); ``bpe_path`` is the tokenizer's merges
+    file (without it, the hashed fallback)."""
     from ..retrieval import ClipCodec, port_open_clip_weights
     state = port_open_clip_weights(clip_ckpt) if clip_ckpt else None
     if state is None:
         print("[WARN] no --clip_ckpt given; CLIP embeddings are "
               "non-calibrated (random weights)", file=sys.stderr)
-    return ClipCodec(state, device=device)
+    return ClipCodec(state, device=device, bpe_path=bpe_path)
 
 
 def init_func(seed: int = 0) -> None:

@@ -1,10 +1,13 @@
-// Shared body of the two attention kernels (sequence and NHWC window).
+// Shared body of the three attention kernels (sequence, NHWC window and
+// (G, s, d) window).
 //
 // One thread block computes one (sequence or window, head, 64-query tile):
 // softmax(q * scale . k^T + bias) v with f32 logits and an online softmax,
-// reading q/k/v straight out of the packed [q | k | v] projection through a
-// row-address functor and writing the head-major output in place.  Nothing
-// but the inputs and the output touches device memory.
+// reading q, k and v through three base pointers and one row-address
+// functor (for the packed [q | k | v] projection the three bases are the
+// same buffer offset by 0, C and 2C channels; for separate q, k, v tensors
+// they are the three tensors) and writing the head-major output in place.
+// Nothing but the inputs and the output touches device memory.
 //
 // Layout of the work inside a block (256 threads, head dim 64):
 //   * thread t owns query row r = t / 4 of the tile and column group
@@ -35,13 +38,13 @@ constexpr int kGroups = kThreads / kQueryTile;          // threads per query row
 constexpr int kKeysPerThread = kKeyTile / kGroups;      // 8
 constexpr int kDimsPerThread = kHeadDim / kGroups;      // 16
 
-// rows.qkv(t): float offset of token t's packed qkv row;
+// rows.qkv(t): float offset of token t's row from each of qb, kb and vb;
 // rows.out(t): float offset of token t's output row.
 template <class Rows>
 __device__ __forceinline__ void attend_tile(
-    const float* __restrict__ qkv, float* __restrict__ out, const Rows& rows,
-    int n, int C, int head, float scale, const float* __restrict__ bias,
-    int q0) {
+    const float* __restrict__ qb, const float* __restrict__ kb,
+    const float* __restrict__ vb, float* __restrict__ out, const Rows& rows,
+    int n, int head, float scale, const float* __restrict__ bias, int q0) {
   __shared__ float ks[kKeyTile][kHeadDim + 1];
   __shared__ __align__(16) float vs[kKeyTile][kHeadDim];
   __shared__ float ps[kQueryTile][kKeyTile + 1];
@@ -57,7 +60,7 @@ __device__ __forceinline__ void attend_tile(
   float q[kHeadDim];
   {
     const float4* qp = reinterpret_cast<const float4*>(
-        qkv + rows.qkv(qrow) + head * kHeadDim);
+        qb + rows.qkv(qrow) + head * kHeadDim);
 #pragma unroll
     for (int i = 0; i < kHeadDim / 4; ++i) {
       const float4 v = qp[i];
@@ -84,9 +87,9 @@ __device__ __forceinline__ void attend_tile(
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 vv = kv;
       if (kj < n) {
-        const float* base = qkv + rows.qkv(kj) + head * kHeadDim + 4 * c4;
-        kv = *reinterpret_cast<const float4*>(base + C);
-        vv = *reinterpret_cast<const float4*>(base + 2 * C);
+        const int64_t off = rows.qkv(kj) + head * kHeadDim + 4 * c4;
+        kv = *reinterpret_cast<const float4*>(kb + off);
+        vv = *reinterpret_cast<const float4*>(vb + off);
       }
       ks[kr][4 * c4 + 0] = kv.x;
       ks[kr][4 * c4 + 1] = kv.y;

@@ -38,8 +38,8 @@ __global__ void __launch_bounds__(sic::kThreads)
                          float* __restrict__ out, int S, int C, float scale) {
   const int b = blockIdx.z;
   const SeqRows rows{(int64_t)b * S * 3 * C, (int64_t)b * S * C, 3 * C, C};
-  sic::attend_tile(qkv, out, rows, S, C, blockIdx.y, scale, nullptr,
-                   blockIdx.x * sic::kQueryTile);
+  sic::attend_tile(qkv, qkv + C, qkv + 2 * C, out, rows, S, blockIdx.y,
+                   scale, nullptr, blockIdx.x * sic::kQueryTile);
 }
 
 }  // namespace

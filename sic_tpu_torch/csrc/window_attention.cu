@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(sic::kThreads)
   const WindowRows rows{((int64_t)b * H + (int64_t)wi * ws) * W + wj * ws,
                         W, ws, 3 * C, C};
   const float* wbias = bias + (int64_t)(win % nB) * s * s;
-  sic::attend_tile(qkv, out, rows, s, C, head, scale, wbias,
-                   tile * sic::kQueryTile);
+  sic::attend_tile(qkv, qkv + C, qkv + 2 * C, out, rows, s, head, scale,
+                   wbias, tile * sic::kQueryTile);
 }
 
 }  // namespace

@@ -11,17 +11,18 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".webp", ".bmp")
 
 
-def list_images(root) -> List[Path]:
-    """Every image file under ``root``, recursively, sorted by path."""
+def list_images(root, exts: Sequence[str] = IMG_EXTS) -> List[Path]:
+    """Every file under ``root`` whose suffix is one of ``exts`` (lower
+    case, with the dot), recursively, sorted by path."""
     return sorted(p for p in Path(root).rglob("*")
-                  if p.suffix.lower() in IMG_EXTS)
+                  if p.suffix.lower() in tuple(exts))
 
 
 def read_paths_file(list_file) -> List[Path]:

@@ -232,7 +232,15 @@ class CodecRuntime:
     rANS kernel on CUDA when the stream has >= 4 substreams, and lets
     :class:`EncodeRouter` pick the encode path on CUDA; ``"device"`` forces
     the kernel paths (on the CPU: their plain versions), ``"host"`` the
-    host coder."""
+    host coder.
+
+    The batched entry points take ``per_stream_networks``: True runs the
+    network passes (the encoder, the pixel decoder) one stream at a time,
+    at the shapes a single request runs them, and batches only the entropy
+    chain, so a stream's bytes and pixels do not depend on the streams
+    batched with it (the float libraries sum differently at another batch
+    size); the service's batchers ask for it.  False (the CLIs) batches
+    the networks too, for throughput."""
 
     def __init__(self, spec: CodecSpec, model: Codec, stream_part: int = 1,
                  device_entropy: str = "auto"):
@@ -390,10 +398,12 @@ class CodecRuntime:
         return self._decode_pixels(z.to(self.device), h_hat, stack_shape, output)
 
     def decode_only_batched(self, enc_results, output: str = "float",
-                            probe: Optional[Dict] = None) -> torch.Tensor:
+                            probe: Optional[Dict] = None,
+                            per_stream_networks: bool = False) -> torch.Tensor:
         """Same-shaped streams decoded together: the 4 autoregressive steps
-        run device-batched over all B streams with one host coder each.
-        Returns x_hat (B, H, W, 3)."""
+        run device-batched over all B streams with one host coder each, the
+        pixel decoder batched or, with ``per_stream_networks``, one stream
+        at a time.  Returns x_hat (B, H, W, 3)."""
         if not enc_results:
             raise ValueError("empty batch")
         first = enc_results[0]
@@ -421,7 +431,16 @@ class CodecRuntime:
         if probe is not None:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result()).to(self.device)
-        return self._decode_pixels(z, h_hat, first["stack_shape"], output)
+        if not per_stream_networks:
+            return self._decode_pixels(z, h_hat, first["stack_shape"], output)
+        nt = z.shape[0] // len(enc_results)
+        outs = []
+        for b, e in enumerate(enc_results):
+            # a repeated stream (a padded lane) reuses its pixels
+            outs.append(outs[-1] if b and e is enc_results[b - 1] else
+                        self._decode_pixels(z[b * nt:(b + 1) * nt], h_hat[b:b + 1],
+                                            first["stack_shape"], output))
+        return torch.cat(outs)
 
     # -- encode entry points ----------------------------------------------------
     def _fetch_packed(self, packed: torch.Tensor) -> np.ndarray:
@@ -471,11 +490,25 @@ class CodecRuntime:
             "z_indices_shape": tuple(z_np.shape),
         }
 
+    def _encode_networks(self, x: torch.Tensor, per_stream: bool):
+        """(z_indices, h) of a batch: one pass, or with ``per_stream`` one
+        pass an image (a repeated image, a padded lane, reuses its
+        result)."""
+        if not per_stream:
+            return self.model.encode_stage(x * 0.5 + 0.5)[:2]
+        outs = []
+        for b in range(x.shape[0]):
+            outs.append(outs[-1] if b and torch.equal(x[b], x[b - 1]) else
+                        self.model.encode_stage(x[b:b + 1] * 0.5 + 0.5)[:2])
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
     @torch.no_grad()
-    def encode_only_batched(self, x, probe: Optional[Dict] = None) -> list:
-        """Batched encode: one device pass for B images, then B independent
-        per-image bitstreams (each decodable alone).  The throughput path
-        for corpus indexing.
+    def encode_only_batched(self, x, probe: Optional[Dict] = None,
+                            per_stream_networks: bool = False) -> list:
+        """Batched encode: one device pass for B images (with
+        ``per_stream_networks`` one an image), then B independent per-image
+        bitstreams (each decodable alone).  The throughput path for corpus
+        indexing.
 
         On the host path the work streams per coding-batch chunk: every
         chunk's chain is enqueued first, then chunk j's packed planes come
@@ -489,7 +522,7 @@ class CodecRuntime:
             return [self.encode_only(x, probe=probe)]
         stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
         n_tiles = stack_shape[0] * stack_shape[1]
-        z_indices, h, _ = self.model.encode_stage(x * 0.5 + 0.5)
+        z_indices, h = self._encode_networks(x, per_stream_networks)
         n_chunks = len(self.h_coder._chunk_batches(B))
         q = self.spec.quant_dim
         packed_bytes = 4 * B * int(h.shape[1]) * int(h.shape[2]) * q

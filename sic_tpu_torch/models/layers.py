@@ -7,6 +7,8 @@ JAX package.  The qkv projection stays packed so the attention kernel reads
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,7 +49,9 @@ class GroupNorm(nn.GroupNorm):
 
 
 class MultiheadSelfAttention(nn.Module):
-    """Packed-qkv self attention through the sequence-attention kernel."""
+    """Packed-qkv self attention: through the sequence-attention kernel,
+    or, with an additive ``attn_mask`` (the CLIP text tower's causal mask),
+    through plain einsums with f32 logits, as the JAX package does."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -57,9 +61,21 @@ class MultiheadSelfAttention(nn.Module):
         self.in_proj = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        head_dim = x.shape[-1] // self.num_heads
-        out = seq_attention(self.in_proj(x), head_dim ** -0.5, self.num_heads)
+    def forward(self, x: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, S, d_model = x.shape
+        head_dim = d_model // self.num_heads
+        qkv = self.in_proj(x)
+        if attn_mask is None:
+            out = seq_attention(qkv, head_dim ** -0.5, self.num_heads)
+        else:
+            q, k, v = (t.reshape(B, S, self.num_heads, head_dim).transpose(1, 2)
+                       for t in qkv.split(d_model, dim=-1))
+            logits = torch.einsum("bhqd,bhkd->bhqk", (q * head_dim ** -0.5).float(),
+                                  k.float())
+            probs = torch.softmax(logits + attn_mask.float(), dim=-1).to(v.dtype)
+            out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+            out = out.transpose(1, 2).reshape(B, S, d_model)
         return self.out_proj(out)
 
 
@@ -85,6 +101,7 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(d_model)
         self.mlp = MLP(d_model, int(d_model * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
+    def forward(self, x: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), attn_mask)
         return x + self.mlp(self.ln_2(x))

@@ -1,16 +1,22 @@
-"""NHWC window attention over a packed qkv projection, with its gradient.
+"""Window attention: NHWC over a packed qkv projection with its gradient,
+and over separate (G, s, d) q, k, v tensors.
 
-CUDA kernels: ``csrc/window_attention.cu`` (the forward, replacing the TPU
-kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``) and
-``csrc/window_attention_bwd.cu`` (the backward, replacing
-``_nhwc_bwd_kernel``).  Every Swin layer runs them: the detail branch's
-``feat_in``, ``feat_out_swin``, ``feat_up_swin``, the ``FeatBlock``
-refiners and the eight layers of FeatMerge.  On a CUDA tensor
-:func:`window_attention_nhwc` is a ``torch.autograd.Function`` whose forward
-is the forward kernel and whose backward is the backward kernel; on a CPU
-tensor it is :func:`window_attention_nhwc_plain` under autograd.  The plain
-versions are also the kernels' oracles on the card.  The cyclic shift of
-shifted layers stays outside (in ``models/swin.py``), as in the JAX package.
+CUDA kernels: ``csrc/window_attention.cu`` (the NHWC forward, replacing the
+TPU kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``),
+``csrc/window_attention_bwd.cu`` (its backward, replacing
+``_nhwc_bwd_kernel``) and ``csrc/window_attention_gsd.cu`` (the (G, s, d)
+forward, replacing ``_attention_kernel``).  Every Swin layer runs the NHWC
+pair: the detail branch's ``feat_in``, ``feat_out_swin``, ``feat_up_swin``,
+the ``FeatBlock`` refiners and the eight layers of FeatMerge.  The (G, s, d)
+op :func:`window_attention` is a public op of its own, as in the JAX
+package, where no model layer calls it either.  On a CUDA tensor each
+entry point is a ``torch.autograd.Function`` whose forward is a kernel;
+the NHWC backward is the backward kernel, the (G, s, d) backward the JAX
+package's recompute in plain torch (the JAX package has no backward kernel
+for it).  On a CPU tensor each is its plain version under autograd.  The
+plain versions are also the kernels' oracles on the card.  The cyclic
+shift of shifted layers stays outside (in ``models/swin.py``), as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -176,3 +182,102 @@ def _lib(name: str, fn_name: str, n_pointers: int) -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+# -- (G, s, d) window attention ----------------------------------------------
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """q, k, v (G, s, d), bias (nW, s, s) f32 -> (G, s, d); window-head g
+    takes ``bias[g % nW]`` (the JAX package's ``_forward_reference``):
+    f32 logits and softmax, probabilities cast to ``v``'s type."""
+    G, s, _ = q.shape
+    nW = bias.shape[0]
+    dots = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    dots = (dots.reshape(G // nW, nW, s, s) + bias).reshape(G, s, s)
+    probs = torch.softmax(dots, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v).to(q.dtype)
+
+
+def window_attention_bwd_plain(q, k, v, bias, g, scale: float):
+    """The VJP of :func:`window_attention_plain` for the output gradient
+    ``g``, recomputed in f32 as the JAX package's ``_bwd`` does: (dq, dk,
+    dv, dbias), dbias (nW, s, s) summed over the ``G // nW`` groups."""
+    G, s, _ = q.shape
+    nW = bias.shape[0]
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    dots = torch.matmul(q32 * scale, k32.transpose(-1, -2))
+    dots = (dots.reshape(G // nW, nW, s, s) + bias).reshape(G, s, s)
+    probs = torch.softmax(dots, dim=-1)
+    dv = torch.matmul(probs.transpose(-1, -2), g32)
+    dprobs = torch.matmul(g32, v32.transpose(-1, -2))
+    ddots = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True))
+    dq = torch.matmul(ddots, k32) * scale
+    dk = torch.matmul(ddots.transpose(-1, -2), q32 * scale)
+    dbias = ddots.reshape(G // nW, nW, s, s).sum(0)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dbias.to(bias.dtype))
+
+
+def _gsd_kernel(q, k, v, bias, scale):
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+        cuda_build.require_cuda(t, name, torch.float32)
+    G, s, d = q.shape
+    if d != HEAD_DIM or tuple(k.shape) != tuple(q.shape) \
+            or tuple(v.shape) != tuple(q.shape) or bias.dim() != 3 \
+            or tuple(bias.shape[1:]) != (s, s):
+        raise ValueError(f"window_attention kernel: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, bias "
+                         f"{tuple(bias.shape)} (head dim must be {HEAD_DIM})")
+    out = torch.empty_like(q)
+    lib = cuda_build.load("window_attention_gsd")
+    fn = lib.sic_window_attention_gsd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), G, s, d, bias.shape[0], float(scale),
+            cuda_build.stream_of(q))
+    cuda_build.check_launch(rc, "window_attention")
+    window_attention.launches += 1
+    return out
+
+
+class _WindowAttentionGSD(torch.autograd.Function):
+    """Forward kernel, backward by plain f32 recompute (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _gsd_kernel(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        return (*window_attention_bwd_plain(q, k, v, bias, g, ctx.scale), None)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """q, k, v: (G, s, d) with G a multiple of ``bias.shape[0]``; bias:
+    (nW, s, s) f32 additive logits bias (position bias plus any -inf shift
+    mask), window-head g taking ``bias[g % nW]``.  Returns (G, s, d).  A
+    CPU tensor takes the plain version under autograd; a CUDA tensor
+    launches the kernel (f32, head dim 64, contiguous) or raises, and its
+    gradient (to q, k, v and bias) is the plain f32 recompute."""
+    G, nW = q.shape[0], bias.shape[0]
+    if nW < 1 or G % nW:
+        raise ValueError(f"window_attention: G {G} is not a multiple of the "
+                         f"{nW} bias windows")
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention runs on CPU or CUDA tensors, "
+                         f"got {q.device}")
+    return _WindowAttentionGSD.apply(q, k, v, bias, scale)
+
+
+window_attention.launches = 0

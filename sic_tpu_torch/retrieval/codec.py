@@ -2,8 +2,7 @@
 
 Byte-identical quantization and zstd-19 payload to the reference
 (reference: src/compress.py:76-86 encode; src/search.py:14-22 decode) and
-to the JAX package's ``retrieval/codec.py``.  Image side only: text queries
-wait for the text tower.
+to the JAX package's ``retrieval/codec.py``; image and text queries.
 """
 from __future__ import annotations
 
@@ -15,7 +14,7 @@ import torch
 from . import zstd
 from ..models.codec import resolve_device
 from ..weights import init_seeded
-from .clip_model import CLIPSpec, CLIPVisionTower, preprocess_image
+from .clip_model import CLIPModel, CLIPSpec, SimpleTokenizer, preprocess_image
 
 
 def l2n(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
@@ -33,18 +32,23 @@ def dequantize_clip_u8(q: np.ndarray) -> np.ndarray:
 
 
 class ClipCodec:
-    """Image -> unit CLIP vector -> zstd-19 u8 payload (+meta).
+    """Image or text -> unit CLIP vector; image vector -> zstd-19 u8
+    payload (+meta).
 
-    ``state_dict``: weights of :class:`CLIPVisionTower` (for example from
-    :func:`port_open_clip_weights`); without it the tower takes the seeded
-    initialisation and ``calibrated`` is False."""
+    ``state_dict``: weights of :class:`CLIPModel` (for example from
+    :func:`port_open_clip_weights`); without it both towers take the
+    seeded initialisation and ``calibrated`` is False.  ``bpe_path``: the
+    BPE merges ``.gz`` of :class:`SimpleTokenizer` (without it, the hashed
+    fallback)."""
 
     def __init__(self, state_dict: Optional[dict] = None,
-                 spec: CLIPSpec = CLIPSpec(), device=None, seed: int = 0):
+                 spec: CLIPSpec = CLIPSpec(), device=None, seed: int = 0,
+                 bpe_path: Optional[str] = None):
         self.spec = spec
         self.device = resolve_device(device)
+        self.tokenizer = SimpleTokenizer(bpe_path, spec.context_length)
         with torch.device(self.device):
-            self.model = CLIPVisionTower(spec)
+            self.model = CLIPModel(spec)
         if state_dict is None:
             init_seeded(self.model, seed)
             self.calibrated = False
@@ -61,17 +65,18 @@ class ClipCodec:
     def images_to_unit_vecs(self, batch) -> np.ndarray:
         """(B, 224, 224, 3) pre-normalized array -> (B, D) unit f32."""
         x = torch.as_tensor(np.asarray(batch, np.float32)).to(self.device)
-        z = self.model(x).float()
-        return (z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)).cpu().numpy()
+        return self.model.encode_image(x).cpu().numpy()
 
     def image_to_unit_vec(self, img) -> np.ndarray:
         """PIL image or HWC array ([-1,1], [0,1] or u8) -> (D,) unit f32."""
         return self.images_to_unit_vecs(
             preprocess_image(img, self.spec.image_size)[None])[0]
 
+    @torch.no_grad()
     def text_to_unit_vec(self, text) -> np.ndarray:
-        raise NotImplementedError(
-            "the CLIP text tower and tokenizer are not ported yet")
+        """A string or a list of them -> (B, D) unit f32."""
+        tokens = torch.from_numpy(self.tokenizer(text)).to(self.device)
+        return self.model.encode_text(tokens).cpu().numpy()
 
     def quantize_u8_and_compress(self, z_unit: np.ndarray) -> Tuple[bytes, Dict]:
         q = quantize_clip_u8(z_unit)

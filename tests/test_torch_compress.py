@@ -140,8 +140,8 @@ def _clip_pair(seed=0):
     from sic_tpu_torch.retrieval import ClipCodec, CLIPSpec
     kw = dict(vision_width=128, vision_layers=2, vision_heads=2, embed_dim=64)
     clip = ClipCodec(spec=CLIPSpec(**kw), device="cpu", seed=seed)
-    visual = unflatten_dict(export_flax_params(clip.model), sep="/")["params"]
-    return clip, JClip(params={"params": {"visual": visual}}, spec=JSpec(**kw))
+    params = unflatten_dict(export_flax_params(clip.model), sep="/")
+    return clip, JClip(params=params, spec=JSpec(**kw))
 
 
 def test_compress_dir_matches_jax(pair, tmp_path):
@@ -203,8 +203,10 @@ def test_clip_payload_and_index_files_match_jax(tmp_path):
     loaded, meta = VectorIndex.load(tmp_path / "p")
     assert loaded.ids == ids and meta["dim"] == 64
     np.testing.assert_array_equal(loaded.vectors(), port.vectors())
-    with pytest.raises(NotImplementedError):
-        clip.text_to_unit_vec("a photo")
+    # the text side, ported since: the same unit vectors as the JAX codec's
+    np.testing.assert_allclose(clip.text_to_unit_vec("a photo"),
+                               jclip.text_to_unit_vec("a photo"),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_encode_router_decides_as_jax():

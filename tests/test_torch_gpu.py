@@ -140,6 +140,43 @@ def test_attention_gradients_on_the_card(cuda):
         assert _rel_err(a, b) <= TOL
 
 
+@pytest.mark.parametrize("G,nW,masked", [(32, 2, False), (48, 4, True),
+                                          (8, 1, False)])
+def test_gsd_window_attention_kernel_matches_plain(cuda, G, nW, masked):
+    """The (G, s, d) kernel at s 256, d 64: forward and the autograd
+    gradient (q, k, v, bias) against the plain version's; with the -inf
+    masks of a shifted 2x2-window layer some query rows see -inf key
+    tiles."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    q, k, v = (_randn((G, 256, 64), G + i, cuda).requires_grad_(True)
+               for i in range(3))
+    bias = _randn((nW, 256, 256), 7, cuda)
+    if masked:
+        bias = bias + torch.from_numpy(_full_shift_mask(2, 2, 16)).to(cuda)
+    bias = bias.contiguous().requires_grad_(True)
+    g = _randn((G, 256, 64), 9, cuda)
+    before = ops.launch_counts()["window_attention"]
+    out = ops.window_attention(q, k, v, bias, 0.125)
+    assert ops.launch_counts()["window_attention"] == before + 1
+    assert torch.isfinite(out).all() and out.grad_fn is not None
+    ref = ops.window_attention_plain(q, k, v, bias, 0.125)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    got = torch.autograd.grad(out, (q, k, v, bias), g)
+    want = torch.autograd.grad(ref, (q, k, v, bias), g)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL
+
+
+def test_gsd_window_attention_refuses_what_the_kernel_cannot_take(cuda):
+    q = _randn((8, 256, 32), 1, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.window_attention(q, q, q, _randn((2, 256, 256), 2, cuda), 0.125)
+    q = _randn((8, 256, 64), 3, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.window_attention(q.half(), q.half(), q.half(),
+                             _randn((2, 256, 256), 4, cuda), 0.125)
+
+
 def test_rans_kernel_matches_native_and_plain(cuda):
     t = build_gaussian_tables("gaussian")
     rng = np.random.default_rng(5)

@@ -27,11 +27,14 @@ def _imported_roots(path: Path):
 
 
 def _source_id(path: Path) -> str:
-    """The file's name; a module of ``retrieval/`` with its package too,
-    since ``retrieval/codec.py`` repeats ``models/codec.py``'s name."""
+    """The file's name; a module of ``retrieval/`` or ``service/``, and the
+    search and build CLIs, with their package too, since
+    ``retrieval/codec.py`` repeats ``models/codec.py``'s name and
+    ``cli/build.py`` ``cpp/build.py``'s."""
     rel = path.relative_to(ROOT).parts
-    return "/".join(rel[1:]) if rel[:2] == ("sic_tpu_torch", "retrieval") \
-        else path.name
+    qualified = rel[:2] in (("sic_tpu_torch", "retrieval"), ("sic_tpu_torch", "service")) \
+        or rel[1:] in (("cli", "build.py"), ("cli", "search.py"))
+    return "/".join(rel[1:]) if qualified else path.name
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=_source_id)

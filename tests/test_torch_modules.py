@@ -190,7 +190,8 @@ def test_open_clip_loader(tmp_path):
     from sic_tpu.retrieval.clip_model import CLIPModel
     from sic_tpu.retrieval.clip_model import \
         port_open_clip_weights as jport
-    from sic_tpu_torch.retrieval import CLIPVisionTower, port_open_clip_weights
+    from sic_tpu_torch.retrieval import CLIPModel as PortCLIPModel
+    from sic_tpu_torch.retrieval import port_open_clip_weights
     rng = np.random.default_rng(29)
     w, e, tw = 128, 64, 64
 
@@ -223,8 +224,9 @@ def test_open_clip_loader(tmp_path):
     path = tmp_path / "open_clip.pt"
     torch.save(sd, path)
 
-    tower = CLIPVisionTower(_clip_spec(False))
-    tower.load_state_dict(port_open_clip_weights(path, _clip_spec(False)))
+    model = PortCLIPModel(_clip_spec(False))
+    model.load_state_dict(port_open_clip_weights(path, _clip_spec(False)))
+    tower = model.visual
     jparams = jport(str(path), _clip_spec(True))
     x = _x((1, 224, 224, 3), 30)
     ref = CLIPModel(_clip_spec(True)).apply(
