@@ -1,5 +1,6 @@
-// Shared body of the three attention kernels (sequence, NHWC window and
-// (G, s, d) window).
+// Body of the (G, s, d) window attention (kernel 6), on the f32 CUDA
+// cores.  The sequence and NHWC window kernels run on the tensor cores
+// (attention_tc.cuh).
 //
 // One thread block computes one (sequence or window, head, 64-query tile):
 // softmax(q * scale . k^T + bias) v with f32 logits and an online softmax,

@@ -3,43 +3,81 @@
 // Replaces the TPU kernel sic_tpu/ops/seq_attention.py::_seq_attn_kernel
 // (launcher _seq_attn_pallas): unmasked multi-head attention from
 // (B, S, 3C) packed [q | k | v] to (B, S, C) head-major, f32 logits and
-// softmax.  S is 289 in the ViT trunks and 545 in the cross-attention
-// blocks, head dim 64.
+// softmax.  S is 289 in the ViT trunks, 545 in the cross-attention blocks
+// and 50 in the CLIP image tower; head dim 64.
 //
-// What bounds it on the H100: 4*S*d flops per (query, head) against 4*C*4
-// bytes read/written per token make it compute-bound (S*d/(4*C/heads) =
-// S/4 flops per byte, far above the f32 ridge of ~20), at the 67 TFLOP/s
-// of the f32 CUDA cores since this first version does not use the tensor
-// cores.  The design keeps every logit and probability on chip (registers
-// and shared memory), reads q/k/v once per block through strides with no
-// relayout pass, and masks the ragged edge of S (neither 289 nor 545 is a
-// multiple of a tile).  Tensor-core (wgmma/TF32 or bf16) tiles are later
-// work.
-#include "attention_common.cuh"
+// What bounds it on the H100: 4*S*d flops per (query, head) against
+// 16*C bytes read and written per token make it bound by operations (S/4
+// flops a byte, far above the ridge).  At fp32 accuracy on the tensor
+// cores that is 3 TF32 products per product: 3 * 4 * B * heads * S^2 * d
+// over 495 TFLOP/s (the f32 CUDA cores' 67 TFLOP/s bound is kept beside it
+// for comparison with the first version, whose every product was an f32
+// FMA reading shared memory, a quarter of that peak at best).
+//
+// Design (the body is attention_tc.cuh): split-TF32 wgmma for both
+// products, both operands K-major as tf32 wgmma requires (q and k as they
+// lie, head dim contiguous; v staged transposed with its key rows permuted
+// so that the probabilities go to wgmma as the register A operand straight
+// from the logits accumulator, never through shared memory).  One 3-D
+// tensor map (3C, S, B) serves q, k and v at channels h*64, C + h*64 and
+// 2C + h*64; rows past S come zero-filled, so a tile never reads the next
+// sequence, and their keys are masked to -inf.
+//
+// Block shape, from ptxas and the wave count (132 SMs):
+//   * two consumer warpgroups (128 query rows) share each 64-key tile, so
+//     the split of k and v into hi and lo (the shared-memory pass that the
+//     tensor cores wait on) is paid once for 128 rows; one warpgroup (64
+//     rows) where S <= 64 (the CLIP tower: 12 blocks either way);
+//   * 251-253 registers a thread, no spills (ptxas; q's hi and lo
+//     fragments are 64 of them, the logits, the tile's P v and the output
+//     32 each) and 115,776 bytes of shared memory (two ring stages of k
+//     and v, 32 KB each, 48 KB of split buffers, alignment slack) give
+//     one 256-thread block an SM;
+//   * trunk (4, 289, 3072): 3 tiles x 16 heads x 4 = 192 blocks, 1.45
+//     waves; cross (4, 545, 2304): 5 x 12 x 4 = 240 blocks, 1.82 waves;
+//     64-row tiles would give 320 and 432 blocks at two an SM by shared
+//     memory but not by registers.
+#include "attention_tc.cuh"
 
 namespace {
 
-struct SeqRows {
-  int64_t qkv_base;
-  int64_t out_base;
-  int qkv_stride;
-  int out_stride;
-  __device__ __forceinline__ int64_t qkv(int t) const {
-    return qkv_base + (int64_t)t * qkv_stride;
+struct SeqGeo {
+  const CUtensorMap* map;
+  float* out;
+  int S, C, head, b;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
+                                       int half, int row0) const {
+    sic_tc::tma_load_3d(dst, map, bar,
+                        which * C + head * sic_tc::kHeadDim + half * 32, row0,
+                        b);
   }
-  __device__ __forceinline__ int64_t out(int t) const {
-    return out_base + (int64_t)t * out_stride;
+  __device__ __forceinline__ float* out_row(int t) const {
+    return out + ((int64_t)b * S + t) * C + head * sic_tc::kHeadDim;
   }
 };
 
 // grid: x = query tile, y = head, z = sequence
-__global__ void __launch_bounds__(sic::kThreads)
-    seq_attention_kernel(const float* __restrict__ qkv,
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+    seq_attention_kernel(const __grid_constant__ CUtensorMap map,
                          float* __restrict__ out, int S, int C, float scale) {
-  const int b = blockIdx.z;
-  const SeqRows rows{(int64_t)b * S * 3 * C, (int64_t)b * S * C, 3 * C, C};
-  sic::attend_tile(qkv, qkv + C, qkv + 2 * C, out, rows, S, blockIdx.y,
-                   scale, nullptr, blockIdx.x * sic::kQueryTile);
+  extern __shared__ uint8_t smem[];
+  const SeqGeo geo{&map, out, S, C, (int)blockIdx.y, (int)blockIdx.z};
+  sic_tc::attend<float, NWG, false>(geo, S, scale,
+                                    blockIdx.x * NWG * sic_tc::kWgRows, smem);
+}
+
+template <int NWG>
+int launch(const CUtensorMap& map, float* out, int B, int S, int C, int heads,
+           float scale, cudaStream_t stream) {
+  constexpr int bytes = sic_tc::Plan<NWG, false>::kAlloc;
+  const int rc = sic_tc::allow_smem<seq_attention_kernel<NWG>>(bytes);
+  if (rc != 0) return rc;
+  const int rows = NWG * sic_tc::kWgRows;
+  const dim3 grid((S + rows - 1) / rows, heads, B);
+  seq_attention_kernel<NWG><<<grid, NWG * 128, bytes, stream>>>(map, out, S, C,
+                                                                scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -47,11 +85,19 @@ __global__ void __launch_bounds__(sic::kThreads)
 extern "C" int sic_seq_attention(const void* qkv, void* out, int B, int S,
                                  int C, int heads, float scale,
                                  void* stream) {
-  if (C != heads * sic::kHeadDim || B <= 0 || S <= 0) {
+  if (C != heads * sic_tc::kHeadDim || B <= 0 || S <= 0 ||
+      reinterpret_cast<uintptr_t>(qkv) % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((S + sic::kQueryTile - 1) / sic::kQueryTile, heads, B);
-  seq_attention_kernel<<<grid, sic::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)qkv, (float*)out, S, C, scale);
-  return (int)cudaGetLastError();
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)3 * C, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)3 * C * 4,
+                                 (cuuint64_t)S * 3 * C * 4};
+  const cuuint32_t box[3] = {sic_tc::kAtomFloats, sic_tc::kBoxRows, 1};
+  const int rc = sic_tc::encode_f32_map(&map, qkv, 3, dims, strides, box);
+  if (rc != 0) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  return S <= sic_tc::kWgRows
+             ? launch<1>(map, (float*)out, B, S, C, heads, scale, s)
+             : launch<2>(map, (float*)out, B, S, C, heads, scale, s);
 }

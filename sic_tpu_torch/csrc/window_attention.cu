@@ -6,58 +6,104 @@
 // softmax(q * scale . k^T + bias[(i * nww + j) % nB]) v, written head-major
 // into (B, H, W, C).  bias is f32 (nB, s, s), s = ws * ws, with nB = 1 (a
 // shared relative-position bias) or nB = nww * nwh (bias plus the -inf
-// masks of a shifted layer).
+// masks of a shifted layer).  ws is 16 in every Swin layer; the kernel
+// takes ws in {8, 16, 32, 64} (a 64-token tile is whole window rows).
 //
-// What bounds it on the H100: with s = 256 and head dim 64 the block does
+// What bounds it on the H100: with s = 256 and head dim 64 a window does
 // 4*s*d = 64 Kflop per query against 16 bytes per token and channel, so it
-// is compute-bound at the 67 TFLOP/s of the f32 CUDA cores (no tensor
-// cores in this first version).  The design reads each window's q/k/v
-// straight from NHWC through the token -> (row, column) map, so no window
-// partition or head split is ever written to device memory; logits and
-// probabilities stay on chip; the bias is read once per query row and key.
-// A shifted window's first key tiles can be all -inf for some rows; the
-// shared body guards the running max against -inf - -inf.
-#include "attention_common.cuh"
+// is bound by operations: at fp32 accuracy on the tensor cores, 3 TF32
+// products per product over 495 TFLOP/s (the f32 CUDA cores' 67 TFLOP/s
+// bound is kept beside it: the first version ran every product as an f32
+// FMA reading shared memory, at a quarter of that peak at best).
+//
+// Design (the body is attention_tc.cuh): split-TF32 wgmma for both
+// products, both operands K-major as tf32 wgmma requires (v staged
+// transposed, its key rows permuted so that the probabilities go to wgmma
+// as the register A operand from the logits accumulator).  One 4-D tensor
+// map (3C, W, H, B) serves q, k and v: a box of (32 channels, ws columns,
+// 64 / ws rows, 1) is a 64-token tile of a window as it lies in NHWC, so
+// the window partition is never written to device memory.  The bias tile
+// (a 3-D map over (s, s, nB)) comes through the same ring.  A shifted
+// window's all -inf key tiles give 0, not NaN (the body's -inf guard).
+//
+// Block shape, from ptxas and the wave count (132 SMs): two consumer
+// warpgroups (128 queries of one window-head) share each 64-key tile and
+// its split into hi and lo; 254-255 registers a thread, no spills
+// (ptxas), and 181,312 bytes of shared memory (two ring stages of k, v and
+// a 128 x 64 bias tile, 64 KB each, 48 KB of split buffers, alignment
+// slack): one 256-thread block an SM.  The
+// flagship's 32 x 32 maps (2 x 2 windows) give 2 tiles x 12 heads x 4 =
+// 96 blocks at width 768 (0.73 of a wave) and 128 at 1024 (0.97); 64-row
+// tiles would give 192 and 256 blocks, 1.45 and 1.94 waves at one an SM.
+// Keys are not split across blocks (a window has only four key tiles):
+// widths 768 (0.73 of a wave) and 1024 (0.97) read the same device time,
+// so a block's latency, not the SMs left idle, sets it; a split would
+// halve that latency at the cost of a second, fixed-order pass.
+#include "attention_tc.cuh"
 
 namespace {
 
-struct WindowRows {
-  int64_t pix0;   // pixel index of the window's top-left token
-  int W;          // map width in pixels
-  int ws;         // window side
-  int qkv_ch;     // 3C
-  int out_ch;     // C
-  __device__ __forceinline__ int64_t pix(int t) const {
-    return pix0 + (int64_t)(t / ws) * W + (t % ws);
+struct WindowGeo {
+  const CUtensorMap* map;
+  const CUtensorMap* bias_map;
+  float* out;
+  int H, W, C, ws, head, b, x0, y0, bias_win;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
+                                       int half, int row0) const {
+    sic_tc::tma_load_4d(dst, map, bar,
+                        which * C + head * sic_tc::kHeadDim + half * 32, x0,
+                        y0 + row0 / ws, b);
   }
-  __device__ __forceinline__ int64_t qkv(int t) const {
-    return pix(t) * qkv_ch;
+  __device__ __forceinline__ void load_bias(void* dst, uint64_t* bar, int half,
+                                            int qrow0, int k0) const {
+    sic_tc::tma_load_3d(dst, bias_map, bar, k0 + half * 32, qrow0, bias_win);
   }
-  __device__ __forceinline__ int64_t out(int t) const {
-    return pix(t) * out_ch;
+  __device__ __forceinline__ float* out_row(int t) const {
+    return out + (((int64_t)b * H + y0 + t / ws) * W + x0 + t % ws) * C +
+           head * sic_tc::kHeadDim;
   }
 };
 
 // grid: x = head * ntiles + query tile, y = window (i * nww + j), z = batch
-__global__ void __launch_bounds__(sic::kThreads)
-    window_attention_kernel(const float* __restrict__ qkv,
-                            const float* __restrict__ bias,
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+    window_attention_kernel(const __grid_constant__ CUtensorMap map,
+                            const __grid_constant__ CUtensorMap bias_map,
                             float* __restrict__ out, int H, int W, int C,
                             int ws, int nB, float scale) {
+  extern __shared__ uint8_t smem[];
   const int s = ws * ws;
-  const int ntiles = (s + sic::kQueryTile - 1) / sic::kQueryTile;
-  const int head = blockIdx.x / ntiles;
-  const int tile = blockIdx.x % ntiles;
+  const int ntiles = s / (NWG * sic_tc::kWgRows);
   const int nww = W / ws;
   const int win = blockIdx.y;
-  const int wi = win / nww;
-  const int wj = win % nww;
-  const int b = blockIdx.z;
-  const WindowRows rows{((int64_t)b * H + (int64_t)wi * ws) * W + wj * ws,
-                        W, ws, 3 * C, C};
-  const float* wbias = bias + (int64_t)(win % nB) * s * s;
-  sic::attend_tile(qkv, qkv + C, qkv + 2 * C, out, rows, s, head, scale,
-                   wbias, tile * sic::kQueryTile);
+  const WindowGeo geo{&map,
+                      &bias_map,
+                      out,
+                      H,
+                      W,
+                      C,
+                      ws,
+                      (int)blockIdx.x / ntiles,
+                      (int)blockIdx.z,
+                      (win % nww) * ws,
+                      (win / nww) * ws,
+                      win % nB};
+  sic_tc::attend<float, NWG, true>(
+      geo, s, scale, ((int)blockIdx.x % ntiles) * NWG * sic_tc::kWgRows, smem);
+}
+
+template <int NWG>
+int launch(const CUtensorMap& map, const CUtensorMap& bias_map, float* out,
+           int B, int H, int W, int C, int heads, int ws, int nB, float scale,
+           cudaStream_t stream) {
+  constexpr int bytes = sic_tc::Plan<NWG, true>::kAlloc;
+  const int rc = sic_tc::allow_smem<window_attention_kernel<NWG>>(bytes);
+  if (rc != 0) return rc;
+  const int ntiles = ws * ws / (NWG * sic_tc::kWgRows);
+  const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
+  window_attention_kernel<NWG><<<grid, NWG * 128, bytes, stream>>>(
+      map, bias_map, out, H, W, C, ws, nB, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -66,14 +112,32 @@ extern "C" int sic_window_attention(const void* qkv, const void* bias,
                                     void* out, int B, int H, int W, int C,
                                     int heads, int ws, int nB, float scale,
                                     void* stream) {
-  if (C != heads * sic::kHeadDim || ws <= 0 || H % ws || W % ws || nB <= 0) {
+  if (C != heads * sic_tc::kHeadDim || ws < 8 || sic_tc::kBoxRows % ws ||
+      H % ws || W % ws || nB <= 0 || B <= 0 ||
+      reinterpret_cast<uintptr_t>(qkv) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const int s = ws * ws;
-  const int ntiles = (s + sic::kQueryTile - 1) / sic::kQueryTile;
-  const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
-  window_attention_kernel<<<grid, sic::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)qkv, (const float*)bias, (float*)out, H, W, C, ws, nB,
-      scale);
-  return (int)cudaGetLastError();
+  CUtensorMap map, bias_map;
+  const cuuint64_t dims[4] = {(cuuint64_t)3 * C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)3 * C * 4,
+                                 (cuuint64_t)W * 3 * C * 4,
+                                 (cuuint64_t)H * W * 3 * C * 4};
+  const cuuint32_t box[4] = {sic_tc::kAtomFloats, (cuuint32_t)ws,
+                             (cuuint32_t)(sic_tc::kBoxRows / ws), 1};
+  int rc = sic_tc::encode_f32_map(&map, qkv, 4, dims, strides, box);
+  if (rc != 0) return rc;
+  const cuuint64_t bdims[3] = {(cuuint64_t)s, (cuuint64_t)s, (cuuint64_t)nB};
+  const cuuint64_t bstrides[2] = {(cuuint64_t)s * 4, (cuuint64_t)s * s * 4};
+  const cuuint32_t bbox[3] = {sic_tc::kAtomFloats, sic_tc::kBoxRows, 1};
+  rc = sic_tc::encode_f32_map(&bias_map, bias, 3, bdims, bstrides, bbox);
+  if (rc != 0) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  return s % (2 * sic_tc::kWgRows) == 0
+             ? launch<2>(map, bias_map, (float*)out, B, H, W, C, heads, ws, nB,
+                         scale, st)
+             : launch<1>(map, bias_map, (float*)out, B, H, W, C, heads, ws, nB,
+                         scale, st);
 }

@@ -16,8 +16,8 @@
 // 256-thread block takes one 64-query tile of one window (s / 64 blocks a
 // window, G * s / 64 in all, spread over the 132 SMs), streams the keys
 // through shared memory in 32-key tiles with an online softmax, and keeps
-// every logit and probability on chip.  The body is the one kernels 1 and 2
-// run (attention_common.cuh), reading q, k and v from three base pointers.
+// every logit and probability on chip.  The body (attention_common.cuh)
+// reads q, k and v from three base pointers; f32 FMAs on the CUDA cores.
 // An all -inf key tile of a shifted window gives 0, not NaN (the shared
 // body's guard of the running max).
 #include "attention_common.cuh"

@@ -1,8 +1,10 @@
 """Sequence self-attention over a packed qkv projection.
 
 CUDA kernel: ``csrc/seq_attention.cu`` (replaces the TPU kernel
-``sic_tpu/ops/seq_attention.py::_seq_attn_kernel``).  The ViT trunks
-(S = 289) and the cross-attention blocks (S = 545) run it in every layer.
+``sic_tpu/ops/seq_attention.py::_seq_attn_kernel``): fp32 attention on
+the tensor cores in split TF32 (``wgmma``), tiles loaded by TMA.  The ViT
+trunks (S = 289), the cross-attention blocks (S = 545) and the CLIP image
+tower (S = 50) run it in every layer.
 :func:`seq_attention_plain` is the same function in plain PyTorch: it
 serves CPU tensors and is the kernel's oracle on the card.  On a CUDA tensor
 :func:`seq_attention` is a ``torch.autograd.Function``: the kernel forward,
@@ -45,6 +47,10 @@ def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor
     if c3 != 3 * C or C != heads * HEAD_DIM:
         raise ValueError(f"seq_attention kernel needs head dim {HEAD_DIM}: "
                          f"qkv {tuple(qkv.shape)}, heads {heads}")
+    if B == 0 or S == 0 or qkv.data_ptr() % 16:
+        raise ValueError(f"seq_attention kernel: qkv {tuple(qkv.shape)} must "
+                         "be non-empty and start on a 16-byte boundary (its "
+                         "tensor map)")
     out = torch.empty((B, S, C), device=qkv.device, dtype=qkv.dtype)
     lib = _lib()
     rc = lib.sic_seq_attention(qkv.data_ptr(), out.data_ptr(), B, S, C,

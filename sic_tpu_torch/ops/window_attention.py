@@ -2,7 +2,8 @@
 and over separate (G, s, d) q, k, v tensors.
 
 CUDA kernels: ``csrc/window_attention.cu`` (the NHWC forward, replacing the
-TPU kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``),
+TPU kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``; split-TF32
+``wgmma`` on the tensor cores, tiles loaded by TMA),
 ``csrc/window_attention_bwd.cu`` (its backward, replacing
 ``_nhwc_bwd_kernel``) and ``csrc/window_attention_gsd.cu`` (the (G, s, d)
 forward, replacing ``_attention_kernel``).  Every Swin layer runs the NHWC
@@ -88,8 +89,19 @@ def _check_kernel_args(qkv, bias, heads, name):
     return B, H, W, C, ws
 
 
+# window sides the forward kernel takes: a 64-token tile is whole window rows
+FORWARD_WINDOWS = (8, 16, 32, 64)
+
+
 def _forward_kernel(qkv, bias, scale, heads):
     B, H, W, C, ws = _check_kernel_args(qkv, bias, heads, "window_attention_nhwc")
+    if ws not in FORWARD_WINDOWS or B == 0 or bias.shape[0] == 0 \
+            or bias.shape[1] != ws * ws or qkv.data_ptr() % 16 \
+            or bias.data_ptr() % 16:
+        raise ValueError(f"window_attention_nhwc kernel: window {ws} (must be "
+                         f"one of {FORWARD_WINDOWS}), qkv {tuple(qkv.shape)} "
+                         f"and bias {tuple(bias.shape)} non-empty, both on "
+                         "16-byte boundaries (their tensor maps)")
     out = torch.empty((B, H, W, C), device=qkv.device, dtype=qkv.dtype)
     rc = _lib("window_attention", "sic_window_attention", 3).sic_window_attention(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, heads,

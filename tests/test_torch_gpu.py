@@ -38,32 +38,98 @@ def _randn(shape, seed, device):
     return torch.randn(shape, device=device, generator=g)
 
 
+def _seq_attention_f64(qkv, scale, heads):
+    B, S, c3 = qkv.shape
+    C = c3 // 3
+    q, k, v = (t.reshape(B, S, heads, C // heads).transpose(1, 2).double()
+               for t in qkv.split(C, dim=-1))
+    p = (q * scale @ k.transpose(-1, -2)).softmax(-1)
+    return (p @ v).transpose(1, 2).reshape(B, S, C)
+
+
+def _window_attention_f64(qkv, bias, scale, heads, ws=16):
+    B, H, W, c3 = qkv.shape
+    C = c3 // 3
+    nwh, nww, d = H // ws, W // ws, C // heads
+    t = qkv.double().reshape(B, nwh, ws, nww, ws, 3, heads, d).permute(
+        5, 0, 6, 1, 3, 2, 4, 7).reshape(3, B, heads, nwh * nww, ws * ws, d)
+    win = torch.arange(nwh * nww, device=bias.device) % bias.shape[0]
+    p = (t[0] * scale @ t[1].transpose(-1, -2) + bias.double()[win]).softmax(-1)
+    o = (p @ t[2]).reshape(B, heads, nwh, nww, ws, ws, d)
+    return o.permute(0, 2, 4, 3, 5, 1, 6).reshape(B, H, W, C)
+
+
+# At qkv x 4 the logits are in the tens, and the plain f32 version itself
+# errs by about 1e-4 against f64 on the card (its cuBLAS products): the
+# kernels are held to the f64 function there, within the same TOL.
+@pytest.mark.parametrize("magnitude", [1.0, 4.0])
 @pytest.mark.parametrize("B,S,C,heads", [(4, 289, 1024, 16), (4, 545, 768, 12),
-                                         (3, 100, 128, 2)])
-def test_seq_attention_kernel_matches_plain(cuda, B, S, C, heads):
-    qkv = _randn((B, S, 3 * C), S, cuda)
+                                         (3, 100, 128, 2), (2, 1, 128, 2),
+                                         (3, 17, 128, 2), (2, 50, 768, 12),
+                                         (2, 63, 128, 2), (3, 65, 128, 2)])
+def test_seq_attention_kernel_matches_plain(cuda, B, S, C, heads, magnitude):
+    """Ragged S (a tile past a sequence's end reads zeros, never the next
+    sequence's rows: B > 1 everywhere) and qkv x 4 (logits in the tens,
+    where a single TF32 pass would err by about 0.05).  Two launches on
+    the same input give the same bits."""
+    qkv = _randn((B, S, 3 * C), S, cuda) * magnitude
     before = ops.launch_counts()["seq_attention"]
     out = ops.seq_attention(qkv, 0.125, heads)
     assert ops.launch_counts()["seq_attention"] == before + 1
-    torch.testing.assert_close(out, ops.seq_attention_plain(qkv, 0.125, heads),
-                               rtol=TOL, atol=TOL)
+    assert torch.isfinite(out).all()
+    if magnitude == 1.0:
+        torch.testing.assert_close(out, ops.seq_attention_plain(qkv, 0.125, heads),
+                                   rtol=TOL, atol=TOL)
+    else:
+        torch.testing.assert_close(out.double(), _seq_attention_f64(qkv, 0.125, heads),
+                                   rtol=TOL, atol=TOL)
+    assert torch.equal(out, ops.seq_attention(qkv, 0.125, heads))
 
 
+@pytest.mark.parametrize("magnitude", [1.0, 4.0])
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("C,heads", [(768, 12), (1024, 16)])
-def test_window_attention_kernel_matches_plain(cuda, shifted, C, heads):
+def test_window_attention_kernel_matches_plain(cuda, shifted, C, heads, magnitude):
     """2x3 windows: a shared bias (nB = 1), or bias plus shift masks per
-    window (nB = nW), where some query rows see -inf key tiles."""
+    window (nB = nW), where some query rows see -inf key tiles; qkv x 4
+    puts the logits in the tens.  Two launches give the same bits."""
     from sic_tpu_torch.models.swin import _full_shift_mask
-    qkv = _randn((2, 32, 48, 3 * C), C, cuda)
+    qkv = _randn((2, 32, 48, 3 * C), C, cuda) * magnitude
     bias = _randn((1, 256, 256), 1, cuda)
     if shifted:
         bias = (bias + torch.from_numpy(_full_shift_mask(2, 3, 16)).to(cuda)).contiguous()
     out = ops.window_attention_nhwc(qkv, bias, 0.125, heads)
     assert torch.isfinite(out).all()
-    torch.testing.assert_close(
-        out, ops.window_attention_nhwc_plain(qkv, bias, 0.125, heads),
-        rtol=TOL, atol=TOL)
+    if magnitude == 1.0:
+        torch.testing.assert_close(
+            out, ops.window_attention_nhwc_plain(qkv, bias, 0.125, heads),
+            rtol=TOL, atol=TOL)
+    else:
+        torch.testing.assert_close(
+            out.double(), _window_attention_f64(qkv, bias, 0.125, heads),
+            rtol=TOL, atol=TOL)
+    assert torch.equal(out, ops.window_attention_nhwc(qkv, bias, 0.125, heads))
+
+
+def test_attention_kernels_refuse_what_they_cannot_take(cuda):
+    """Head dim other than 64, a qkv or bias off a 16-byte boundary (the
+    tensor maps' base), a window side the 64-token tiles do not fit: each
+    raises, and nothing launches."""
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="head dim"):
+        ops.seq_attention(_randn((2, 40, 3 * 128), 1, cuda), 0.125, 4)
+    off = torch.empty(2 * 40 * 3 * 128 + 1, device=cuda)[1:].view(2, 40, 3 * 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.seq_attention(off, 0.125, 2)
+    qkv = _randn((1, 16, 16, 3 * 128), 2, cuda)
+    with pytest.raises(ValueError, match="window"):
+        ops.window_attention_nhwc(qkv, _randn((1, 16, 16), 3, cuda), 0.125, 2)
+    bias = torch.empty(256 * 256 + 1, device=cuda)[1:].view(1, 256, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.window_attention_nhwc(qkv, bias, 0.125, 2)
+    after = ops.launch_counts()
+    assert after["seq_attention"] == before["seq_attention"]
+    assert after["window_attention_nhwc"] == before["window_attention_nhwc"]
 
 
 def _rel_err(got, want):
