@@ -8,8 +8,9 @@ Phases, each printing one JSON line with the card's name and power limit:
 
 1. build    - the six CUDA kernels (one nvcc per source, in parallel) and
               the native rANS coder, from the sources in the checkout; the
-              HGMMA (wgmma) count of kernels 1 and 2, which run split TF32
-              on the tensor cores, must be above 0;
+              HGMMA (wgmma) count of the four attention libraries (kernels
+              1, 2, 5 and 6), which run split TF32 on the tensor cores,
+              must be above 0;
 2. kernels  - each kernel against its plain PyTorch version on the card at
               the flagship's shapes (rANS encode also against the native
               encoder, and through one forced buffer overflow; the
@@ -19,12 +20,14 @@ Phases, each printing one JSON line with the card's name and power limit:
               geometry, forward and gradient), with CUDA-event times of
               the kernel, the plain version and, for attention, one
               scaled_dot_product_attention call (its backward alone for
-              the backward kernel) as a yardstick (for kernels 1 and 2
-              also device times from CUDA-graph replay, which leave out
-              the host's cost of a call), and each attention
-              row's bounds on the f32 cores and, as split TF32, on the
-              tensor cores; kernels 1 and 2 launched twice on one input
-              must give the same bits;
+              the backward kernel) as a yardstick, device times (CUDA-graph
+              replay, which leaves out the host's cost of a call; for
+              SDPA's autograd backward, whose forward lies outside any
+              capture, the sum of its kernels in a torch.profiler trace,
+              the method named in each row), each attention row's bounds
+              on the f32 cores and, as split TF32, on the tensor cores,
+              and its error against an f64 reference; every attention
+              kernel launched twice on one input must give the same bits;
 3. golden   - the JAX-encoded tests/fixtures/golden stream through the CLI
               (host coder) and through the rANS decode kernel, against the
               committed pixels; then golden_input() encoded on the card by
@@ -47,8 +50,8 @@ Phases, each printing one JSON line with the card's name and power limit:
               kernel_check's geometry and on one flagship Swin layer's real
               qkv (FeatMerge's shifted feat_in layer on the 512x512
               request, -inf masks included), whose output must agree
-              with kernel 2's on the same qkv within GSD_FWD_TOL (two
-              bodies: f32 CUDA cores and split TF32 on the tensor cores);
+              with kernel 2's on the same qkv within GSD_FWD_TOL (one
+              tensor-core body, two geometries);
 7. serve    - the port's HTTP service in process (flagship spec, seeded
               codec and CLIP, INDEX_DIR at phase 4's faiss/): /compress and
               /decompress against the runtime's encode_only / decode_only,
@@ -220,6 +223,34 @@ class Smoke:
         del graph
         return a.elapsed_time(b) / iters
 
+    def profiled_device_ms(self, fn, iters=10, by_kernel=False):
+        """Device time of one call as the sum of its device activity
+        (kernels, copies, fills) in a torch.profiler trace of ``iters``
+        calls, for calls a CUDA graph does not capture (an autograd
+        backward whose forward ran outside the capture); with
+        ``by_kernel`` also each kernel's share, by name."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                # "void (anonymous namespace)::bwd_stats_kernel<2>(...)" -> the name
+                key = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+                key = key.split(" ")[-1].split("::")[-1][:60]
+                names[key] = names.get(key, 0.0) + (e.time_range.end - e.time_range.start)
+        total = sum(names.values()) / 1e3 / iters if names else "not measured"
+        if not by_kernel:
+            return total
+        return total, {k: v / 1e3 / iters for k, v in names.items()}
+
     @staticmethod
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / F32_TFLOPS, nbytes / HBM_BYTES_S
@@ -267,8 +298,11 @@ class Smoke:
                 for n, r in reports.items()}
         for n in cuda_build.KERNELS:
             cuda_build.load(n)
-        # kernels 1 and 2 run on the tensor cores: their libraries hold wgmma
-        hgmma = {n: self.hgmma_count(n) for n in ("seq_attention", "window_attention")}
+        # the attention kernels (1, 2, 5, 6) run on the tensor cores: their
+        # libraries hold wgmma
+        hgmma = {n: self.hgmma_count(n) for n in (
+            "seq_attention", "window_attention", "window_attention_bwd",
+            "window_attention_gsd")}
         if not all(c > 0 for c in hgmma.values()):
             raise AssertionError(f"no HGMMA instruction in {hgmma}")
         return {"built": sorted(reports), "build_s": round(time.perf_counter() - t0, 3),
@@ -447,6 +481,13 @@ class Smoke:
             err_q = ((dq - pq).abs().max() / pq.abs().max()).item()
             err_b = ((db - pb).abs().max() / pb.abs().max()).item()
             finite = bool(torch.isfinite(dq).all() and torch.isfinite(db).all())
+            again = ops.window_attention_nhwc_bwd(qkv, bias, gout, scale, heads)
+            deterministic = torch.equal(dq, again[0]) and torch.equal(db, again[1])
+            fq, fb = self._window_bwd_f64(qkv, bias, gout, scale, heads)
+            f64 = {"f64_dqkv_rel_err": self._rel(dq, fq), "f64_dbias_rel_err": self._rel(db, fb),
+                   "plain_f64_dqkv_rel_err": self._rel(pq, fq),
+                   "plain_f64_dbias_rel_err": self._rel(pb, fb)}
+            del fq, fb, again
             # SDPA yardstick: its backward alone, on pre-windowed
             # (B*nW, heads, s, d) tensors and the bias as a float mask
             t = qkv.reshape(B, nwh, ws, nww, ws, 3, heads, d).permute(
@@ -457,23 +498,59 @@ class Smoke:
             lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=leaf[win][:, None],
                                                      scale=scale)
             lib_g = torch.randn_like(lib_out)
+
+            def kernel():
+                return ops.window_attention_nhwc_bwd(qkv, bias, gout, scale, heads)
+
+            def library():
+                return torch.autograd.grad(lib_out, (q, k, v, leaf), lib_g,
+                                           retain_graph=True)
+
             rec = {"shape": [B, H, W, 3 * C], "heads": heads, "nB": nB,
                    "shift_masks": shifted, "max_abs_err": abs_err,
-                   "dqkv_rel_err": err_q, "dbias_rel_err": err_b,
-                   "ms": self.time_ms(lambda: ops.window_attention_nhwc_bwd(
-                       qkv, bias, gout, scale, heads), iters=10),
+                   "dqkv_rel_err": err_q, "dbias_rel_err": err_b, **f64,
+                   "deterministic": deterministic,
+                   "ms": self.time_ms(kernel, iters=10),
                    "plain_ms": self.time_ms(lambda: ops.window_attention_nhwc_bwd_plain(
                        qkv, bias, gout, scale, heads), iters=10),
-                   "library_ms": self.time_ms(lambda: torch.autograd.grad(
-                       lib_out, (q, k, v, leaf), lib_g, retain_graph=True), iters=10)}
+                   "library_ms": self.time_ms(library, iters=10),
+                   "device_ms": self.device_ms(kernel),
+                   "device_method": "cuda_graph",
+                   # SDPA's backward, and the kernel the same way beside it
+                   "library_device_ms": self.profiled_device_ms(library),
+                   "library_device_method": "profiler"}
+            rec["profiler_device_ms"], rec["passes_device_ms"] = \
+                self.profiled_device_ms(kernel, by_kernel=True)
             rec["bound_ms"], rec["bound_by"] = self.bound(
                 10 * B * nW * heads * s * s * d,
                 (B * H * W * (3 * C + C + 3 * C) + 2 * nB * s * s) * 4)
             rec["tc_bound_ms"] = self.tc_bound(10 * B * nW * heads * s * s * d)
-            if not (finite and err_q <= BWD_TOL and err_b <= BWD_TOL):
+            if not (finite and err_q <= BWD_TOL and err_b <= BWD_TOL and deterministic):
                 raise AssertionError(f"window_attention_bwd {tag}: {rec}")
             out[tag] = rec
         return out
+
+    @staticmethod
+    def _rel(got, want):
+        """Largest difference relative to the largest magnitude of ``want``."""
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    def _window_bwd_f64(self, qkv, bias, g, scale, heads):
+        """Kernel 5's function in f64: the VJP of :meth:`_window_f64`."""
+        torch = self.torch
+        a = qkv.detach().double().requires_grad_(True)
+        b = bias.detach().double().requires_grad_(True)
+        return torch.autograd.grad(self._window_f64(a, b, scale, heads), (a, b),
+                                   g.double())
+
+    @staticmethod
+    def _gsd_f64(q, k, v, bias, scale):
+        """Kernel 6's function in f64."""
+        G, s, _ = q.shape
+        nW = bias.shape[0]
+        dots = (q.double() * scale) @ k.double().transpose(-1, -2)
+        dots = (dots.reshape(G // nW, nW, s, s) + bias.double()).reshape(G, s, s)
+        return dots.softmax(-1) @ v.double()
 
     def _gsd_bench_inputs(self, g):
         """bench.py:kernel_check's geometry: G 32, s 256, d 64, nW 2,
@@ -514,17 +591,30 @@ class Smoke:
             bool(torch.isfinite(a).all()) for a in grads)
         qb, kb, vb = (t.view(G // nW, nW, s, d) for t in (q, k, v))
         mask = bias[None]
+        f64 = self._gsd_f64(q, k, v, bias, scale)
+
+        def kernel():
+            return ops.window_attention(q, k, v, bias, scale)
+
+        def library():
+            return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale)
+
         rec = {"shape": [G, s, d], "nW": nW, "max_abs_err": err,
                "fwd_rel_err": fwd_rel, "grad_rel_err": grad_rel,
-               "ms": self.time_ms(lambda: ops.window_attention(q, k, v, bias, scale)),
+               "f64_fwd_rel_err": self._rel(out, f64),
+               "plain_f64_fwd_rel_err": self._rel(ref, f64),
+               "deterministic": torch.equal(kernel(), kernel()),
+               "ms": self.time_ms(kernel),
                "plain_ms": self.time_ms(
                    lambda: ops.window_attention_plain(q, k, v, bias, scale)),
-               "library_ms": self.time_ms(lambda: F.scaled_dot_product_attention(
-                   qb, kb, vb, attn_mask=mask, scale=scale))}
+               "library_ms": self.time_ms(library),
+               "device_ms": self.device_ms(kernel),
+               "library_device_ms": self.device_ms(library),
+               "device_method": "cuda_graph"}
         rec["bound_ms"], rec["bound_by"] = self.bound(
             4 * G * s * s * d, (4 * G * s * d + nW * s * s) * 4)
         rec["tc_bound_ms"] = self.tc_bound(4 * G * s * s * d)
-        if not (finite and fwd_rel <= GSD_FWD_TOL
+        if not (finite and fwd_rel <= GSD_FWD_TOL and rec["deterministic"]
                 and max(grad_rel.values()) <= GSD_GRAD_TOL):
             raise AssertionError(f"window_attention (G, s, d): {rec}")
         return rec
@@ -597,6 +687,7 @@ class Smoke:
         end_ok = bool((final[:, 0] == 1 << 23).all()
                       and (final[:, 1] == lens_np[:, 0]).all())
         ms = self.time_ms(lambda: run(ops.rans_decode_plane), iters=10) / 4
+        device_ms = self.device_ms(lambda: run(ops.rans_decode_plane), iters=5) / 4
         # one plane's bytes, as ``ms`` is one plane's time: indexes in,
         # symbols out, the state in and out, the CDF table, and a quarter
         # of the stream bytes the four planes consumed
@@ -611,7 +702,8 @@ class Smoke:
                 "stream_bytes": len(stream), "stream_bytes_consumed": consumed,
                 "escapes": int(sum((np.abs(s) > 50).sum() for s, _ in planes)),
                 "max_abs_err": 0, "symbol_mismatches": mism,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "ms": ms, "device_ms": device_ms, "device_method": "cuda_graph",
+                "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
     def _rans_encode_check(self, S, npos, escape_rate=0.05):
@@ -687,6 +779,7 @@ class Smoke:
         mism = sum(a != b for a, b in zip(k_parts, native)) + \
             sum(a != b for a, b in zip(k_parts, p_parts))
         ms = self.time_ms(lambda: run(ops.rans_encode_plane), iters=10) / 4
+        device_ms = self.device_ms(lambda: run(ops.rans_encode_plane), iters=5) / 4
         # one plane's bytes, as ``ms`` is one plane's time: symbols and
         # indexes in, the state in and out, the CDF table, and a quarter of
         # the bytes the four planes emitted
@@ -700,7 +793,8 @@ class Smoke:
         return {"substreams": S, "npos": npos, "bytes_emitted": emitted,
                 "escape_rate": escape_rate, "escaped_positions": n_esc,
                 "max_abs_err": 0, "byte_mismatches": mism,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "ms": ms, "device_ms": device_ms, "device_method": "cuda_graph",
+                "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
     def _rans_encode_overflow(self):
@@ -1230,7 +1324,9 @@ class Smoke:
                         "rans_decode_plane": ("rans_decode_kernel",),
                         "rans_encode_plane": ("rans_encode_kernel",),
                         "window_attention": ("window_attention_gsd_kernel",)}
-        # a template kernel's name starts with its return type: "void (anonymous
+        # (kernel 5's four passes: the stats pass on the forward body, dk and
+        # dv, dq, dbias; all but the last on the tensor cores) a template
+        # kernel's name starts with its return type: "void (anonymous
         # namespace)::seq_attention_kernel<2>(...)"
         mine = {n: round(sum(us for us, k, _ in rows if any(
                     f"(anonymous namespace)::{f}{c}" in k for f in fs for c in "(<"))
@@ -1954,6 +2050,7 @@ class Smoke:
                          "tc_bound_ms": k.get("tc_bound_ms"),
                          "device_ms": k.get("device_ms"),
                          "library_device_ms": k.get("library_device_ms"),
+                         "deterministic": k.get("deterministic"),
                          "library_ms": k.get("library_ms")})
         return {"kernels": rows}
 

@@ -1,7 +1,9 @@
-// Tensor-core body of the sequence (kernel 1) and NHWC window (kernel 2)
-// attention forwards, for Hopper (sm_90a): fp32 attention on the tensor
-// cores in split TF32 (3xTF32), tiles loaded by TMA into a shared-memory
-// ring, online softmax on the wgmma accumulator fragments.
+// Tensor-core body of the attention forwards, for Hopper (sm_90a): the
+// sequence (kernel 1), NHWC window (kernel 2) and (G, s, d) window
+// (kernel 6) attention, and the row statistics of the NHWC backward
+// (kernel 5's first pass).  fp32 attention on the tensor cores in split
+// TF32 (3xTF32), tiles loaded by TMA into a shared-memory ring, online
+// softmax on the wgmma accumulator fragments.
 //
 // One block holds NWG consumer warpgroups (128 threads each); warpgroup w
 // owns query rows [64 w, 64 w + 64) of the block's tile of 64 * NWG rows,
@@ -38,8 +40,8 @@
 // Memory.  128-byte swizzle on every operand tile (a head row of 64 floats
 // arrives as two 32-float boxes, one per swizzle atom along K); all tiles
 // start on 1024-byte boundaries.  Per ring stage: k (16 KB, split in
-// place to hi), v (16 KB, raw), and for kernel 2 the bias tile (16 KB a
-// warpgroup).  Beside the ring: k lo, v^T hi, v^T lo (48 KB), where the q
+// place to hi), v (16 KB, raw), and with a bias (kernels 2, 5 and 6) its
+// tile (16 KB a warpgroup).  Beside the ring: k lo, v^T hi, v^T lo (48 KB), where the q
 // tile lands first and is read into registers.  Rows past the sequence end
 // arrive zero-filled from the TMA and their keys are masked to -inf.
 //
@@ -172,6 +174,23 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Initialises `n` mbarriers of one arrival each (thread 0), then syncs.
+__device__ __forceinline__ void init_bars(uint64_t* bars, int n) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async_smem();
+  }
+  __syncthreads();
+}
+
+// The dynamic shared-memory base rounded up to the 1024 bytes that a
+// 128-byte-swizzled tile starts on.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // K-major operand with 128-byte swizzle: 8-row groups 1024 bytes apart.
@@ -228,6 +247,36 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(accumulate));
 }
 
+// d (64 x 64 f32) (+)= a (64 x 8 tf32, K-major in shared memory at `adesc`)
+// . b (8 x 64 tf32, K-major in shared memory at `bdesc`)
+__device__ __forceinline__ void wgmma_m64n64k8_ss(float (&d)[32], uint64_t adesc,
+                                                  uint64_t bdesc,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+// descriptor of k-chunk j (8 floats) of a (64 rows, 64 floats) tile stored
+// as two 128-byte-swizzled boxes along the floats
+__device__ __forceinline__ uint64_t chunk_desc(uint32_t tile, int j) {
+  return desc_sw128(tile + (j >> 2) * kBoxBytes + (j & 3) * 32);
+}
+
 // -- split TF32 --------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -244,6 +293,14 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 
 // -- the body ----------------------------------------------------------------
 
+// A Geo with `static constexpr bool kStats = true` takes the backward's row
+// statistics instead of the output rows (see `attend`).
+template <class G, class = void>
+struct WritesStats : std::false_type {};
+template <class G>
+struct WritesStats<G, std::void_t<decltype(G::kStats)>>
+    : std::bool_constant<G::kStats> {};
+
 // Geo supplies the tile loads and the output rows of one (sequence or
 // window, head):
 //   load(dst, bar, which, half, row0): TMA box of 64 rows starting at token
@@ -251,7 +308,10 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 //     of the head;
 //   load_bias(dst, bar, half, qrow0, k0): bias rows qrow0.., keys
 //     k0 + 32 half..;
-//   out_row(t): the head's 64 output floats of token t.
+//   out_row(t): the head's 64 output floats of token t;
+// or, with kStats, g_row(t) (the head's 64 floats of the output gradient
+// at token t) and write_stats(t, lse, D): the epilogue then writes
+// lse = m + log l and D = sum_d g_d O_d for each query row instead of O.
 // T is the operand type; the one entry point today is float (split TF32),
 // the slot a bf16 entry would take.
 template <typename T, int NWG, bool kBias, class Geo>
@@ -261,8 +321,7 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
                 "the split-TF32 body takes f32 operands");
   using P = Plan<NWG, kBias>;
   constexpr int kThreads = NWG * 128;
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
   uint64_t* qbar = full + kStages;
 
@@ -292,14 +351,7 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
     }
   };
 
-  if (tid == 0) {
-    mbar_init(&full[0], 1);
-    mbar_init(&full[1], 1);
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    fence_async_smem();
-  }
-  __syncthreads();
+  init_bars(full, kStages + 1);  // the ring's and q's
   if (tid == 0) {
     mbar_expect_tx(qbar, NWG * kTileBytes);
 #pragma unroll
@@ -394,12 +446,9 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
       const uint32_t* a = pass == 0 ? qlo : qhi;
       const uint32_t bbase = pass == 1 ? klo_a : khi_a;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint64_t desc =
-            desc_sw128(bbase + (j >> 2) * kBoxBytes + (j & 3) * 32);
+      for (int j = 0; j < 8; ++j)
         wgmma_m64n64k8(s, a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3],
-                       desc, (pass | j) != 0);
-      }
+                       chunk_desc(bbase, j), (pass | j) != 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -472,12 +521,9 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
       const uint32_t* a = pass == 0 ? plo : phi;
       const uint32_t bbase = pass == 1 ? vlo_a : vhi_a;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint64_t desc =
-            desc_sw128(bbase + (j >> 2) * kBoxBytes + (j & 3) * 32);
+      for (int j = 0; j < 8; ++j)
         wgmma_m64n64k8(pv, a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3],
-                       desc, (pass | j) != 0);
-      }
+                       chunk_desc(bbase, j), (pass | j) != 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -493,21 +539,68 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
     }
   }
 
-  // epilogue: rows r0 and r0 + 8 of the tile, 16 floats each
+  if constexpr (WritesStats<Geo>::value) {
+    // the backward's row statistics: lse and D = g . O, the four lanes of
+    // a row summing their 16 columns
 #pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const int qi = q0 + r0 + 8 * row;
-    if (qi < n) {
-      const float inv = 1.f / l[row];
-      float* orow = geo.out_row(qi);
+    for (int row = 0; row < 2; ++row) {
+      const int qi = q0 + r0 + 8 * row;
+      const float* grow = geo.g_row(qi < n ? qi : 0);
+      float dot = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
-            make_float2(o[4 * j + 2 * row] * inv, o[4 * j + 2 * row + 1] * inv);
+        const float2 gv = *reinterpret_cast<const float2*>(grow + 8 * j + 2 * t);
+        dot = fmaf(gv.x, o[4 * j + 2 * row], dot);
+        dot = fmaf(gv.y, o[4 * j + 2 * row + 1], dot);
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if (t == 0 && qi < n)
+        geo.write_stats(qi, m[row] + logf(l[row]), dot / l[row]);
+    }
+  } else {
+    // epilogue: rows r0 and r0 + 8 of the tile, 16 floats each
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const int qi = q0 + r0 + 8 * row;
+      if (qi < n) {
+        const float inv = 1.f / l[row];
+        float* orow = geo.out_row(qi);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = make_float2(
+              o[4 * j + 2 * row] * inv, o[4 * j + 2 * row + 1] * inv);
+        }
       }
     }
   }
 }
+
+// Token t of a ws x ws window of an NHWC map, and the tile loads of one
+// (batch, window, head) through a 4-D map over (channels, W, H, B) whose
+// box of (32 channels, ws columns, 64 / ws rows, 1) is a 64-token tile of
+// the window as it lies in NHWC (kernels 2 and 5).
+struct WindowGeo {
+  const CUtensorMap* map;
+  const CUtensorMap* bias_map;
+  float* out;
+  int H, W, C, ws, head, b, x0, y0, bias_win;
+  __device__ __forceinline__ int64_t pix(int t) const {
+    return ((int64_t)b * H + y0 + t / ws) * W + x0 + t % ws;
+  }
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
+                                       int half, int row0) const {
+    tma_load_4d(dst, map, bar, which * C + head * kHeadDim + half * 32, x0,
+                y0 + row0 / ws, b);
+  }
+  __device__ __forceinline__ void load_bias(void* dst, uint64_t* bar, int half,
+                                            int qrow0, int k0) const {
+    tma_load_3d(dst, bias_map, bar, k0 + half * 32, qrow0, bias_win);
+  }
+  __device__ __forceinline__ float* out_row(int t) const {
+    return out + pix(t) * C + head * kHeadDim;
+  }
+};
 
 // -- host ---------------------------------------------------------------------
 
@@ -572,6 +665,32 @@ static inline int encode_f32_map(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The 4-D map of an NHWC f32 map of `channels` channels read in 64-token
+// window tiles (WindowGeo::load), and the 3-D map of an (n, s, s) f32
+// stack of s x s matrices read in (64 rows, 32 columns) boxes, its rows
+// `row_floats` apart.  0 on success.
+static inline int encode_window_map(CUtensorMap* map, const void* base,
+                                    int channels, int W, int H, int B,
+                                    int ws) {
+  const cuuint64_t dims[4] = {(cuuint64_t)channels, (cuuint64_t)W,
+                              (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)channels * 4,
+                                 (cuuint64_t)W * channels * 4,
+                                 (cuuint64_t)H * W * channels * 4};
+  const cuuint32_t box[4] = {kAtomFloats, (cuuint32_t)ws,
+                             (cuuint32_t)(kBoxRows / ws), 1};
+  return encode_f32_map(map, base, 4, dims, strides, box);
+}
+
+static inline int encode_square_map(CUtensorMap* map, const void* base, int s,
+                                    int row_floats, int n) {
+  const cuuint64_t dims[3] = {(cuuint64_t)s, (cuuint64_t)s, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_floats * 4,
+                                 (cuuint64_t)s * row_floats * 4};
+  const cuuint32_t box[3] = {kAtomFloats, kBoxRows, 1};
+  return encode_f32_map(map, base, 3, dims, strides, box);
 }
 
 }  // namespace sic_tc

@@ -16,7 +16,7 @@
 // bound is kept beside it: the first version ran every product as an f32
 // FMA reading shared memory, at a quarter of that peak at best).
 //
-// Design (the body is attention_tc.cuh): split-TF32 wgmma for both
+// Design (the body and WindowGeo are attention_tc.cuh): split-TF32 wgmma for both
 // products, both operands K-major as tf32 wgmma requires (v staged
 // transposed, its key rows permuted so that the probabilities go to wgmma
 // as the register A operand from the logits accumulator).  One 4-D tensor
@@ -43,27 +43,6 @@
 
 namespace {
 
-struct WindowGeo {
-  const CUtensorMap* map;
-  const CUtensorMap* bias_map;
-  float* out;
-  int H, W, C, ws, head, b, x0, y0, bias_win;
-  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
-                                       int half, int row0) const {
-    sic_tc::tma_load_4d(dst, map, bar,
-                        which * C + head * sic_tc::kHeadDim + half * 32, x0,
-                        y0 + row0 / ws, b);
-  }
-  __device__ __forceinline__ void load_bias(void* dst, uint64_t* bar, int half,
-                                            int qrow0, int k0) const {
-    sic_tc::tma_load_3d(dst, bias_map, bar, k0 + half * 32, qrow0, bias_win);
-  }
-  __device__ __forceinline__ float* out_row(int t) const {
-    return out + (((int64_t)b * H + y0 + t / ws) * W + x0 + t % ws) * C +
-           head * sic_tc::kHeadDim;
-  }
-};
-
 // grid: x = head * ntiles + query tile, y = window (i * nww + j), z = batch
 template <int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
@@ -76,18 +55,18 @@ __global__ void __launch_bounds__(NWG * 128, 1)
   const int ntiles = s / (NWG * sic_tc::kWgRows);
   const int nww = W / ws;
   const int win = blockIdx.y;
-  const WindowGeo geo{&map,
-                      &bias_map,
-                      out,
-                      H,
-                      W,
-                      C,
-                      ws,
-                      (int)blockIdx.x / ntiles,
-                      (int)blockIdx.z,
-                      (win % nww) * ws,
-                      (win / nww) * ws,
-                      win % nB};
+  const sic_tc::WindowGeo geo{&map,
+                              &bias_map,
+                              out,
+                              H,
+                              W,
+                              C,
+                              ws,
+                              (int)blockIdx.x / ntiles,
+                              (int)blockIdx.z,
+                              (win % nww) * ws,
+                              (win / nww) * ws,
+                              win % nB};
   sic_tc::attend<float, NWG, true>(
       geo, s, scale, ((int)blockIdx.x % ntiles) * NWG * sic_tc::kWgRows, smem);
 }
@@ -120,19 +99,9 @@ extern "C" int sic_window_attention(const void* qkv, const void* bias,
   }
   const int s = ws * ws;
   CUtensorMap map, bias_map;
-  const cuuint64_t dims[4] = {(cuuint64_t)3 * C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)3 * C * 4,
-                                 (cuuint64_t)W * 3 * C * 4,
-                                 (cuuint64_t)H * W * 3 * C * 4};
-  const cuuint32_t box[4] = {sic_tc::kAtomFloats, (cuuint32_t)ws,
-                             (cuuint32_t)(sic_tc::kBoxRows / ws), 1};
-  int rc = sic_tc::encode_f32_map(&map, qkv, 4, dims, strides, box);
+  int rc = sic_tc::encode_window_map(&map, qkv, 3 * C, W, H, B, ws);
   if (rc != 0) return rc;
-  const cuuint64_t bdims[3] = {(cuuint64_t)s, (cuuint64_t)s, (cuuint64_t)nB};
-  const cuuint64_t bstrides[2] = {(cuuint64_t)s * 4, (cuuint64_t)s * s * 4};
-  const cuuint32_t bbox[3] = {sic_tc::kAtomFloats, sic_tc::kBoxRows, 1};
-  rc = sic_tc::encode_f32_map(&bias_map, bias, 3, bdims, bstrides, bbox);
+  rc = sic_tc::encode_square_map(&bias_map, bias, s, s, nB);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   return s % (2 * sic_tc::kWgRows) == 0

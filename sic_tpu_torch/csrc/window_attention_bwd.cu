@@ -10,318 +10,525 @@
 // the batch and the heads, and over the windows too when nB == 1 (nB == nW
 // keeps one bias per window, the shifted layers' case).
 //
-// The TPU kernel walked its grid in order and carried dbias in VMEM across
-// the batch.  Here blocks run in parallel in no fixed order, and a full
-// s x s f32 probability matrix (256 KB at s = 256) does not fit in shared
-// memory, so the work is four passes, each a plain loop over tiles, with no
-// float atomics (the result is the same on every run):
+// What bounds it on the H100: 10 * s * s * d flops per (window, head) (the
+// logits, dP = g . v^T and the three products for dq, dk and dv) against
+// 28 bytes per token and channel read or written, so it is bound by
+// operations: at fp32 accuracy on the tensor cores, 3 TF32 products per
+// product over 495 TFLOP/s (the f32 CUDA cores' 67 TFLOP/s bound is kept
+// beside it; the first version ran every product as an f32 FMA there, at
+// 11% of that bound).
 //
-//   1. stats:  per (window, head, 64-query tile) the row log-sum-exp of the
-//              logits and D_i = sum_j P_ij dP_ij (dP = g . v^T), one online
-//              sweep over 32-key tiles, the forward kernel's -inf guard;
-//   2. dk, dv: per (window, head, 64-key tile) a sweep over 32-query tiles
-//              that recomputes P_ij = exp(S_ij - lse_i) and
-//              dS_ij = P_ij (dP_ij - D_i), accumulates dv_j += P_ij g_i and
-//              dk_j += dS_ij q_i in registers, and writes dS to scratch;
-//   3. dq:     per (window, head, 64-query tile) dq_i = sum_j dS_ij k_j from
-//              the scratch;
+// The TPU kernel walked its grid in order and carried dbias in VMEM across
+// the batch.  Here blocks run in parallel in no fixed order, so the work is
+// four launches with no float atomics (two launches on one input give the
+// same bits):
+//
+//   1. stats:  per (b, window, head, query tile) the forward body of
+//              kernel 2 (attention_tc.cuh) with the StatsGeo epilogue: the
+//              row lse_i = m_i + log l_i and D_i = sum_d g_id O_id (equal
+//              to sum_j P_ij dP_ij) instead of O;
+//   2. dk, dv: per (b, window, head, 64-key tile), two warpgroups sweep
+//              the query tiles side by side on the same 64 keys: S^T =
+//              k (q scale)^T in one and dP^T = v g^T in the other, with k
+//              and v as shared-memory A operands and q and g as B operands
+//              as they land (d contiguous: K-major); P^T = exp(S^T +
+//              bias^T - lse) (bias^T read transposed from the swizzled
+//              bias tile; a -inf logit gives 0) passes through shared
+//              memory to the second, which forms dS^T = P^T (dP^T - D);
+//              then dv += P^T g and dk += dS^T (q scale) run side by side,
+//              P^T and dS^T as register A operands straight from the
+//              accumulators, g^T and (q scale)^T staged transposed with
+//              their query columns permuted to the fragments' order (as
+//              the forward stages v^T); dS goes to the scratch as (query,
+//              key) rows;
+//   3. dq:     per (b, window, head, 64-query tile) dq = dS k scale, the dS
+//              tile by TMA (keys contiguous: K-major A, split in place) and
+//              k^T staged transposed in logical order (A comes from shared
+//              memory, so no permutation);
 //   4. dbias:  one thread per bias element sums the scratch over batch,
 //              heads (and windows) in a fixed order.
 //
-// Scratch (allocated by the wrapper): dS as (B, nW, heads, s, s) f32 and the
-// row stats as (B, nW, heads, s) float2.  q, k, v and g are read straight
-// from NHWC through the token -> (row, column) map of the forward kernel
-// (csrc/window_attention.cu), so no window partition or head split is
-// written to device memory.
+// Numbers.  Every product is split TF32 (lo.hi + hi.lo + hi.hi, small
+// terms first).  The tensor core's f32 accumulation truncates, so no chain
+// runs longer than one tile of 64 over K (24 wgmma): each query tile's dv
+// and dk products, and each key tile's dq product, go to a fresh
+// accumulator and are added in with f32 adds.
 //
-// What bounds it on the H100: about 10 * s * s * d flops per (window,
-// head) -- logits twice, g . v^T twice, and the three products for dq, dk,
-// dv -- against 28 bytes per token and channel read or written, so it is
-// compute-bound at the 67 TFLOP/s of the f32 CUDA cores (no tensor cores
-// in this first version).  The dS scratch (4 * s * s bytes per window and
-// head) is extra device-memory traffic the TPU kernel did not have; it buys
-// a deterministic dq and dbias without atomics.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Shared memory and registers (pass 2, ptxas -v: see the build report of
+// chip_smoke.py): the block's k and v tiles as A operands in hi and lo
+// (64 KB: as register fragments they would cost 128 registers beside the
+// accumulators), and per query tile q and g in hi and lo, their
+// transposes in hi and lo, the bias tile and P^T (160 KB): 224 KB, one
+// 256-thread block an SM, no ring; the next query tile's q and g are
+// loaded as soon as the products have read them, its bias after P^T.  A
+// thread holds one 64 x 64 accumulator of dv or dk, the tile's S^T or
+// dP^T, their split A fragments and a fresh tile accumulator: 146
+// registers, no spills.  Two warpgroups, because one taking all four
+// products in turn waits on each chain in turn: 0.122 ms of the
+// backward's 0.219 at 512 px on an H100 80GB HBM3 (PERF.md).  The wgmma
+// calls sit in no branch (a warpgroup picks its operands by address): in
+// a branch on the warpgroup ptxas serializes them.  Pass 3 (91
+// registers) fits two 128-thread blocks an SM (115,712 bytes each).
+// Scratch (allocated by the wrapper): dS as (B, nW, heads, s, s) f32 and
+// the row stats as (B, nW, heads, s) float2; the dS scratch (4 s^2 bytes
+// per window and head) is device-memory traffic the TPU kernel did not
+// have, and buys a deterministic dq and dbias without atomics.
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kThreads = 256;
-constexpr int kRowTile = 64;                        // rows a block owns
-constexpr int kInnerTile = 32;                      // rows staged per sweep step
-constexpr int kGroups = kThreads / kRowTile;        // threads per owned row
-constexpr int kPerThread = kInnerTile / kGroups;    // 8
-constexpr int kDims = kHeadDim / kGroups;           // 16
-constexpr int kPad = kHeadDim + 1;                  // padded smem row
+using sic_tc::kBoxBytes;
+using sic_tc::kHeadDim;
+using sic_tc::kTileBytes;
 
-struct Window {
-  int64_t pix0;  // pixel index of the window's top-left token
-  int W;         // map width in pixels
-  int ws;        // window side
-  __device__ __forceinline__ int64_t pix(int t) const {
-    return pix0 + (int64_t)(t / ws) * W + (t % ws);
+constexpr int kRows = 64;  // keys (pass 2) or queries (pass 3) of a block
+
+// -- pass 1 -------------------------------------------------------------------
+
+struct StatsGeo : sic_tc::WindowGeo {
+  static constexpr bool kStats = true;
+  const float* g;
+  float2* stats;  // the rows of this (b, window, head)
+  __device__ __forceinline__ const float* g_row(int t) const {
+    return g + pix(t) * C + head * kHeadDim;
+  }
+  __device__ __forceinline__ void write_stats(int t, float lse,
+                                              float d) const {
+    stats[t] = make_float2(lse, d);
   }
 };
 
-struct Block {
-  int head, tile, win, b, heads, nW, s;
-  Window w;
-  int64_t slab;  // (b, win, head) index into the scratch
-};
-
-__device__ __forceinline__ Block block_of(int H, int W, int ws) {
-  Block k;
-  k.s = ws * ws;
-  const int ntiles = k.s / kRowTile;
-  k.head = blockIdx.x / ntiles;
-  k.tile = blockIdx.x % ntiles;
-  k.heads = gridDim.x / ntiles;
-  k.win = blockIdx.y;
-  k.nW = gridDim.y;
-  k.b = blockIdx.z;
-  const int nww = W / ws;
-  k.w = Window{((int64_t)k.b * H + (int64_t)(k.win / nww) * ws) * W +
-                   (k.win % nww) * ws,
-               W, ws};
-  k.slab = ((int64_t)k.b * k.nW + k.win) * k.heads + k.head;
-  return k;
-}
-
-__device__ __forceinline__ void load_row(float* dst, const float* src,
-                                         float mul) {
-  const float4* p = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < kHeadDim / 4; ++i) {
-    const float4 v = p[i];
-    dst[4 * i + 0] = v.x * mul;
-    dst[4 * i + 1] = v.y * mul;
-    dst[4 * i + 2] = v.z * mul;
-    dst[4 * i + 3] = v.w * mul;
-  }
-}
-
-// Stage kInnerTile rows of two head slices into padded shared memory:
-// a from `a_base + a_off`, b from `b_base + b_off` of each token's row.
-__device__ __forceinline__ void stage_rows(
-    float (*as)[kPad], float (*bs)[kPad], const float* __restrict__ a_base,
-    int a_stride, int a_off, const float* __restrict__ b_base, int b_stride,
-    int b_off, const Window& w, int r0) {
-  for (int e = threadIdx.x; e < kInnerTile * kHeadDim / 4; e += kThreads) {
-    const int r = e / (kHeadDim / 4);
-    const int c4 = e % (kHeadDim / 4);
-    const int64_t p = w.pix(r0 + r);
-    const float4 av = *reinterpret_cast<const float4*>(
-        a_base + p * a_stride + a_off + 4 * c4);
-    const float4 bv = *reinterpret_cast<const float4*>(
-        b_base + p * b_stride + b_off + 4 * c4);
-    as[r][4 * c4 + 0] = av.x;
-    as[r][4 * c4 + 1] = av.y;
-    as[r][4 * c4 + 2] = av.z;
-    as[r][4 * c4 + 3] = av.w;
-    bs[r][4 * c4 + 0] = bv.x;
-    bs[r][4 * c4 + 1] = bv.y;
-    bs[r][4 * c4 + 2] = bv.z;
-    bs[r][4 * c4 + 3] = bv.w;
-  }
-}
-
-__device__ __forceinline__ float dot_row(const float* reg, const float* row) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc = fmaf(reg[d], row[d], acc);
-  return acc;
-}
-
-// Pass 1. grid: x = head * ntiles + query tile, y = window, z = batch.
-__global__ void __launch_bounds__(kThreads)
-    bwd_stats_kernel(const float* __restrict__ qkv,
-                     const float* __restrict__ bias,
+// grid: x = head * ntiles + query tile, y = window, z = batch
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+    bwd_stats_kernel(const __grid_constant__ CUtensorMap map,
+                     const __grid_constant__ CUtensorMap bias_map,
                      const float* __restrict__ g, float2* __restrict__ stats,
                      int H, int W, int C, int ws, int nB, float scale) {
-  __shared__ float ks[kInnerTile][kPad];
-  __shared__ float vs[kInnerTile][kPad];
-  const Block k = block_of(H, W, ws);
-  const int tid = threadIdx.x;
-  const int r = tid / kGroups;
-  const int grp = tid % kGroups;
-  const int qi = k.tile * kRowTile + r;
-  const int64_t p = k.w.pix(qi);
-  const float NEG_INF = -INFINITY;
-
-  float q[kHeadDim], go[kHeadDim];
-  load_row(q, qkv + p * 3 * C + k.head * kHeadDim, scale);
-  load_row(go, g + p * C + k.head * kHeadDim, 1.f);
-  const float* brow = bias + (int64_t)(k.win % nB) * k.s * k.s + (int64_t)qi * k.s;
-
-  float m = NEG_INF, l = 0.f, dacc = 0.f;
-  for (int k0 = 0; k0 < k.s; k0 += kInnerTile) {
-    __syncthreads();  // the previous step's readers are done with ks/vs
-    stage_rows(ks, vs, qkv, 3 * C, C + k.head * kHeadDim, qkv, 3 * C,
-               2 * C + k.head * kHeadDim, k.w, k0);
-    __syncthreads();
-    float sv[kPerThread], dp[kPerThread];
-    float tile_max = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int kk = grp + kGroups * j;
-      sv[j] = dot_row(q, ks[kk]) + brow[k0 + kk];
-      dp[j] = dot_row(go, vs[kk]);
-      tile_max = fmaxf(tile_max, sv[j]);
-    }
-    // the kGroups threads of a row are adjacent lanes of one warp
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float m_use = (m_new == NEG_INF) ? 0.f : m_new;
-    const float alpha = expf(m - m_use);  // 0 while m is still -inf
-    float psum = 0.f, pdsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const float pj = expf(sv[j] - m_use);
-      psum += pj;
-      pdsum = fmaf(pj, dp[j], pdsum);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    pdsum += __shfl_xor_sync(0xffffffffu, pdsum, 1);
-    pdsum += __shfl_xor_sync(0xffffffffu, pdsum, 2);
-    l = l * alpha + psum;
-    dacc = dacc * alpha + pdsum;
-    m = m_new;
-  }
-  if (grp == 0) {
-    stats[k.slab * k.s + qi] = make_float2(m + logf(l), dacc / l);
-  }
+  extern __shared__ uint8_t smem[];
+  const int s = ws * ws;
+  const int ntiles = s / (NWG * sic_tc::kWgRows);
+  const int nww = W / ws;
+  const int win = blockIdx.y;
+  const int head = blockIdx.x / ntiles;
+  const int64_t slab =
+      ((int64_t)blockIdx.z * gridDim.y + win) * (gridDim.x / ntiles) + head;
+  const StatsGeo geo{{&map, &bias_map, nullptr, H, W, C, ws, head,
+                      (int)blockIdx.z, (win % nww) * ws, (win / nww) * ws,
+                      win % nB},
+                     g,
+                     stats + slab * s};
+  sic_tc::attend<float, NWG, true>(
+      geo, s, scale, ((int)blockIdx.x % ntiles) * NWG * sic_tc::kWgRows, smem);
 }
 
-// Pass 2. grid: x = head * ntiles + key tile, y = window, z = batch.
-__global__ void __launch_bounds__(kThreads)
-    bwd_dkdv_kernel(const float* __restrict__ qkv,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ g,
-                    const float2* __restrict__ stats, float* __restrict__ ds,
-                    float* __restrict__ dqkv, int H, int W, int C, int ws,
-                    int nB, float scale) {
-  __shared__ float qs[kInnerTile][kPad];
-  __shared__ float gs[kInnerTile][kPad];
-  __shared__ float ps[kInnerTile][kPad];
-  __shared__ float dss[kInnerTile][kPad];
-  __shared__ float2 st[kInnerTile];
-  const Block k = block_of(H, W, ws);
-  const int tid = threadIdx.x;
-  const int r = tid / kGroups;
-  const int grp = tid % kGroups;
-  const int kj = k.tile * kRowTile + r;
-  const int64_t p = k.w.pix(kj);
+// -- shared pieces of passes 2 and 3 ------------------------------------------
 
-  float kr[kHeadDim], vr[kHeadDim];
-  load_row(kr, qkv + p * 3 * C + C + k.head * kHeadDim, 1.f);
-  load_row(vr, qkv + p * 3 * C + 2 * C + k.head * kHeadDim, 1.f);
-  float dk[kDims], dv[kDims];
-#pragma unroll
-  for (int j = 0; j < kDims; ++j) dk[j] = dv[j] = 0.f;
-  const float* wbias = bias + (int64_t)(k.win % nB) * k.s * k.s;
-  float* ds_slab = ds + k.slab * k.s * k.s;
+// Offset of float4 group (r, c4) of a swizzled (64 rows, 64 floats) tile.
+__device__ __forceinline__ uint32_t swz4(int r, int c4) {
+  return (c4 >> 3) * kBoxBytes + r * 128 + ((((c4 & 7) ^ (r & 7))) << 4);
+}
 
-  for (int i0 = 0; i0 < k.s; i0 += kInnerTile) {
-    __syncthreads();  // the previous step's readers are done with the tiles
-    stage_rows(qs, gs, qkv, 3 * C, k.head * kHeadDim, g, C,
-               k.head * kHeadDim, k.w, i0);
-    if (tid < kInnerTile) st[tid] = stats[k.slab * k.s + i0 + tid];
-    __syncthreads();
+// Column of query (or key) q of a 64-wide tile staged transposed for a
+// register A operand taken from an accumulator: logical k = kk of each
+// 8-chunk holds q = 2 kk (kk < 4) or 2 (kk - 4) + 1 (attention_tc.cuh).
+__device__ __forceinline__ int frag_col(int q) {
+  const int mm = q & 7;
+  return (q & ~7) + ((mm & 1) ? 4 + (mm >> 1) : (mm >> 1));
+}
+
+// A raw (64 rows, 64 floats) tile, times `mul`: hi in place and lo beside
+// it (same offsets), and, if `thi`, its transpose (64 floats as rows) in
+// hi and lo, row r going to column frag_col(r) (permuted) or r.
+// The 128 threads of one warpgroup (index `tid`) share the work.
+template <bool kPermute>
+__device__ __forceinline__ void split_tile(int tid, uint8_t* raw, uint8_t* lo,
+                                           uint8_t* thi, uint8_t* tlo,
+                                           float mul, bool in_place) {
+#pragma unroll 2
+  for (int e = tid; e < kTileBytes / 16; e += 128) {
+    const int r = e & 63;
+    const int c4 = e >> 6;
+    const uint32_t off = swz4(r, c4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + off);
+    const float xs[4] = {x.x * mul, x.y * mul, x.z * mul, x.w * mul};
+    uint32_t h[4], l[4];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int i = grp + kGroups * j;
-      const float logit =
-          dot_row(kr, qs[i]) * scale + wbias[(int64_t)(i0 + i) * k.s + kj];
-      const float2 sti = st[i];
-      const float pij = expf(logit - sti.x);  // 0 where the bias is -inf
-      const float dpij = dot_row(vr, gs[i]);
-      ps[i][r] = pij;
-      dss[i][r] = pij * (dpij - sti.y);
+    for (int u = 0; u < 4; ++u) sic_tc::split(xs[u], h[u], l[u]);
+    if (in_place) {
+      *reinterpret_cast<uint4*>(raw + off) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
     }
-    __syncthreads();
-    // dS rows i0..i0+31, columns of this key tile, to the scratch (coalesced)
-    for (int e = tid; e < kInnerTile * kRowTile; e += kThreads) {
-      const int i = e / kRowTile;
-      const int c = e % kRowTile;
-      ds_slab[(int64_t)(i0 + i) * k.s + k.tile * kRowTile + c] = dss[i][c];
-    }
-#pragma unroll 4
-    for (int i = 0; i < kInnerTile; ++i) {
-      const float pij = ps[i][r];
-      const float dsij = dss[i][r];
+    if (thi != nullptr) {
+      const int col = kPermute ? frag_col(r) : r;
 #pragma unroll
-      for (int j = 0; j < kDims; ++j) {
-        const int d = grp + kGroups * j;
-        dv[j] = fmaf(pij, gs[i][d], dv[j]);
-        dk[j] = fmaf(dsij, qs[i][d], dk[j]);
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t toff = sic_tc::swz(kRows, 4 * c4 + u, col);
+        *reinterpret_cast<uint32_t*>(thi + toff) = h[u];
+        *reinterpret_cast<uint32_t*>(tlo + toff) = l[u];
       }
     }
   }
-  float* out = dqkv + p * 3 * C + k.head * kHeadDim;
+}
+
+// acc = a . b^T over K = 64 in split TF32, both operands (64 rows, 64
+// floats) K-major tiles in shared memory (hi and lo); one accumulator
+// (24 wgmma).  The caller fences, commits and waits.
+__device__ __forceinline__ void mma3_ss(float (&acc)[32], const uint8_t* ahi,
+                                        const uint8_t* alo, const uint8_t* bhi,
+                                        const uint8_t* blo) {
+  const uint32_t a[2] = {sic_tc::smem_u32(alo), sic_tc::smem_u32(ahi)};
+  const uint32_t b[2] = {sic_tc::smem_u32(blo), sic_tc::smem_u32(bhi)};
 #pragma unroll
-  for (int j = 0; j < kDims; ++j) {
-    const int d = grp + kGroups * j;
-    out[C + d] = dk[j] * scale;
-    out[2 * C + d] = dv[j];
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t abase = a[pass != 0];   // lo, hi, hi
+    const uint32_t bbase = b[pass != 1];   // hi, lo, hi
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sic_tc::wgmma_m64n64k8_ss(acc, sic_tc::chunk_desc(abase, j),
+                                sic_tc::chunk_desc(bbase, j), (pass | j) != 0);
   }
 }
 
-// Pass 3. grid: x = head * ntiles + query tile, y = window, z = batch.
-__global__ void __launch_bounds__(kThreads)
-    bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ ds,
+// acc += x . b over K = 64 in split TF32: x is an accumulator fragment
+// (rows of the warpgroup's 64, columns the K index), split into register
+// A fragments; b^T is staged in shared memory (hi and lo) with its K
+// columns permuted by frag_col.  The tile's product goes to a fresh
+// accumulator and is added into acc with f32 adds.
+__device__ __forceinline__ void mma3_rs_add(float (&acc)[32],
+                                            const float (&x)[32],
+                                            const uint8_t* bhi,
+                                            const uint8_t* blo) {
+  uint32_t xhi[32], xlo[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int slot = ((e & 1) << 1) | (e >> 1);
+      sic_tc::split(x[4 * j + e], xhi[4 * j + slot], xlo[4 * j + slot]);
+    }
+  }
+  float tile[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) tile[e] = 0.f;
+  sic_tc::fence_regs(tile);
+  sic_tc::fence_regs(xhi);
+  sic_tc::fence_regs(xlo);
+  const uint32_t b[2] = {sic_tc::smem_u32(blo), sic_tc::smem_u32(bhi)};
+  sic_tc::wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t* a = pass == 0 ? xlo : xhi;
+    const uint32_t bbase = b[pass != 1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sic_tc::wgmma_m64n64k8(tile, a[4 * j], a[4 * j + 1], a[4 * j + 2],
+                             a[4 * j + 3], sic_tc::chunk_desc(bbase, j),
+                             (pass | j) != 0);
+  }
+  sic_tc::wgmma_commit();
+  sic_tc::wgmma_wait_all();
+  sic_tc::fence_regs(tile);
+  sic_tc::fence_regs(xhi);
+  sic_tc::fence_regs(xlo);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] += tile[e];
+}
+
+// -- pass 2 -------------------------------------------------------------------
+
+// 16-KB tiles of the pass-2 block (kPx: P^T passed between the
+// warpgroups), then two mbarriers; slack to align the base to 1024 bytes
+// from the 16 bytes dynamic shared memory is aligned to at least
+enum DkdvTile { kKhi, kKlo, kVhi, kVlo, kQhi, kQlo, kGhi, kGlo, kQThi, kQTlo,
+                kGThi, kGTlo, kBias, kPx, kDkdvTiles };
+constexpr int kDkdvBytes = kDkdvTiles * kTileBytes + 16 + 1008;
+
+// grid: x = head * nk + key tile, y = window, z = batch; 256 threads.
+// Both warpgroups hold the same 64 keys in the same fragment layout:
+// warpgroup 0 takes S^T, P^T and dv, warpgroup 1 dP^T, dS^T and dk, so the
+// logits' and dP's products run side by side on the tensor cores, and so
+// do dv's and dk's; P^T passes from 0 to 1 through shared memory.
+__global__ void __launch_bounds__(256, 1)
+    bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map,
+                    const __grid_constant__ CUtensorMap g_map,
+                    const __grid_constant__ CUtensorMap bias_map,
+                    const float2* __restrict__ stats, float* __restrict__ ds,
+                    float* __restrict__ dqkv, int H, int W, int C, int ws,
+                    int nB, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sic_tc::align1024(smem_raw);
+  auto tile = [&](int i) { return smem + i * kTileBytes; };
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + kDkdvTiles * kTileBytes);
+  uint64_t* tbar = kvbar + 1;
+  float4* px = reinterpret_cast<float4*>(tile(kPx));  // [8][128] float4
+
+  const int s = ws * ws;
+  const int n = s / kRows;  // key tiles = query tiles of a window
+  const int head = blockIdx.x / n;
+  const int k0 = (blockIdx.x % n) * kRows;
+  const int win = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nww = W / ws;
+  const int x0 = (win % nww) * ws, y0 = (win / nww) * ws;
+  const int64_t slab =
+      ((int64_t)b * gridDim.y + win) * (gridDim.x / n) + head;
+  const int tid = threadIdx.x;
+  // 0: P^T and dv; 1: dP^T, dS^T and dk (broadcast from lane 0, so that
+  // the compiler sees it uniform across the warp)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wtid = tid & 127;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int r0 = (wtid >> 5) * 16 + gq;  // keys r0 and r0 + 8 of the tile
+
+  // 64 tokens from row0 of the window, channels c0.. of a 4-D NHWC map
+  auto load = [&](uint8_t* dst, const CUtensorMap* m, uint64_t* bar, int c0,
+                  int row0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sic_tc::tma_load_4d(dst + h * kBoxBytes, m, bar, c0 + h * 32, x0,
+                          y0 + row0 / ws, b);
+  };
+  auto issue_qg = [&](int i0) {
+    load(tile(kQhi), &map, tbar, head * kHeadDim, i0);
+    load(tile(kGhi), &g_map, tbar, head * kHeadDim, i0);
+  };
+  auto issue_bias = [&](int i0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sic_tc::tma_load_3d(tile(kBias) + h * kBoxBytes, &bias_map, tbar,
+                          k0 + h * 32, i0, win % nB);
+  };
+
+  sic_tc::init_bars(kvbar, 2);
+  if (tid == 0) {
+    sic_tc::mbar_expect_tx(kvbar, 2 * kTileBytes);
+    load(tile(kKhi), &map, kvbar, C + head * kHeadDim, k0);
+    load(tile(kVhi), &map, kvbar, 2 * C + head * kHeadDim, k0);
+    sic_tc::mbar_expect_tx(tbar, 3 * kTileBytes);
+    issue_qg(0);
+    issue_bias(0);
+  }
+  // warpgroup 0 splits k and then each q tile (scaled), warpgroup 1 v and
+  // each g tile; each runs its products on its own operands, picked by
+  // address, so no wgmma sits in a branch
+  const int mine = wg == 0 ? kKhi : kVhi;
+  const int q_or_g = wg == 0 ? kQhi : kGhi;
+  const int other_t = wg == 0 ? kGThi : kQThi;  // g^T for dv, q^T for dk
+  sic_tc::mbar_wait(kvbar, 0);
+  split_tile<false>(wtid, tile(mine), tile(mine + 1), nullptr, nullptr, 1.f,
+                    true);
+
+  float acc[32];  // dv (warpgroup 0) or dk (warpgroup 1)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  const float* srow0 = reinterpret_cast<const float*>(stats + slab * s);
+  float* ds_slab = ds + slab * s * s;
+  const float NEG_INF = -INFINITY;
+
+  for (int it = 0; it < n; ++it) {
+    const int i0 = it * kRows;
+    sic_tc::mbar_wait(tbar, it & 1);
+    split_tile<true>(wtid, tile(q_or_g), tile(q_or_g + 1),
+                     tile(wg == 0 ? kQThi : kGThi),
+                     tile(wg == 0 ? kQTlo : kGTlo), wg == 0 ? scale : 1.f,
+                     true);
+    // this tile's lse (warpgroup 0) or D (warpgroup 1) of queries
+    // 8j + 2t and 8j + 2t + 1
+    float st[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 v4 = *reinterpret_cast<const float4*>(
+          srow0 + 2 * (i0 + 8 * j + 2 * t));
+      st[2 * j] = wg == 0 ? v4.x : v4.y;
+      st[2 * j + 1] = wg == 0 ? v4.z : v4.w;
+    }
+    sic_tc::fence_async_smem();
+    __syncthreads();
+
+    // S^T = k (q scale)^T or dP^T = v g^T: rows keys, columns queries
+    float x[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) x[e] = 0.f;
+    sic_tc::fence_regs(x);
+    sic_tc::wgmma_fence();
+    mma3_ss(x, tile(mine), tile(mine + 1), tile(q_or_g), tile(q_or_g + 1));
+    sic_tc::wgmma_commit();
+    sic_tc::wgmma_wait_all();
+    sic_tc::fence_regs(x);
+    __syncthreads();  // both products have read q and g
+    if (tid == 0 && it + 1 < n) {
+      sic_tc::mbar_expect_tx(tbar, 3 * kTileBytes);
+      sic_tc::fence_async_smem();
+      issue_qg(i0 + kRows);
+    }
+
+    // slot 4j+e holds key r0 + 8 (e >> 1), query 8j + 2t + (e & 1)
+    if (wg == 0) {
+      const uint8_t* bias = tile(kBias);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          const int kr = r0 + 8 * (e >> 1);
+          const float v = x[4 * j + e] + *reinterpret_cast<const float*>(
+                                             bias + sic_tc::swz(kRows, qc, kr));
+          x[4 * j + e] = (v == NEG_INF) ? 0.f : expf(v - st[2 * j + (e & 1)]);
+        }
+        px[j * 128 + wtid] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      }
+    }
+    __syncthreads();  // P^T is passed on and the bias tile read
+    if (tid == 0 && it + 1 < n) {
+      sic_tc::fence_async_smem();
+      issue_bias(i0 + kRows);
+    }
+
+    if (wg == 1) {
+      // dS^T = P^T (dP^T - D), to the scratch as (query, key) rows
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = px[j * 128 + wtid];
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          const int kr = r0 + 8 * (e >> 1);
+          x[4 * j + e] = pv[e] * (x[4 * j + e] - st[2 * j + (e & 1)]);
+          ds_slab[(int64_t)(i0 + qc) * s + k0 + kr] = x[4 * j + e];
+        }
+      }
+    }
+    // dv += P^T g (warpgroup 0) or dk += dS^T (q scale) (warpgroup 1)
+    mma3_rs_add(acc, x, tile(other_t), tile(other_t + 1));
+    __syncthreads();  // the transposes, lo tiles and P^T are free again
+  }
+
+  // rows r0 and r0 + 8: the keys' dv (warpgroup 0) or dk (1; q was scaled)
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int key = k0 + r0 + 8 * row;
+    float* out = dqkv +
+                 (((int64_t)b * H + y0 + key / ws) * W + x0 + key % ws) * 3 * C +
+                 (wg == 0 ? 2 * C : C) + head * kHeadDim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * row], acc[4 * j + 2 * row + 1]);
+  }
+}
+
+// -- pass 3 -------------------------------------------------------------------
+
+// a two-stage ring of (dS tile, k tile), then dS lo, k^T hi, k^T lo
+constexpr int kDqStage = 2 * kTileBytes;
+constexpr int kDqDslo = 2 * kDqStage;
+constexpr int kDqKthi = kDqDslo + kTileBytes;
+constexpr int kDqKtlo = kDqKthi + kTileBytes;
+constexpr int kDqBar = kDqKtlo + kTileBytes;
+// two blocks an SM: 2 x (115,712 + 1,024 reserved) = the SM's 233,472
+constexpr int kDqBytes = kDqBar + 16 + 1008;
+
+// grid: x = head * nq + query tile, y = window, z = batch; 128 threads
+__global__ void __launch_bounds__(128, 2)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap map,
+                  const __grid_constant__ CUtensorMap ds_map,
                   float* __restrict__ dqkv, int H, int W, int C, int ws,
                   float scale) {
-  __shared__ __align__(16) float ks[kInnerTile][kHeadDim];
-  __shared__ float dsr[kRowTile][kInnerTile + 1];
-  const Block k = block_of(H, W, ws);
-  const int tid = threadIdx.x;
-  const int r = tid / kGroups;
-  const int grp = tid % kGroups;
-  const int qi = k.tile * kRowTile + r;
-  const float* ds_rows = ds + k.slab * k.s * k.s + (int64_t)k.tile * kRowTile * k.s;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sic_tc::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDqBar);
 
-  float dq[kDims];
+  const int s = ws * ws;
+  const int n = s / kRows;
+  const int head = blockIdx.x / n;
+  const int i0 = (blockIdx.x % n) * kRows;
+  const int win = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nww = W / ws;
+  const int x0 = (win % nww) * ws, y0 = (win / nww) * ws;
+  const int slab =
+      (int)(((int64_t)b * gridDim.y + win) * (gridDim.x / n) + head);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // queries r0, r0 + 8
+
+  auto issue = [&](int kt, int st) {
+    uint8_t* stage = smem + st * kDqStage;
+    sic_tc::mbar_expect_tx(&full[st], 2 * kTileBytes);
 #pragma unroll
-  for (int j = 0; j < kDims; ++j) dq[j] = 0.f;
-  for (int k0 = 0; k0 < k.s; k0 += kInnerTile) {
-    __syncthreads();
-    for (int e = tid; e < kInnerTile * kHeadDim / 4; e += kThreads) {
-      const int kr = e / (kHeadDim / 4);
-      const int c4 = e % (kHeadDim / 4);
-      *reinterpret_cast<float4*>(&ks[kr][4 * c4]) =
-          *reinterpret_cast<const float4*>(qkv + k.w.pix(k0 + kr) * 3 * C + C +
-                                           k.head * kHeadDim + 4 * c4);
+    for (int h = 0; h < 2; ++h) {
+      sic_tc::tma_load_3d(stage + h * kBoxBytes, &ds_map, &full[st],
+                          kt * kRows + h * 32, i0, slab);
+      sic_tc::tma_load_4d(stage + kTileBytes + h * kBoxBytes, &map, &full[st],
+                          C + head * kHeadDim + h * 32, x0,
+                          y0 + kt * kRows / ws, b);
     }
-    for (int e = tid; e < kRowTile * kInnerTile; e += kThreads) {
-      const int i = e / kInnerTile;
-      const int c = e % kInnerTile;
-      dsr[i][c] = ds_rows[(int64_t)i * k.s + k0 + c];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kInnerTile; ++kk) {
-      const float dsij = dsr[r][kk];
+  };
+
+  sic_tc::init_bars(full, 2);
+  if (tid == 0) {
+    for (int i = 0; i < 2 && i < n; ++i) issue(i, i);
+  }
+  float dq[32];
 #pragma unroll
-      for (int j = 0; j < kDims; ++j)
-        dq[j] = fmaf(dsij, ks[kk][grp + kGroups * j], dq[j]);
+  for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+  uint8_t* dslo = smem + kDqDslo;
+  uint8_t* kthi = smem + kDqKthi;
+  uint8_t* ktlo = smem + kDqKtlo;
+  for (int kt = 0; kt < n; ++kt) {
+    const int st = kt & 1;
+    uint8_t* stage = smem + st * kDqStage;
+    sic_tc::mbar_wait(&full[st], (kt >> 1) & 1);
+    split_tile<false>(tid, stage, dslo, nullptr, nullptr, 1.f, true);
+    split_tile<false>(tid, stage + kTileBytes, nullptr, kthi, ktlo, 1.f, false);
+    sic_tc::fence_async_smem();
+    __syncthreads();
+    // this key tile's dS k in a fresh accumulator
+    float part[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) part[e] = 0.f;
+    sic_tc::fence_regs(part);
+    sic_tc::wgmma_fence();
+    mma3_ss(part, stage, dslo, kthi, ktlo);
+    sic_tc::wgmma_commit();
+    sic_tc::wgmma_wait_all();
+    sic_tc::fence_regs(part);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[e] += part[e];
+    __syncthreads();  // the stage and the split buffers are free
+    if (tid == 0 && kt + 2 < n) {
+      sic_tc::fence_async_smem();
+      issue(kt + 2, st);
     }
   }
-  float* out = dqkv + k.w.pix(qi) * 3 * C + k.head * kHeadDim;
+
 #pragma unroll
-  for (int j = 0; j < kDims; ++j) out[grp + kGroups * j] = dq[j] * scale;
+  for (int row = 0; row < 2; ++row) {
+    const int q = i0 + r0 + 8 * row;
+    float* out = dqkv +
+                 (((int64_t)b * H + y0 + q / ws) * W + x0 + q % ws) * 3 * C +
+                 head * kHeadDim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * t) = make_float2(
+          dq[4 * j + 2 * row] * scale, dq[4 * j + 2 * row + 1] * scale);
+  }
 }
 
-// Pass 4: dbias[nb, i, j] = sum over b, windows w (w == nb, or every w when
+// -- pass 4 -------------------------------------------------------------------
+
+// dbias[nb, i, j] = sum over b, windows w (w == nb, or every w when
 // nB == 1) and heads h of dS[b, w, h, i, j], in that fixed order.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
     bwd_dbias_kernel(const float* __restrict__ ds, float* __restrict__ dbias,
                      int B, int nW, int heads, int s, int nB) {
   const int64_t ss = (int64_t)s * s;
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
   if (e >= nB * ss) return;
   const int nb = (int)(e / ss);
   const int64_t ij = e % ss;
@@ -335,6 +542,20 @@ __global__ void __launch_bounds__(kThreads)
   dbias[e] = acc;
 }
 
+template <int NWG>
+int launch_stats(const CUtensorMap& map, const CUtensorMap& bias_map,
+                 const float* g, float2* stats, int B, int H, int W, int C,
+                 int heads, int ws, int nB, float scale, cudaStream_t st) {
+  constexpr int bytes = sic_tc::Plan<NWG, true>::kAlloc;
+  const int rc = sic_tc::allow_smem<bwd_stats_kernel<NWG>>(bytes);
+  if (rc != 0) return rc;
+  const int ntiles = ws * ws / (NWG * sic_tc::kWgRows);
+  const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
+  bwd_stats_kernel<NWG><<<grid, NWG * 128, bytes, st>>>(
+      map, bias_map, g, stats, H, W, C, ws, nB, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sic_window_attention_bwd(const void* qkv, const void* bias,
@@ -343,33 +564,52 @@ extern "C" int sic_window_attention_bwd(const void* qkv, const void* bias,
                                         int B, int H, int W, int C, int heads,
                                         int ws, int nB, float scale,
                                         void* stream) {
-  if (C != heads * kHeadDim || ws <= 0 || H % ws || W % ws ||
-      (ws * ws) % kRowTile) {
+  if (C != heads * kHeadDim || B <= 0 || ws < 8 || sic_tc::kBoxRows % ws ||
+      H % ws || W % ws) {
     return (int)cudaErrorInvalidValue;
   }
   const int s = ws * ws;
   const int nW = (H / ws) * (W / ws);
-  if (nB != 1 && nB != nW) return (int)cudaErrorInvalidValue;
+  const long long slabs = (long long)B * nW * heads;
+  if ((nB != 1 && nB != nW) || slabs > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const void* bases[4] = {qkv, bias, g, ds_scratch};
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap map, g_map, bias_map, ds_map;
+  int rc = sic_tc::encode_window_map(&map, qkv, 3 * C, W, H, B, ws);
+  if (rc == 0) rc = sic_tc::encode_window_map(&g_map, g, C, W, H, B, ws);
+  if (rc == 0) rc = sic_tc::encode_square_map(&bias_map, bias, s, s, nB);
+  if (rc == 0)
+    rc = sic_tc::encode_square_map(&ds_map, ds_scratch, s, s, (int)slabs);
+  if (rc != 0) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(heads * (s / kRowTile), nW, B);
-  const float* fq = (const float*)qkv;
-  const float* fb = (const float*)bias;
   const float* fg = (const float*)g;
   float* fds = (float*)ds_scratch;
   float2* fst = (float2*)stats_scratch;
-  cudaError_t err;
-  bwd_stats_kernel<<<grid, kThreads, 0, st>>>(fq, fb, fg, fst, H, W, C, ws,
-                                              nB, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bwd_dkdv_kernel<<<grid, kThreads, 0, st>>>(fq, fb, fg, fst, fds,
-                                             (float*)dqkv, H, W, C, ws, nB,
-                                             scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bwd_dq_kernel<<<grid, kThreads, 0, st>>>(fq, fds, (float*)dqkv, H, W, C, ws,
-                                           scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  rc = s % (2 * sic_tc::kWgRows) == 0
+           ? launch_stats<2>(map, bias_map, fg, fst, B, H, W, C, heads, ws,
+                             nB, scale, st)
+           : launch_stats<1>(map, bias_map, fg, fst, B, H, W, C, heads, ws,
+                             nB, scale, st);
+  if (rc != 0) return rc;
+
+  const dim3 grid(heads * (s / kRows), nW, B);
+  rc = sic_tc::allow_smem<bwd_dkdv_kernel>(kDkdvBytes);
+  if (rc != 0) return rc;
+  bwd_dkdv_kernel<<<grid, 256, kDkdvBytes, st>>>(
+      map, g_map, bias_map, fst, fds, (float*)dqkv, H, W, C, ws, nB, scale);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+
+  rc = sic_tc::allow_smem<bwd_dq_kernel>(kDqBytes);
+  if (rc != 0) return rc;
+  bwd_dq_kernel<<<grid, 128, kDqBytes, st>>>(map, ds_map, (float*)dqkv, H, W,
+                                             C, ws, scale);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+
   const int64_t n = (int64_t)nB * s * s;
-  bwd_dbias_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                     st>>>(fds, (float*)dbias, B, nW, heads, s, nB);
+  bwd_dbias_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      fds, (float*)dbias, B, nW, heads, s, nB);
   return (int)cudaGetLastError();
 }

@@ -6,67 +6,119 @@
 // softmax(q[g] * scale . k[g]^T + bias[g % nW]) v[g], written into (G, s, d).
 // bias is f32 (nW, s, s): the relative-position bias plus any -inf shift
 // mask, with the windows innermost in g (the (G // nW, nW) order).  Head dim
-// 64; s is the window's token count (256 for the shipped 16x16 window).
+// 64; s is any token count (256 for the shipped 16x16 window).
 //
 // What bounds it on the H100: 4*s*d flops per query against 16 bytes per
-// token read and written make it compute-bound (s/4 = 64 flops a byte at s
-// = 256, far above the f32 ridge of about 20), at the 67 TFLOP/s of the f32
-// CUDA cores, since this first version does not use the tensor cores.  The
-// Pallas kernel held one whole window in VMEM per grid step; here one
-// 256-thread block takes one 64-query tile of one window (s / 64 blocks a
-// window, G * s / 64 in all, spread over the 132 SMs), streams the keys
-// through shared memory in 32-key tiles with an online softmax, and keeps
-// every logit and probability on chip.  The body (attention_common.cuh)
-// reads q, k and v from three base pointers; f32 FMAs on the CUDA cores.
-// An all -inf key tile of a shifted window gives 0, not NaN (the shared
-// body's guard of the running max).
-#include "attention_common.cuh"
+// token read and written make it bound by operations (s/4 = 64 flops a
+// byte at s = 256): at fp32 accuracy on the tensor cores, 3 TF32 products
+// per product over 495 TFLOP/s (the f32 CUDA cores' 67 TFLOP/s bound is
+// kept beside it: the first version ran every product as an f32 FMA
+// reading shared memory, at 8-17% of that bound).
+//
+// Design: the body of kernels 1 and 2 (attention_tc.cuh): split-TF32
+// wgmma for both products, TMA loads into a two-stage ring, online softmax
+// on the accumulator fragments, each key tile's P v in a fresh
+// accumulator.  GsdGeo supplies the tiles: three 3-D tensor maps (64, s,
+// G), one each for q, k and v, whose (32, 64, 1) box is half a head row of
+// 64 tokens of one window-head, and the bias as a 3-D map (s, s, nW) read
+// at window g % nW.  Rows past s arrive zero-filled from the TMA and their
+// keys are masked to -inf, so any s is taken: ragged (289) and small (49,
+// 1) too.  The TMA needs the bias's row stride (s floats) to be a multiple
+// of 16 bytes: where s % 4 != 0 the wrapper hands over the bias padded
+// with zero columns to a multiple of 4 (`row_floats`); the padded columns
+// lie past s, are masked and change nothing.
+//
+// Block shape, as kernel 2 chooses: two consumer warpgroups (128 queries
+// of one window-head) where s is a multiple of 128, else one.  The
+// flagship layer's (48, 256, 64) gives 48 x 2 = 96 blocks of 256 threads
+// (0.73 of a wave on 132 SMs), kernel 2's grid on the same layer.
+#include "attention_tc.cuh"
 
 namespace {
 
-// token t of one window-head sits at row t of q, k, v and out, offset to
-// the window-head by the caller
-struct GsdRows {
-  __device__ __forceinline__ int64_t qkv(int t) const {
-    return (int64_t)t * sic::kHeadDim;
+struct GsdGeo {
+  const CUtensorMap* q_map;
+  const CUtensorMap* k_map;
+  const CUtensorMap* v_map;
+  const CUtensorMap* bias_map;
+  float* out;
+  int s, g, win;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
+                                       int half, int row0) const {
+    const CUtensorMap* m = which == 0 ? q_map : which == 1 ? k_map : v_map;
+    sic_tc::tma_load_3d(dst, m, bar, half * 32, row0, g);
   }
-  __device__ __forceinline__ int64_t out(int t) const {
-    return (int64_t)t * sic::kHeadDim;
+  __device__ __forceinline__ void load_bias(void* dst, uint64_t* bar, int half,
+                                            int qrow0, int k0) const {
+    sic_tc::tma_load_3d(dst, bias_map, bar, k0 + half * 32, qrow0, win);
+  }
+  __device__ __forceinline__ float* out_row(int t) const {
+    return out + ((int64_t)g * s + t) * sic_tc::kHeadDim;
   }
 };
 
 // grid: x = g * ntiles + query tile
-__global__ void __launch_bounds__(sic::kThreads)
-    window_attention_gsd_kernel(const float* __restrict__ q,
-                                const float* __restrict__ k,
-                                const float* __restrict__ v,
-                                const float* __restrict__ bias,
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+    window_attention_gsd_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap bias_map,
                                 float* __restrict__ out, int s, int nW,
                                 float scale) {
-  const int ntiles = (s + sic::kQueryTile - 1) / sic::kQueryTile;
+  extern __shared__ uint8_t smem[];
+  constexpr int rows = NWG * sic_tc::kWgRows;
+  const int ntiles = (s + rows - 1) / rows;
   const int g = blockIdx.x / ntiles;
-  const int tile = blockIdx.x % ntiles;
-  const int64_t base = (int64_t)g * s * sic::kHeadDim;
-  const float* gbias = bias + (int64_t)(g % nW) * s * s;
-  sic::attend_tile(q + base, k + base, v + base, out + base, GsdRows{}, s, 0,
-                   scale, gbias, tile * sic::kQueryTile);
+  const GsdGeo geo{&q_map, &k_map, &v_map, &bias_map, out, s, g, g % nW};
+  sic_tc::attend<float, NWG, true>(geo, s, scale,
+                                   ((int)blockIdx.x % ntiles) * rows, smem);
+}
+
+template <int NWG>
+int launch(const CUtensorMap (&maps)[4], float* out, int G, int s, int nW,
+           float scale, cudaStream_t stream) {
+  constexpr int bytes = sic_tc::Plan<NWG, true>::kAlloc;
+  const int rc = sic_tc::allow_smem<window_attention_gsd_kernel<NWG>>(bytes);
+  if (rc != 0) return rc;
+  constexpr int rows = NWG * sic_tc::kWgRows;
+  const long long blocks = (long long)G * ((s + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  window_attention_gsd_kernel<NWG><<<(unsigned)blocks, NWG * 128, bytes,
+                                     stream>>>(maps[0], maps[1], maps[2],
+                                               maps[3], out, s, nW, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// bias rows are `row_floats` apart (s rounded up to a multiple of 4 by the
+// caller, zero columns past s)
 extern "C" int sic_window_attention_gsd(const void* q, const void* k,
                                         const void* v, const void* bias,
                                         void* out, int G, int s, int d,
-                                        int nW, float scale, void* stream) {
-  if (d != sic::kHeadDim || G <= 0 || s <= 0 || nW <= 0 || G % nW) {
+                                        int nW, int row_floats, float scale,
+                                        void* stream) {
+  if (d != sic_tc::kHeadDim || G <= 0 || s <= 0 || nW <= 0 || G % nW ||
+      row_floats < s || row_floats % 4) {
     return (int)cudaErrorInvalidValue;
   }
-  const int ntiles = (s + sic::kQueryTile - 1) / sic::kQueryTile;
-  const long long blocks = (long long)G * ntiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  window_attention_gsd_kernel<<<(unsigned)blocks, sic::kThreads, 0,
-                                (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
-      (float*)out, s, nW, scale);
-  return (int)cudaGetLastError();
+  const void* bases[4] = {q, k, v, bias};
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)s * d * 4};
+  const cuuint32_t box[3] = {sic_tc::kAtomFloats, sic_tc::kBoxRows, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int rc =
+        sic_tc::encode_f32_map(&maps[i], bases[i], 3, dims, strides, box);
+    if (rc != 0) return rc;
+  }
+  const int rc = sic_tc::encode_square_map(&maps[3], bias, s, row_floats, nW);
+  if (rc != 0) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  return s % (2 * sic_tc::kWgRows) == 0
+             ? launch<2>(maps, (float*)out, G, s, nW, scale, st)
+             : launch<1>(maps, (float*)out, G, s, nW, scale, st);
 }

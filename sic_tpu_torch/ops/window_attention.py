@@ -1,9 +1,10 @@
 """Window attention: NHWC over a packed qkv projection with its gradient,
 and over separate (G, s, d) q, k, v tensors.
 
-CUDA kernels: ``csrc/window_attention.cu`` (the NHWC forward, replacing the
-TPU kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``; split-TF32
-``wgmma`` on the tensor cores, tiles loaded by TMA),
+CUDA kernels, all split-TF32 ``wgmma`` on the tensor cores with tiles
+loaded by TMA (``csrc/attention_tc.cuh`` holds the forward body they
+share): ``csrc/window_attention.cu`` (the NHWC forward, replacing the TPU
+kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``),
 ``csrc/window_attention_bwd.cu`` (its backward, replacing
 ``_nhwc_bwd_kernel``) and ``csrc/window_attention_gsd.cu`` (the (G, s, d)
 forward, replacing ``_attention_kernel``).  Every Swin layer runs the NHWC
@@ -150,7 +151,8 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     dbias (nB, s, s) f32).  dbias is summed over the batch and the heads,
     and over the windows too when nB == 1; nB must be 1 or the window count.
     A CPU tensor takes the plain version's autograd; a CUDA tensor launches
-    the backward kernel or raises."""
+    the backward kernel (head dim 64, a window side the forward kernel
+    takes) or raises."""
     B, H, W, c3 = qkv.shape
     ws = _window_size(bias)
     nW = (H // ws) * (W // ws)
@@ -162,10 +164,13 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     B, H, W, C, ws = _check_kernel_args(qkv, bias, heads, "window_attention_nhwc_bwd")
     cuda_build.require_cuda(g, "g", torch.float32)
     s = ws * ws
-    if tuple(g.shape) != (B, H, W, C) or s % 64:
+    if tuple(g.shape) != (B, H, W, C) or ws not in FORWARD_WINDOWS or B == 0 \
+            or any(t.data_ptr() % 16 for t in (qkv, bias, g)):
         raise ValueError(f"window_attention_nhwc_bwd kernel: g "
                          f"{tuple(g.shape)} for qkv {tuple(qkv.shape)}, "
-                         f"window {ws} (ws * ws must be a multiple of 64)")
+                         f"window {ws} (must be one of {FORWARD_WINDOWS}: "
+                         "64-token tiles of whole window rows), qkv, bias and "
+                         "g on 16-byte boundaries (their tensor maps)")
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nB, s, s), device=qkv.device, dtype=torch.float32)
     # scratch: dS per (batch, window, head) and the per-row (lse, D) stats
@@ -233,24 +238,36 @@ def window_attention_bwd_plain(q, k, v, bias, g, scale: float):
 
 
 def _gsd_kernel(q, k, v, bias, scale):
+    """Launch the (G, s, d) kernel.  Its tensor maps need every base on a
+    16-byte boundary and the bias's row stride a multiple of 16 bytes:
+    where s % 4 != 0 (a 7x7 window: s = 49) the bias's last axis is padded
+    with zeros to a multiple of 4, once per call; the padded columns lie
+    past s, where the kernel masks every key, so they change nothing."""
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         cuda_build.require_cuda(t, name, torch.float32)
     G, s, d = q.shape
     if d != HEAD_DIM or tuple(k.shape) != tuple(q.shape) \
             or tuple(v.shape) != tuple(q.shape) or bias.dim() != 3 \
-            or tuple(bias.shape[1:]) != (s, s):
+            or tuple(bias.shape[1:]) != (s, s) or G == 0 or s == 0:
         raise ValueError(f"window_attention kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, bias "
-                         f"{tuple(bias.shape)} (head dim must be {HEAD_DIM})")
+                         f"{tuple(bias.shape)} (non-empty, head dim must be "
+                         f"{HEAD_DIM})")
+    if any(t.data_ptr() % 16 for t in (q, k, v, bias)):
+        raise ValueError("window_attention kernel: q, k, v and bias must lie "
+                         "on 16-byte boundaries (their tensor maps)")
+    row = -(-s // 4) * 4
+    if row != s:
+        bias = torch.nn.functional.pad(bias, (0, row - s))
     out = torch.empty_like(q)
     lib = cuda_build.load("window_attention_gsd")
     fn = lib.sic_window_attention_gsd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), G, s, d, bias.shape[0], float(scale),
+            out.data_ptr(), G, s, d, bias.shape[0], row, float(scale),
             cuda_build.stream_of(q))
     cuda_build.check_launch(rc, "window_attention")
     window_attention.launches += 1

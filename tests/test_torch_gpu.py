@@ -59,6 +59,23 @@ def _window_attention_f64(qkv, bias, scale, heads, ws=16):
     return o.permute(0, 2, 4, 3, 5, 1, 6).reshape(B, H, W, C)
 
 
+def _window_bwd_f64(qkv, bias, g, scale, heads):
+    """Kernel 5's function in f64: the VJP of :func:`_window_attention_f64`."""
+    a = qkv.double().requires_grad_(True)
+    b = bias.double().requires_grad_(True)
+    out = _window_attention_f64(a, b, scale, heads)
+    return torch.autograd.grad(out, (a, b), g.double())
+
+
+def _gsd_f64(q, k, v, bias, scale):
+    """Kernel 6's function in f64."""
+    G, s, _ = q.shape
+    nW = bias.shape[0]
+    dots = (q.double() * scale) @ k.double().transpose(-1, -2)
+    dots = (dots.reshape(G // nW, nW, s, s) + bias.double()).reshape(G, s, s)
+    return dots.softmax(-1) @ v.double()
+
+
 # At qkv x 4 the logits are in the tens, and the plain f32 version itself
 # errs by about 1e-4 against f64 on the card (its cuBLAS products): the
 # kernels are held to the f64 function there, within the same TOL.
@@ -147,7 +164,7 @@ def test_window_attention_bwd_kernel_matches_plain(cuda, B, H, W, C, heads, nB):
     """dqkv and dbias of the backward kernel against the plain version's
     autograd, within 1e-4 of their largest magnitude (f32 summation order;
     dbias sums over batch, heads and windows).  nB > 1 carries the shift
-    masks' -inf entries."""
+    masks' -inf entries.  Two launches give the same bits."""
     from sic_tpu_torch.models.swin import _full_shift_mask
     ws = 16
     qkv = _randn((B, H, W, 3 * C), C + nB, cuda)
@@ -165,6 +182,24 @@ def test_window_attention_bwd_kernel_matches_plain(cuda, B, H, W, C, heads, nB):
     assert torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()
     assert _rel_err(dqkv, want_q) <= TOL
     assert _rel_err(dbias, want_b) <= TOL
+    again = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, heads)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+
+
+def test_window_attention_bwd_kernel_at_magnitude_4(cuda):
+    """qkv x 4 (logits in the tens) on a shifted 512-px layer (2x2
+    windows, nB 4): dqkv and dbias against the f64 VJP, within the same
+    TOL of their largest magnitude, as the forwards' x4 cases are held."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    qkv = _randn((1, 32, 32, 3 * 768), 41, cuda) * 4
+    g = _randn((1, 32, 32, 768), 42, cuda)
+    bias = (_randn((1, 256, 256), 43, cuda)
+            + torch.from_numpy(_full_shift_mask(2, 2, 16)).to(cuda)).contiguous()
+    dqkv, dbias = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, 12)
+    assert torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()
+    want_q, want_b = _window_bwd_f64(qkv, bias, g, 0.125, 12)
+    assert _rel_err(dqkv.double(), want_q) <= TOL
+    assert _rel_err(dbias.double(), want_b) <= TOL
 
 
 def test_window_attention_bwd_rejects_a_partly_shared_bias(cuda):
@@ -212,7 +247,7 @@ def test_gsd_window_attention_kernel_matches_plain(cuda, G, nW, masked):
     """The (G, s, d) kernel at s 256, d 64: forward and the autograd
     gradient (q, k, v, bias) against the plain version's; with the -inf
     masks of a shifted 2x2-window layer some query rows see -inf key
-    tiles."""
+    tiles.  Two launches give the same bits."""
     from sic_tpu_torch.models.swin import _full_shift_mask
     q, k, v = (_randn((G, 256, 64), G + i, cuda).requires_grad_(True)
                for i in range(3))
@@ -227,10 +262,47 @@ def test_gsd_window_attention_kernel_matches_plain(cuda, G, nW, masked):
     assert torch.isfinite(out).all() and out.grad_fn is not None
     ref = ops.window_attention_plain(q, k, v, bias, 0.125)
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    assert torch.equal(out, ops.window_attention(q, k, v, bias, 0.125))
     got = torch.autograd.grad(out, (q, k, v, bias), g)
     want = torch.autograd.grad(ref, (q, k, v, bias), g)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= TOL
+
+
+@pytest.mark.parametrize("G,nW,s", [(8, 2, 49), (8, 2, 64), (6, 3, 289)])
+def test_gsd_window_attention_kernel_other_window_sizes(cuda, G, nW, s):
+    """s 49 (a 7x7 window: the bias padded to 52 columns for its tensor
+    map), 64 (one warpgroup a block) and 289 (ragged: the last tile's rows
+    past s read zeros and its keys are masked): forward and gradient
+    against the plain version, two launches equal bits."""
+    q, k, v = (_randn((G, s, 64), s + i, cuda).requires_grad_(True)
+               for i in range(3))
+    bias = _randn((nW, s, s), 5, cuda).requires_grad_(True)
+    g = _randn((G, s, 64), 6, cuda)
+    out = ops.window_attention(q, k, v, bias, 0.125)
+    assert torch.isfinite(out).all()
+    ref = ops.window_attention_plain(q, k, v, bias, 0.125)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    assert torch.equal(out, ops.window_attention(q, k, v, bias, 0.125))
+    got = torch.autograd.grad(out, (q, k, v, bias), g)
+    want = torch.autograd.grad(ref, (q, k, v, bias), g)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL
+
+
+def test_gsd_window_attention_kernel_at_magnitude_4(cuda):
+    """q, k, v x 4 (logits in the tens) on the flagship layer's geometry
+    with the shift masks: held to the f64 function within TOL, as kernels
+    1 and 2 are at x4."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    q, k, v = (_randn((48, 256, 64), 60 + i, cuda) * 4 for i in range(3))
+    bias = (_randn((4, 256, 256), 63, cuda)
+            + torch.from_numpy(_full_shift_mask(2, 2, 16)).to(cuda)).contiguous()
+    out = ops.window_attention(q, k, v, bias, 0.125)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.double(), _gsd_f64(q, k, v, bias, 0.125),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(out, ops.window_attention(q, k, v, bias, 0.125))
 
 
 def test_gsd_window_attention_refuses_what_the_kernel_cannot_take(cuda):
@@ -241,6 +313,11 @@ def test_gsd_window_attention_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         ops.window_attention(q.half(), q.half(), q.half(),
                              _randn((2, 256, 256), 4, cuda), 0.125)
+    before = ops.launch_counts()["window_attention"]
+    off = torch.empty(8 * 256 * 64 + 1, device=cuda)[1:].view(8, 256, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.window_attention(off, q, q, _randn((2, 256, 256), 5, cuda), 0.125)
+    assert ops.launch_counts()["window_attention"] == before
 
 
 def test_rans_kernel_matches_native_and_plain(cuda):
