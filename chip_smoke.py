@@ -10,10 +10,15 @@ Phases, each printing one JSON line with the card's name and power limit:
               the native rANS coder, from the sources in the checkout; the
               HGMMA (wgmma) count of the four attention libraries (kernels
               1, 2, 5 and 6), which run split TF32 on the tensor cores,
-              must be above 0;
+              must be above 0; a dependent-chain probe
+              (csrc/chain_probe.cu) reads the least latency of one step of
+              each rANS chain in SM cycles, and nvidia-smi the SM's highest
+              clock, for the rANS rows' chain bound;
 2. kernels  - each kernel against its plain PyTorch version on the card at
-              the flagship's shapes (rANS encode also against the native
-              encoder, and through one forced buffer overflow; the
+              the flagship's shapes (rANS decode also against the native
+              decoder at 4 x 1024, 1 x 4096 and 32 x 256; rANS encode also
+              against the native encoder, and through one forced buffer
+              overflow; the
               window-attention backward against the plain version's
               autograd at the training shapes, -inf shift masks included;
               the (G, s, d) window attention at bench.py:kernel_check's
@@ -26,8 +31,10 @@ Phases, each printing one JSON line with the card's name and power limit:
               capture, the sum of its kernels in a torch.profiler trace,
               the method named in each row), each attention row's bounds
               on the f32 cores and, as split TF32, on the tensor cores,
-              and its error against an f64 reference; every attention
-              kernel launched twice on one input must give the same bits;
+              each rANS row's bytes bound and chain bound (the longest
+              substream's coded symbols times the probe's step), and its
+              error against an f64 reference; every attention kernel
+              launched twice on one input must give the same bits;
 3. golden   - the JAX-encoded tests/fixtures/golden stream through the CLI
               (host coder) and through the rANS decode kernel, against the
               committed pixels; then golden_input() encoded on the card by
@@ -117,6 +124,7 @@ HELDOUT = ROOT / "artifacts_r05" / "heldout"
 F32_TFLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_TFLOPS = 495e12    # H100 SXM dense TF32 on the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
+CHAIN_PROBE_STEPS = 1 << 16   # steps of each dependent-chain probe
 ATTN_TOL = 1e-4         # kernel vs plain, fp32: only the summation order differs
 # backward kernel vs the plain version's autograd, relative to the largest
 # magnitude: f32 summation order, and dbias summed over batch, heads, windows
@@ -289,7 +297,7 @@ class Smoke:
         th = threading.Thread(target=_native)
         t0 = time.perf_counter()
         th.start()
-        reports = cuda_build.build()
+        reports = cuda_build.build(cuda_build.KERNELS + ("chain_probe",))
         th.join()
         if "error" in native:
             raise native["error"]
@@ -305,8 +313,46 @@ class Smoke:
             "window_attention_gsd")}
         if not all(c > 0 for c in hgmma.values()):
             raise AssertionError(f"no HGMMA instruction in {hgmma}")
+        self.chain = self.chain_probe()
         return {"built": sorted(reports), "build_s": round(time.perf_counter() - t0, 3),
-                "ptxas": regs, "hgmma": hgmma}
+                "ptxas": regs, "hgmma": hgmma, "chain_probe": self.chain}
+
+    def chain_probe(self):
+        """The least latency of one step of each rANS chain on this card,
+        in SM cycles, from csrc/chain_probe.cu (one warp, 2^16 dependent
+        steps): decode = a shared-memory load picked by the state plus one
+        integer multiply-add, encode = a high multiply plus a multiply-add;
+        and the SM's highest clock, which turns cycles into the least
+        time."""
+        import ctypes
+        import numpy as np
+        torch = self.torch
+        from sic_tpu_torch.ops import cuda_build
+        fn = cuda_build.load("chain_probe").sic_chain_probe
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = torch.zeros(4, dtype=torch.int64, device="cuda")
+        best = None
+        for _ in range(3):   # the first call also loads the module
+            cuda_build.check_launch(
+                fn(out.data_ptr(), CHAIN_PROBE_STEPS,
+                   torch.cuda.current_stream().cuda_stream), "chain_probe")
+            torch.cuda.synchronize()
+            cyc = out.cpu().numpy()[:2] / CHAIN_PROBE_STEPS
+            best = cyc if best is None else np.minimum(best, cyc)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        mhz = float(smi.stdout.strip().splitlines()[0])
+        return {"decode_step_cycles": float(best[0]),
+                "encode_step_cycles": float(best[1]),
+                "sm_clock_max_mhz": mhz, "steps": CHAIN_PROBE_STEPS}
+
+    def chain_bound(self, steps, kind):
+        """Least time of ``steps`` dependent steps of the ``kind`` chain
+        (decode or encode), ms."""
+        c = self.chain
+        return steps * c[f"{kind}_step_cycles"] / (c["sm_clock_max_mhz"] * 1e3)
 
     # -- phase 2 ----------------------------------------------------------------
     def kernel_checks(self):
@@ -410,12 +456,15 @@ class Smoke:
         out["window_attention_gsd"] = self.kernels["window_attention"] = \
             self._gsd_check(*self._gsd_bench_inputs(g), 64 ** -0.5)
 
-        out["rans_decode"] = self.kernels["rans_decode_plane"] = self._rans_check()
+        out["rans_decode"] = dec = {
+            f"{B * nparts}x{npos}": self._rans_check(B, nparts, npos)
+            for B, nparts, npos in ((1, 4, 1024), (1, 1, 4096), (8, 4, 256))}
+        self.kernels["rans_decode_plane"] = dec["4x1024"]
         enc = {f"{S}x{npos}": self._rans_encode_check(S, npos)
                for S, npos in ((4, 1024), (32, 256))}
-        # the same plane with no escapes: how much of the time is the
-        # escape path, whose loops diverge across a warp's substreams; and
-        # one position a plane: the launch and the CDF-table fill alone
+        # the same plane with no escapes: how much of the time the escapes'
+        # operations take; and one position a plane: the launch and the
+        # CDF-table copy alone
         enc["4x1024_no_escapes"] = self._rans_encode_check(4, 1024, escape_rate=0.0)
         enc["4x1"] = self._rans_encode_check(4, 1, escape_rate=0.0)
         out["rans_encode"] = enc
@@ -619,49 +668,90 @@ class Smoke:
             raise AssertionError(f"window_attention (G, s, d): {rec}")
         return rec
 
-    def _rans_check(self):
-        """Four 512x512 planes (16x16 latent, 64 channels -> 4096 positions
-        a plane) written by the native encoder into 4 substreams, escapes
-        included, decoded by the kernel with its state carried across the
-        planes."""
+    @staticmethod
+    def _rans_planes(rng, t, S, npos, escape_rate, esc_lo, esc_hi):
+        """Four (sym, idx) planes of S substreams x npos positions: 20%
+        skipped, escapes drawn from [esc_lo, esc_hi) at ``escape_rate``,
+        else every symbol inside its row's coded range."""
+        import numpy as np
+        planes = []
+        for _ in range(4):
+            idx = rng.integers(0, t.levels, (S, npos)).astype(np.int16)
+            idx[rng.random((S, npos)) < 0.2] = -1
+            live = idx >= 0
+            off = t.offset[np.maximum(idx, 0)]
+            top = t.cdf_length[np.maximum(idx, 0)] - 2     # the escape slot
+            if escape_rate:
+                sym = rng.integers(-6, 7, (S, npos)).astype(np.int16)
+                esc = rng.random((S, npos)) < escape_rate
+                sym[esc] = rng.integers(esc_lo, esc_hi,
+                                        int(esc.sum())).astype(np.int16)
+            else:
+                sym = (off + (rng.random((S, npos)) * top).astype(np.int64)).astype(np.int16)
+            sym[~live] = 0
+            planes.append((sym, idx))
+        return planes
+
+    @staticmethod
+    def _coded_steps(planes, t):
+        """(coded symbols, escaped positions) of each plane's longest
+        substream and in all: a coded symbol is one dependent step of
+        either chain (the bypass steps of escapes, cheaper, are left out of
+        the chain bound)."""
+        import numpy as np
+        longest, escaped = [], 0
+        for sym, idx in planes:
+            live = idx >= 0
+            longest.append(int(live.sum(axis=1).max()))
+            value = sym.astype(np.int64) - t.offset[np.maximum(idx, 0)]
+            top = t.cdf_length[np.maximum(idx, 0)] - 2
+            escaped += int((live & ((value < 0) | (value >= top))).sum())
+        return float(np.mean(longest)), escaped
+
+    def _rans_check(self, B, nparts, npos):
+        """Four planes of B images x nparts substreams x npos positions (4 x
+        1024: one 512x512 request; 1 x 4096: a 512x512 stream of one
+        substream, as the JAX CodecRuntime writes by default; 32 x 256:
+        eight 256x256), written by the native encoder, escapes included,
+        decoded by the kernel with its state carried across the planes:
+        symbols and states against the native decoder and the plain
+        version."""
         import numpy as np
         torch = self.torch
         from sic_tpu_torch import ops
         from sic_tpu_torch.entropy import EntropyCoder, build_gaussian_tables
         from sic_tpu_torch.ops.rans_decode import words_tensor
         t = build_gaussian_tables("gaussian")
+        S = B * nparts
+        # the seed and escapes of the earlier 4 x 1024 check, whose planes
+        # these are at that shape
         rng = np.random.default_rng(SEED)
-        n, nparts = 4096, 4
-        planes = []
-        for _ in range(4):
-            idx = rng.integers(0, t.levels, n).astype(np.int16)
-            skip = rng.random(n) < 0.2
-            idx[skip] = -1
-            sym = rng.integers(-6, 7, n).astype(np.int16)
-            esc = rng.random(n) < 0.05
-            sym[esc] = rng.integers(-4000, 4000, int(esc.sum())).astype(np.int16)
-            sym[skip] = 0
-            planes.append((sym, idx))
-        coder = EntropyCoder(nparts)
-        grp = coder.add_cdf(t.quantized_cdf, t.cdf_length, t.offset)
-        coder.reset()
-        for sym, idx in planes:
-            coder.encode_with_indexes(sym, idx, grp)
-        coder.flush()
-        stream = coder.get_encoded_stream()
-        coder.set_stream(stream)
-        host = [coder.decode_stream(idx, grp).astype(np.int32) for _, idx in planes]
+        planes = self._rans_planes(rng, t, S, npos, 0.05, -4000, 4000)
+        streams, parts, host = [], [], [[] for _ in planes]
+        for b in range(B):
+            coder = EntropyCoder(nparts)
+            grp = coder.add_cdf(t.quantized_cdf, t.cdf_length, t.offset)
+            coder.reset()
+            rows = slice(b * nparts, (b + 1) * nparts)
+            for sym, idx in planes:
+                coder.encode_with_indexes(sym[rows].reshape(-1), idx[rows].reshape(-1), grp)
+            coder.flush()
+            stream = coder.get_encoded_stream()
+            streams.append(stream)
+            parts += ops.split_substreams(stream)
+            coder.set_stream(stream)
+            for p, (_sym, idx) in enumerate(planes):
+                host[p].append(coder.decode_stream(idx[rows].reshape(-1), grp)
+                               .astype(np.int32).reshape(nparts, npos))
+        host = [np.concatenate(h) for h in host]
 
         dev = torch.device("cuda")
-        parts = ops.split_substreams(stream)
         words_np, lens_np, state_np = ops.pack_substreams(parts)
-        S, npos = nparts, n // nparts
         words = words_tensor(words_np, dev)
         lens = torch.from_numpy(lens_np.reshape(-1)).to(dev)
         tables = [torch.from_numpy(a.astype(np.int32)).to(dev)
                   for a in (t.quantized_cdf, t.cdf_length, t.offset)]
-        rows = [torch.from_numpy(idx.astype(np.int32).reshape(nparts, npos)).to(dev)
-                for _sym, idx in planes]
+        rows = [torch.from_numpy(idx.astype(np.int32)).to(dev) for _sym, idx in planes]
         st0 = torch.from_numpy(state_np).to(dev)
 
         def run(fn):
@@ -677,8 +767,7 @@ class Smoke:
         p_syms, p_st = run(ops.rans_decode_plane_plain)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3 / 4
-        mism = sum(int((k.reshape(-1).cpu().numpy() != h).sum())
-                   for k, h in zip(k_syms, host))
+        mism = sum(int((k.cpu().numpy() != h).sum()) for k, h in zip(k_syms, host))
         state_eq = bool(torch.equal(k_st, p_st)) and all(
             torch.equal(a, b) for a, b in zip(k_syms, p_syms))
         # a fully decoded stream ends where its encoder started: x = L and
@@ -695,16 +784,19 @@ class Smoke:
         nbytes = (2 * S * npos * 4 + consumed / 4 + 4 * S * 8
                   + t.quantized_cdf.size * 4)
         bound_ms, bound_by = self.bound(0, nbytes)
+        steps, escaped = self._coded_steps(planes, t)
         if mism or not state_eq or not end_ok:
-            raise AssertionError(f"rans_decode: {mism} symbol mismatches, "
+            raise AssertionError(f"rans_decode {S}x{npos}: {mism} symbol mismatches, "
                                  f"state equal {state_eq}, end state ok {end_ok}")
-        return {"substreams": nparts, "npos": npos,
-                "stream_bytes": len(stream), "stream_bytes_consumed": consumed,
-                "escapes": int(sum((np.abs(s) > 50).sum() for s, _ in planes)),
+        return {"substreams": S, "npos": npos,
+                "stream_bytes": sum(len(s_) for s_ in streams),
+                "stream_bytes_consumed": consumed, "escapes": escaped,
                 "max_abs_err": 0, "symbol_mismatches": mism,
                 "ms": ms, "device_ms": device_ms, "device_method": "cuda_graph",
                 "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "coded_steps_longest": steps,
+                "chain_bound_ms": self.chain_bound(steps, "decode")}
 
     def _rans_encode_check(self, S, npos, escape_rate=0.05):
         """Four planes of S substreams x npos positions (4 x 1024: one
@@ -719,23 +811,8 @@ class Smoke:
         from sic_tpu_torch.ops import rans_encode as renc
         t = build_gaussian_tables("gaussian")
         rng = np.random.default_rng(SEED + S)
-        planes, n_esc = [], 0
-        for _ in range(4):
-            idx = rng.integers(0, t.levels, (S, npos)).astype(np.int16)
-            idx[rng.random((S, npos)) < 0.2] = -1
-            live = idx >= 0
-            off = t.offset[np.maximum(idx, 0)]
-            top = t.cdf_length[np.maximum(idx, 0)] - 2     # the escape slot
-            if escape_rate:
-                sym = rng.integers(-6, 7, (S, npos)).astype(np.int16)
-                esc = rng.random((S, npos)) < escape_rate
-                sym[esc] = rng.integers(-30000, 30001, int(esc.sum())).astype(np.int16)
-            else:   # every symbol inside its row's coded range
-                sym = (off + (rng.random((S, npos)) * top).astype(np.int64)).astype(np.int16)
-            sym[~live] = 0
-            value = sym.astype(np.int64) - off
-            n_esc += int((live & ((value < 0) | (value >= top))).sum())
-            planes.append((sym, idx))
+        planes = self._rans_planes(rng, t, S, npos, escape_rate, -30000, 30001)
+        steps, n_esc = self._coded_steps(planes, t)
         # the native coder, one substream each (its per-part split of a
         # plane is contiguous, so substream s codes row s of every plane)
         native = []
@@ -795,7 +872,9 @@ class Smoke:
                 "max_abs_err": 0, "byte_mismatches": mism,
                 "ms": ms, "device_ms": device_ms, "device_method": "cuda_graph",
                 "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "coded_steps_longest": steps,
+                "chain_bound_ms": self.chain_bound(steps, "encode")}
 
     def _rans_encode_overflow(self):
         """The bottleneck's device encode from a buffer of 4 words a
@@ -2048,6 +2127,7 @@ class Smoke:
                          "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                          "bound_by": k.get("bound_by"),
                          "tc_bound_ms": k.get("tc_bound_ms"),
+                         "chain_bound_ms": k.get("chain_bound_ms"),
                          "device_ms": k.get("device_ms"),
                          "library_device_ms": k.get("library_device_ms"),
                          "deterministic": k.get("deterministic"),

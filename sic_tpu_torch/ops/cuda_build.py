@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("seq_attention", "window_attention", "window_attention_bwd",
            "rans_decode", "rans_encode", "window_attention_gsd")
-_HEADERS = ("attention_tc.cuh",)
+_HEADERS = ("attention_tc.cuh", "mbarrier.cuh", "rans_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

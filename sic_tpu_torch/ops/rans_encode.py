@@ -1,7 +1,9 @@
 """rANS plane encode for many substreams on the device.
 
 CUDA kernel: ``csrc/rans_encode.cu`` (replaces the TPU kernel
-``sic_tpu/ops/rans_encode.py::_encode_kernel``).  It runs once per plane of
+``sic_tpu/ops/rans_encode.py::_encode_kernel``), one block per substream:
+producer warps expand each chunk of positions into coding operations in
+shared memory and one warp walks them.  It runs once per plane of
 the bottleneck's device encode, last plane first, so the symbol and index
 planes never leave the device: only the finished entropy-coded bytes do.
 Byte-exact to the native encoder (``cpp/sic_rans.cc:40-135``).
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .rans_tables import kernel_table_args
 
 _PROB_BITS = 16
 _RANS_L = 1 << 23
@@ -200,12 +203,13 @@ def rans_encode_plane(sym, idx, words, state, cdf, sizes, offsets):
       offsets: (ncdf,) int32 per-row symbol offsets.
 
     Returns ``(words, new_state)``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel (one block a substream; rows of at most
+    128 entries) or raise."""
     if idx.device.type == "cpu":
         return rans_encode_plane_plain(sym, idx, words, state, cdf, sizes,
                                        offsets)
     S, npos = idx.shape
-    ncdf, width = cdf.shape
+    ncdf = cdf.shape[0]
     for name, t, dt in (("sym", sym, torch.int32), ("idx", idx, torch.int32),
                         ("words", words, torch.int32),
                         ("state", state, torch.int64), ("cdf", cdf, torch.int32),
@@ -216,13 +220,13 @@ def rans_encode_plane(sym, idx, words, state, cdf, sizes, offsets):
             tuple(state.shape) != (S, 4) or sizes.numel() != ncdf or \
             offsets.numel() != ncdf:
         raise ValueError("rans_encode_plane: inconsistent argument shapes")
+    cdf_p, sizes_p, offsets_p, stride = kernel_table_args(cdf, sizes, offsets)
     new_state = torch.empty((S, 4), dtype=torch.int64, device=idx.device)
     lib = _lib()
     rc = lib.sic_rans_encode_plane(
-        sym.data_ptr(), idx.data_ptr(), cdf.data_ptr(), sizes.data_ptr(),
-        offsets.data_ptr(), words.data_ptr(), state.data_ptr(),
-        new_state.data_ptr(), S, npos, 4 * words.shape[1], ncdf, width,
-        cuda_build.stream_of(idx))
+        sym.data_ptr(), idx.data_ptr(), cdf_p, sizes_p, offsets_p,
+        words.data_ptr(), state.data_ptr(), new_state.data_ptr(), S, npos,
+        4 * words.shape[1], ncdf, stride, cuda_build.stream_of(idx))
     cuda_build.check_launch(rc, "rans_encode_plane")
     rans_encode_plane.launches += 1
     return words, new_state

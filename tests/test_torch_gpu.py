@@ -363,6 +363,162 @@ def test_rans_kernel_matches_native_and_plain(cuda):
     assert (final[:, 1] == lens[:, 0]).all()
 
 
+def _skip_runs(rng, shape, p_start=0.01, max_run=300):
+    """A skip mask with long runs: a run of up to ``max_run`` skipped
+    positions starts at about 1% of the positions."""
+    skip = np.zeros(shape, dtype=bool)
+    for s_, i in zip(*np.nonzero(rng.random(shape) < p_start)):
+        skip[s_, i:i + rng.integers(1, max_run + 1)] = True
+    return skip
+
+
+def _decode_check(cuda, planes, table, B, nparts):
+    """Four planes of B images x ``nparts`` substreams, written by the
+    native encoder with ``table`` (cdf, sizes, offsets as numpy arrays) and
+    decoded by the kernel with its state carried across them: the symbols
+    equal the native decoder's and, with the states, the plain version's,
+    and every substream ends in its encoder's initial state."""
+    S, npos = planes[0][1].shape
+    parts, host = [], [[] for _ in planes]
+    for b in range(B):
+        rows = slice(b * nparts, (b + 1) * nparts)
+        coder = EntropyCoder(nparts)
+        g = coder.add_cdf(*table)
+        coder.reset()
+        for sym, idx in planes:
+            coder.encode_with_indexes(sym[rows].reshape(-1), idx[rows].reshape(-1), g)
+        coder.flush()
+        stream = coder.get_encoded_stream()
+        parts += ops.split_substreams(stream)
+        coder.set_stream(stream)
+        for p, (_sym, idx) in enumerate(planes):
+            host[p].append(coder.decode_stream(idx[rows].reshape(-1), g))
+    words, lens, state = ops.pack_substreams(parts)
+    args = [words_tensor(words, cuda), torch.from_numpy(lens.reshape(-1)).to(cuda)]
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in table]
+    st_k = st_p = torch.from_numpy(state).to(cuda)
+    for (_sym, idx), want in zip(planes, host):
+        rows = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+        got, st_k = ops.rans_decode_plane(rows, *args, st_k, *tables)
+        ref, st_p = ops.rans_decode_plane_plain(rows, *args, st_p, *tables)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), np.concatenate(want).reshape(S, npos).astype(np.int32))
+        assert torch.equal(got, ref)
+        assert torch.equal(st_k, st_p)
+    final = st_k.cpu().numpy()
+    assert (final[:, 0] == 1 << 23).all()
+    assert (final[:, 1] == lens[:, 0]).all()
+
+
+def _gaussian_table():
+    t = build_gaussian_tables("gaussian")
+    return t, (t.quantized_cdf, t.cdf_length, t.offset)
+
+
+def _symbols(rng, idx, escape_rate=0.05):
+    """Symbols near 0, escapes up to the int16 clamp, 0 where skipped."""
+    sym = rng.integers(-6, 7, idx.shape).astype(np.int16)
+    esc = rng.random(idx.shape) < escape_rate
+    sym[esc] = rng.integers(-30000, 30001, int(esc.sum())).astype(np.int16)
+    sym[idx < 0] = 0
+    return sym
+
+
+@pytest.mark.parametrize("B,nparts,npos", [(1, 1, 4096), (2, 4, 512), (8, 4, 256)])
+def test_rans_kernel_at_request_shapes(cuda, B, nparts, npos):
+    """One substream of 4096 positions (a 512x512 stream as the JAX
+    CodecRuntime writes it), 8 x 512 and 32 x 256, with escapes up to the
+    int16 clamp and long runs of skipped positions: the kernel's symbols
+    equal the native decoder's and, with the final states, the plain
+    version's."""
+    t, table = _gaussian_table()
+    rng = np.random.default_rng(B * nparts * npos)
+    S = B * nparts
+    planes = []
+    for _ in range(4):
+        idx = rng.integers(0, t.levels, (S, npos)).astype(np.int16)
+        idx[_skip_runs(rng, (S, npos)) | (rng.random((S, npos)) < 0.1)] = -1
+        planes.append((_symbols(rng, idx), idx))
+    _decode_check(cuda, planes, table, B, nparts)
+
+
+def _first_windows(name, skip):
+    """Sets the live positions of each row's first windows of 32 (the
+    kernel reads its indexes a window at a time into a list of live
+    positions) in the skip mask ``skip`` (S, npos)."""
+    live = {"two_then_a_gap": ([0, 1], 64),          # 2..63 skipped
+            "one_in_each_of_two": ([5, 40], 64),
+            "two_after_empty_windows": ([100, 101], 160),
+            "two_in_the_row": ([31, 32], None),       # all else skipped
+            "one_in_the_row": ([300], None)}[name]
+    cols, upto = live
+    skip[:, :upto] = True
+    skip[:, cols] = False
+
+
+@pytest.mark.parametrize("name", ["two_then_a_gap", "one_in_each_of_two",
+                                  "two_after_empty_windows", "two_in_the_row",
+                                  "one_in_the_row"])
+def test_rans_kernel_with_few_live_positions_in_the_first_windows(cuda, name):
+    """Rows whose first windows hold one or two live positions, in every
+    plane (each launch starts its list there): every position is decoded,
+    as the native decoder and the plain version decode it."""
+    t, table = _gaussian_table()
+    rng = np.random.default_rng(len(name))
+    S, npos = 8, 512
+    planes = []
+    for _ in range(4):
+        idx = rng.integers(0, t.levels, (S, npos)).astype(np.int16)
+        skip = rng.random((S, npos)) < 0.1
+        _first_windows(name, skip)
+        idx[skip] = -1
+        planes.append((_symbols(rng, idx), idx))
+    _decode_check(cuda, planes, table, 2, 4)
+
+
+@pytest.mark.parametrize("width", [103, 8])
+def test_rans_kernels_take_a_table_of_four_rows(cuda, width):
+    """The gaussian table's first 4 rows (7 entries each), at its width and
+    cut to 8 columns: the decode's lanes past the last row stay inside the
+    block's shared memory, and both kernels equal the native coder and
+    their plain versions."""
+    from sic_tpu_torch.models.bottleneck import worst_case_bytes
+    from sic_tpu_torch.ops import rans_encode as renc
+    t = build_gaussian_tables("gaussian")
+    table = (np.ascontiguousarray(t.quantized_cdf[:4, :width]),
+             t.cdf_length[:4], t.offset[:4])
+    rng = np.random.default_rng(width)
+    S, npos = 4, 300
+    planes = []
+    for _ in range(4):
+        idx = rng.integers(0, 4, (S, npos)).astype(np.int16)
+        idx[rng.random((S, npos)) < 0.2] = -1
+        planes.append((_symbols(rng, idx), idx))
+    _decode_check(cuda, planes, table, 1, 4)
+
+    coder = EntropyCoder(S)
+    g = coder.add_cdf(*table)
+    coder.reset()
+    for sym, idx in planes:
+        coder.encode_with_indexes(sym.reshape(-1), idx.reshape(-1), g)
+    coder.flush()
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in table]
+    nwords = -(-worst_case_bytes(4 * npos) // 4)
+    out = {}
+    for name, fn in (("kernel", ops.rans_encode_plane),
+                     ("plain", ops.rans_encode_plane_plain)):
+        words = torch.zeros((S, nwords), dtype=torch.int32, device=cuda)
+        st = renc.initial_state(S, cuda)
+        for sym, idx in reversed(planes):
+            rows = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (sym, idx)]
+            words, st = fn(*rows, words, st, *tables)
+        out[name] = (words.cpu().numpy(), st.cpu().numpy())
+    np.testing.assert_array_equal(out["kernel"][1], out["plain"][1])
+    parts = renc.finalize_streams(*out["kernel"], S)
+    assert parts == renc.finalize_streams(*out["plain"], S)
+    assert renc.frame_substreams(parts) == coder.get_encoded_stream()
+
+
 def test_golden_stream_on_the_card(cuda):
     """The JAX-encoded golden stream, decoded on the card through the rANS
     kernel, meets the JAX package's golden bound."""
@@ -439,6 +595,82 @@ def test_rans_encode_kernel_matches_native_and_plain(cuda, B, nparts, npos):
     got = [renc.frame_substreams(parts[b * nparts:(b + 1) * nparts])
            for b in range(B)]
     assert got == want
+
+
+@pytest.mark.parametrize("cap_words", [13, 100, 250])
+def test_rans_encode_kernel_overflow_matches_plain(cuda, cap_words):
+    """An emission buffer that fills in the middle of a plane (and of the
+    kernel's chunk of 64 positions): the kernel stops where the plain
+    version stops, with the same bytes, state and overflow flag, in the
+    plane where the row fills and in the planes after it."""
+    from sic_tpu_torch.ops import rans_encode as renc
+    t = build_gaussian_tables("gaussian")
+    S, npos = 6, 700
+    planes = _encode_planes(np.random.default_rng(cap_words), t, S, npos,
+                            escape_rate=0.05)
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+              for a in (t.quantized_cdf, t.cdf_length, t.offset)]
+    out = {}
+    for name, fn in (("kernel", ops.rans_encode_plane),
+                     ("plain", ops.rans_encode_plane_plain)):
+        words = torch.zeros((S, cap_words), dtype=torch.int32, device=cuda)
+        st = renc.initial_state(S, cuda)
+        for sym, idx in reversed(planes):
+            rows = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (sym, idx)]
+            words, st = fn(*rows, words, st, *tables)
+        out[name] = (words.cpu().numpy(), st.cpu().numpy())
+    k_words, k_st = out["kernel"]
+    p_words, p_st = out["plain"]
+    np.testing.assert_array_equal(k_st, p_st)
+    np.testing.assert_array_equal(k_words, p_words)
+    full = k_st[:, 2] == 1
+    assert full.any() and (k_st[full, 1] == 4 * cap_words).all()
+
+
+@pytest.mark.parametrize("x0", [0, 77, (1 << 23) - 1])
+def test_rans_encode_kernel_from_a_state_below_l(cuda, x0):
+    """A state no stream reaches (x < L) takes the kernel's emit loop and
+    exact shift until x enters [L, 2^31): bytes and states still equal the
+    plain version's."""
+    from sic_tpu_torch.ops import rans_encode as renc
+    t = build_gaussian_tables("gaussian")
+    S, npos = 4, 300
+    planes = _encode_planes(np.random.default_rng(x0), t, S, npos, escape_rate=0.05)
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+              for a in (t.quantized_cdf, t.cdf_length, t.offset)]
+    out = {}
+    for name, fn in (("kernel", ops.rans_encode_plane),
+                     ("plain", ops.rans_encode_plane_plain)):
+        words = torch.zeros((S, 1024), dtype=torch.int32, device=cuda)
+        st = renc.initial_state(S, cuda)
+        st[:, 0] = x0
+        for sym, idx in reversed(planes):
+            rows = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (sym, idx)]
+            words, st = fn(*rows, words, st, *tables)
+        out[name] = (words.cpu().numpy(), st.cpu().numpy())
+    np.testing.assert_array_equal(out["kernel"][1], out["plain"][1])
+    np.testing.assert_array_equal(out["kernel"][0], out["plain"][0])
+
+
+def test_rans_kernels_refuse_a_table_they_cannot_take(cuda):
+    """A row that is not a quantized CDF raises before any launch."""
+    t = build_gaussian_tables("gaussian")
+    cdf, sizes, offs = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                        for a in (t.quantized_cdf, t.cdf_length, t.offset))
+    cdf[3, 4] = cdf[3, 3]
+    before = ops.launch_counts()
+    idx = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    words = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="quantized CDF"):
+        ops.rans_decode_plane(idx, words, torch.full((4,), 32, dtype=torch.int32,
+                                                     device=cuda),
+                              torch.zeros((4, 2), dtype=torch.int64, device=cuda),
+                              cdf, sizes, offs)
+    with pytest.raises(ValueError, match="quantized CDF"):
+        ops.rans_encode_plane(idx, idx, words,
+                              torch.zeros((4, 4), dtype=torch.int64, device=cuda),
+                              cdf, sizes, offs)
+    assert ops.launch_counts() == before
 
 
 def test_device_encode_doubles_and_matches_host_on_the_card(cuda, monkeypatch):
