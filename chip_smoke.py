@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch port on one CUDA card: encode, decode, the
-(G, s, d) window-attention op, the HTTP service with search, and training.
+(G, s, d) window-attention op, the HTTP service with search, the evaluate
+CLI, the concurrent runtime entry points, reference-format files and YAML
+configs, and training.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -70,7 +72,23 @@ Phases, each printing one JSON line with the card's name and power limit:
               profiled /decompress; one search wave of 256 queries over
               100k seeded vectors of 512, its top k against a full stable
               sort, timed;
-8. train    - the seeded flagship trained through create_train_state and
+8. surface  - the codec's remaining user surface: the evaluate CLI over
+              the eight heldout images (seeded flagship), each record's
+              bpps equal to those of encode_only's bytes and its psnr within
+              1e-4 dB of decode_only's; decode_only_many (four workers) over
+              phase 4's six streams, round_trip_pipelined over three batches
+              of four 256x256 images and encode_decode_many over the eight,
+              each bit for bit against its serial counterpart, wall times
+              of both sides; a torchac-format (reference) file of the
+              512x512 mosaic, written by the compress CLI's compress_dir
+              with and without z_coder in its header, decoding by the
+              decompress CLI's decompress_dir to the PNG bytes of the
+              rans-format file; configs/config_small_r4.yaml through the
+              compress and decompress CLIs (--base_config) and the service
+              (BASE_CONFIG), the service's answers byte-equal to the CLIs'
+              files; the train CLI with tests/fixtures/config_tiny.yaml,
+              one epoch a stage (kernel 5 launched);
+9. train    - the seeded flagship trained through create_train_state and
               Trainer at 256 px, batch 2, on the heldout images: four steps
               of each stage (feat_wo_bpp, feat, pix) and an eval step after
               each, every loss finite, frozen leaves bit-unchanged,
@@ -81,7 +99,7 @@ Phases, each printing one JSON line with the card's name and power limit:
               deploy_params.npz, and one image compressed and decompressed
               with those params, h_hat equal to the encoder's y_hat; step
               times, peak memory and one profiled pix step;
-9. cpu      - the first 256x256 request decoded again on the CPU (plain
+10. cpu     - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
               one 256x256 image encoded on the CPU, its differences from
               the card's encode reported; and one tiny-spec feat step and
@@ -93,7 +111,7 @@ Phases, each printing one JSON line with the card's name and power limit:
 
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
-serving, phase 8 for training) and read just after; every kernel of the
+serving, phase 8 for the surface, phase 9 for training) and read just after; every kernel of the
 path must have launched, and the (G, s, d) kernel on no model path.  Then
 a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -1037,7 +1055,7 @@ class Smoke:
         rt = self.rt = load_runtime(None, spec, device="cuda", stream_part=4)
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in rt.model.parameters())
-        clip = load_clip_codec(None, device="cuda")
+        clip = self.clip = load_clip_codec(None, device="cuda")
         src, out_dir = WORK / "encode_in", WORK / "encode_out"
         self._write_inputs(src)
         img = {p.stem: load_image(p) for p in sorted(src.glob("*.png"))}
@@ -1790,6 +1808,268 @@ class Smoke:
                 "search_ms_p50": statistics.median(times)}
 
     # -- phase 8 ----------------------------------------------------------------
+    def surface(self):
+        """The codec's remaining user surface on the card: the evaluate CLI
+        (seeded flagship), the concurrent runtime entry points on phase 4's
+        runtime, reference-format (torchac) files, and --base_config /
+        BASE_CONFIG on the CLIs, the service and the train CLI."""
+        import gc
+        torch = self.torch
+        from sic_tpu_torch import ops
+
+        parts, launches, ok = {}, {}, {}
+        ops.reset_launch_counts()
+        # -- the surface main path: counts from 0, read right after ------------
+        for name, fn in (("evaluate", self._surface_evaluate),
+                         ("concurrent", self._surface_concurrent),
+                         ("torchac", self._surface_torchac),
+                         ("base_config", self._surface_base_config)):
+            before = ops.launch_counts()
+            parts[name] = fn()
+            ok[name] = parts[name].pop("ok")
+            after = ops.launch_counts()
+            launches[name] = {k: after[k] - before[k] for k in after}
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.counts["surface"] = counts = ops.launch_counts()
+        # -----------------------------------------------------------------------
+        rec = {**parts, "launches_by_part": launches, "launches": counts,
+               "checks": ok}
+        need = ("seq_attention", "window_attention_nhwc", "rans_decode_plane",
+                "rans_encode_plane", "window_attention_nhwc_bwd")
+        if not all(ok.values()) or min(counts[k] for k in need) < 1:
+            raise AssertionError(f"surface check failed: {rec}")
+        return rec
+
+    def _surface_evaluate(self):
+        """The evaluate CLI over the eight heldout images (seeded flagship,
+        its own runtime): each record's bpps against the bytes of phase 4's
+        runtime's encode_only of the image, its psnr against decode_only's
+        output."""
+        import io
+
+        from sic_tpu_torch.cli.evaluate import main as evaluate_main
+        from sic_tpu_torch.data import list_images, load_image
+        from sic_tpu_torch.metrics import psnr
+        torch = self.torch
+        rt = self.rt
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        summary = evaluate_main(["--dataset_dir", str(HELDOUT), "--device", "cuda"],
+                                out=out)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        records = [json.loads(ln) for ln in out.getvalue().splitlines()][:-1]
+        diffs, bpp_equal = [], []
+        for path, r in zip(list_images(HELDOUT), records):
+            img = load_image(path)
+            H, W = img.shape[:2]
+            enc = rt.encode_only(img[None])
+            z, h = len(enc["z_bit_stream"]) * 8, len(enc["h_bit_stream"]) * 8
+            want = {"bpp": round((z + h + 48) / (H * W), 6),
+                    "z_bpp": round(z / (H * W), 6), "h_bpp": round(h / (H * W), 6)}
+            bpp_equal.append(all(r[k] == v for k, v in want.items())
+                             and r["path"] == str(path))
+            x_hat = rt.decode_only(**enc)
+            ref = float(psnr(torch.from_numpy(img)[None].cuda(), x_hat)[0])
+            diffs.append(abs(r["psnr"] - ref))
+        return {"images": len(records), "evaluate_s": round(eval_s, 3),
+                "s_per_image_incl_model_build": eval_s / max(len(records), 1),
+                "summary": summary, "bpp_equal_encode_only": bpp_equal,
+                "psnr_max_abs_diff_db": max(diffs),
+                "ok": len(records) == 8 and all(bpp_equal) and max(diffs) <= 1e-4}
+
+    def _surface_concurrent(self, reps=3):
+        """decode_only_many (four workers) over phase 4's six streams
+        against serial decode_only; round_trip_pipelined over three batches
+        of four 256x256 images against the sequential batched pair;
+        encode_decode_many over the eight heldout images against
+        encode_decode.  All bit for bit; wall times (median of ``reps``,
+        the two sides alternating) and one profiled call of each decode
+        side."""
+        import statistics
+
+        import numpy as np
+
+        from sic_tpu_torch.data import load_image
+        torch = self.torch
+        rt = self.rt
+        reqs = [{f: v for f, v in e.items() if f != "y_hat"}
+                for e in self.requests.values()]
+        imgs = [load_image(HELDOUT / f"val{i}.png")[None] for i in range(8)]
+        batches = [np.concatenate(imgs[0:4]), np.concatenate(imgs[4:8]),
+                   np.concatenate(imgs[2:6])]
+
+        def wall(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        sides = {
+            "decode_serial": lambda: [rt.decode_only(**e) for e in reqs],
+            "decode_many": lambda: rt.decode_only_many(reqs, workers=4),
+            "round_trip_sequential": lambda: [
+                rt.decode_only_batched(rt.encode_only_batched(b)) for b in batches],
+            "round_trip_pipelined": lambda: rt.round_trip_pipelined(batches),
+            "encode_decode_serial": lambda: [rt.encode_decode(x, x.shape[1:3])
+                                             for x in imgs],
+            "encode_decode_many": lambda: rt.encode_decode_many(imgs, workers=2)}
+        outs, ms = {}, {k: [] for k in sides}
+        for _ in range(reps):
+            for k, fn in sides.items():
+                outs[k], t = wall(fn)
+                ms[k].append(t)
+        eq = {
+            "decode_only_many": all(torch.equal(a, b) for a, b in
+                                    zip(outs["decode_many"], outs["decode_serial"])),
+            "round_trip_pipelined": all(torch.equal(a, b) for a, b in zip(
+                outs["round_trip_pipelined"], outs["round_trip_sequential"])),
+            "encode_decode_many": all(
+                torch.equal(a[0], b[0]) and a[1] == b[1]
+                and a[2]["z_bit_stream"] == b[2]["z_bit_stream"]
+                and a[2]["h_bit_stream"] == b[2]["h_bit_stream"]
+                for a, b in zip(outs["encode_decode_many"],
+                                outs["encode_decode_serial"]))}
+        # where the threads' time goes: the device's busy share, serial
+        # against four workers
+        profiles = {k: self._profile(sides[k], top=4)
+                    for k in ("decode_serial", "decode_many")}
+        return {"streams": len(reqs), "batches": [list(b.shape) for b in batches],
+                "wall_ms_median": {k: statistics.median(v) for k, v in ms.items()},
+                "wall_ms": ms, "bit_equal": eq, "profiles": profiles,
+                "ok": all(eq.values())}
+
+    def _surface_torchac(self):
+        """A flagship runtime writing torchac z streams (phase 4's model,
+        the encode kernel forced) encodes the 512x512 mosaic through the
+        compress CLI's compress_dir; its file with z_coder in the header
+        and without it (as a reference file has it) decode through the
+        decompress CLI's decompress_dir to the PNG bytes of phase 4's
+        rans-format file of the same image."""
+        from sic_tpu_torch.cli.compress import compress_dir
+        from sic_tpu_torch.cli.decompress import decompress_dir
+        from sic_tpu_torch.container import pack_c2df, unpack_c2df
+        from sic_tpu_torch.models import CodecRuntime
+        rt = self.rt
+        root = WORK / "surface_torchac"
+        shutil.rmtree(root, ignore_errors=True)
+        (root / "in").mkdir(parents=True)
+        shutil.copy(WORK / "encode_in" / "a_512x512.png", root / "in")
+        trt = CodecRuntime(rt.spec, rt.model, stream_part=4,
+                           device_entropy="device", z_format="torchac")
+        try:
+            compress_dir(trt, self.clip, root / "in", root / "out")
+        finally:
+            trt.close()
+        files = {"torchac_key": root / "out" / "bitstreams" / "a_512x512.c2df",
+                 "rans": WORK / "encode_out" / "bitstreams" / "a_512x512.c2df"}
+        enc, header = unpack_c2df(files["torchac_key"])
+        z_coder = header.pop("z_coder")
+        files["torchac_no_key"] = root / "no_key" / "a_512x512.c2df"
+        files["torchac_no_key"].parent.mkdir()
+        files["torchac_no_key"].write_bytes(pack_c2df(enc, header))
+        pngs = {}
+        for name, f in files.items():
+            d = root / f"dec_{name}"
+            (d / "in").mkdir(parents=True)
+            shutil.copy(f, d / "in")
+            decompress_dir(rt, d / "in", d / "png", batch_size=1)
+            pngs[name] = (d / "png" / "a_512x512.png").read_bytes()
+        same = {k: pngs[k] == pngs["rans"] for k in ("torchac_key", "torchac_no_key")}
+        return {"z_coder_written": z_coder,
+                "z_bytes": {"torchac": len(enc["z_bit_stream"]),
+                            "rans": len(unpack_c2df(files["rans"])[0]["z_bit_stream"])},
+                "png_equal_rans_file": same,
+                "ok": z_coder == "torchac" and all(same.values())}
+
+    def _surface_base_config(self):
+        """configs/config_small_r4.yaml (the repo's serving config, seeded):
+        four heldout images through the compress and decompress CLIs on the
+        card (one image a batch, as the service runs a lone request), then
+        the service with BASE_CONFIG set: one /compress and one /decompress
+        byte-equal to the CLIs' files; then the train CLI with
+        tests/fixtures/config_tiny.yaml, one epoch a stage."""
+        import os
+        import warnings
+
+        from sic_tpu_torch.cli.compress import main as compress_main
+        from sic_tpu_torch.cli.decompress import main as decompress_main
+        from sic_tpu_torch.cli.train import main as train_main
+        from sic_tpu_torch.service import ServiceState, make_server
+        torch = self.torch
+        cfg = ROOT / "configs" / "config_small_r4.yaml"
+        root = WORK / "surface_base_config"
+        shutil.rmtree(root, ignore_errors=True)
+        (root / "in").mkdir(parents=True)
+        for i in range(4):
+            shutil.copy(HELDOUT / f"val{i}.png", root / "in")
+        common = ["--base_config", str(cfg), "--device", "cuda", "--batch_size", "1"]
+        t0 = time.perf_counter()
+        compress_main(["--dataset_dir", str(root / "in"), "--save_dir",
+                       str(root / "c"), *common])
+        n_dec = decompress_main(["--dataset_dir", str(root / "c" / "bitstreams"),
+                                 "--save_dir", str(root / "d"), *common])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        env = {"BASE_CONFIG": str(cfg), "INDEX_DIR": str(root / "c" / "faiss"),
+               "MEDIA_ROOT": str(root), "PREVIEW_CACHE": str(root / "previews")}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            state = ServiceState(device="cuda")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        srv = make_server(state, host="127.0.0.1", port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def post(path, name, payload):
+            body, ctype = _multipart(name, payload)
+            req = urllib.request.Request(base + path, data=body,
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.read()
+
+        try:
+            served_c2df = post("/compress", "val0.png",
+                               (root / "in" / "val0.png").read_bytes())
+            served_png = post("/decompress", "val0.c2df",
+                              (root / "c" / "bitstreams" / "val0.c2df").read_bytes())
+            spec_name = state.spec.titok.model_size
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join()
+            state.close()
+            del state, srv, th
+        served = {"compress": served_c2df == (root / "c" / "bitstreams" / "val0.c2df").read_bytes(),
+                  "decompress": served_png == (root / "d" / "val0.png").read_bytes()}
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():   # uncalibrated LPIPS: no weights here
+            warnings.simplefilter("ignore")
+            train = train_main(["--base_config", str(ROOT / "tests" / "fixtures"
+                                                     / "config_tiny.yaml"),
+                                "--device", "cuda", "--train_dir", str(HELDOUT),
+                                "--batch_size", "2",
+                                "--ckpt_dir", str(TRAIN_WORK / "surface_ck")])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        return {"config": str(cfg.relative_to(ROOT)), "trunk": spec_name,
+                "cli_files": n_dec, "cli_s": round(cli_s, 3),
+                "service_equal_cli": served, "train_cli": train,
+                "train_s": round(train_s, 3),
+                "ok": (n_dec == 4 and spec_name == "small" and all(served.values())
+                       and train["global_step"] == 12
+                       and train["epoch_for_strategy"] == 3)}
+
+    # -- phase 9 ----------------------------------------------------------------
     def train(self):
         """(a) the seeded flagship through create_train_state and Trainer
         at 256 px, batch 2: one epoch (four steps, then an eval step) of
@@ -1950,7 +2230,7 @@ class Smoke:
         torch.cuda.empty_cache()
         return rec
 
-    # -- phase 9 ----------------------------------------------------------------
+    # -- phase 10 ---------------------------------------------------------------
     def cpu_compare(self):
         torch = self.torch
         from sic_tpu_torch.models import Codec, CodecRuntime
@@ -2160,6 +2440,7 @@ def main() -> int:
         smoke.phase("flagship", smoke.flagship)
         smoke.phase("op", smoke.op)
         smoke.phase("serve", smoke.serve)
+        smoke.phase("surface", smoke.surface)
         smoke.phase("train", smoke.train)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)

@@ -1,7 +1,8 @@
-"""Shared CLI plumbing: runtime and CLIP construction, determinism,
+"""Shared CLI plumbing: config, runtime and CLIP construction, determinism,
 progress and PNG output."""
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from typing import Optional
@@ -30,20 +31,49 @@ def build_model(spec: CodecSpec, device,
     return model.eval().requires_grad_(False)
 
 
+def load_spec_and_cfg(base_config: Optional[str]):
+    """A reference-layout YAML's config, or without one the flagship
+    preset with the default loss configs and no strategy."""
+    from ..config import LoadedConfig, load_config
+    from ..train.steps import FeatLossCfg, ImgLossCfg
+    if base_config:
+        return load_config(base_config)
+    return LoadedConfig(flagship_spec(), None, FeatLossCfg(), ImgLossCfg())
+
+
+def cli_config(parser, args):
+    """The config a CLI runs: ``--base_config``'s, or the ``--spec`` preset
+    (flagship when neither is given).  Both at once name the model twice
+    and are refused."""
+    from .. import config
+    if args.base_config and args.spec:
+        parser.error("--base_config and --spec both name the model: give one")
+    cfg = load_spec_and_cfg(args.base_config)
+    if args.spec:
+        cfg = dataclasses.replace(cfg, spec=getattr(config, f"{args.spec}_spec")())
+    return cfg
+
+
 def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = None,
-                 device=None, stream_part: int = 4) -> CodecRuntime:
-    """A fp32 CodecRuntime on ``device`` (CUDA unless named).
+                 device=None, stream_part: int = 4,
+                 base_config: Optional[str] = None,
+                 z_format: str = "rans") -> CodecRuntime:
+    """A fp32 CodecRuntime on ``device`` (CUDA unless named), of ``spec`` or
+    of the YAML ``base_config`` (not both; flagship without either).
 
     ``stream_part``: rANS substreams per stream this runtime writes;
-    decoding reads the count from each stream.  Without ``ckpt_path`` it
-    warns and uses the seeded initialisation, as the JAX CLI does."""
+    decoding reads the count from each stream.  ``z_format``: the semantic
+    stream's format it writes.  Without ``ckpt_path`` it warns and uses the
+    seeded initialisation, as the JAX CLI does."""
+    if spec is not None and base_config:
+        raise ValueError("give spec or base_config, not both")
     dev = resolve_device(device)
-    spec = spec or flagship_spec()
+    spec = spec or load_spec_and_cfg(base_config).spec
     if not ckpt_path:
         print("[WARN] no --ckpt_path given; running with random weights",
               file=sys.stderr)
     model = build_model(spec, dev, ckpt_path)
-    return CodecRuntime(spec, model, stream_part=stream_part)
+    return CodecRuntime(spec, model, stream_part=stream_part, z_format=z_format)
 
 
 def load_clip_codec(clip_ckpt: Optional[str] = None,

@@ -2,8 +2,8 @@
 
     python -m sic_tpu_torch.cli.compress --dataset_dir DIR --save_dir OUT
         [--ckpt_path params.npz] [--clip_ckpt open_clip.pt]
-        [--spec flagship|small|tiny] [--device cuda] [--batch_size 8]
-        [--stream_part 4]
+        [--base_config CONFIG.yaml | --spec flagship|small|tiny]
+        [--device cuda] [--batch_size 8] [--stream_part 4]
 
 Same output layout as the reference's compress script (reference:
 src/compress.py:203-333): per image pad to 256 (replicate),
@@ -21,12 +21,31 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import config
 from ..container import pack_c2df
 from ..data import list_images, load_image, shard_list
 from ..models import get_padding_size, pad_replicate
 from ..retrieval import VectorIndex
-from ._common import init_func, load_clip_codec, load_runtime, progress
+from ._common import (cli_config, init_func, load_clip_codec, load_runtime,
+                      progress)
+
+
+def c2df_header(rt, clip_meta: dict, hw, pads) -> dict:
+    """The ``.c2df`` header of one encoded image (the service writes the
+    same): CLIP metadata, the image size and padding, the semantic
+    stream's wire format and the h stream's coding contract."""
+    return {
+        "version": 2,
+        "model_id": clip_meta.get("model_id", ""),
+        "embed_dim": int(clip_meta.get("dim", 0)),
+        "quant_type": clip_meta.get("quant", "u8_symmetric_-1_1"),
+        "image_hw": [int(hw[0]), int(hw[1])],
+        "padding": [int(p) for p in pads],
+        # wire format of the semantic stream
+        "z_coder": rt.z_format,
+        # h-stream coding contract: a decode replays the chain at this
+        # coding batch
+        "coding_batch": rt.h_coder.coding_batch,
+    }
 
 
 def build_index_from_saved(save_dir, model_id: str = "") -> int:
@@ -82,19 +101,7 @@ def compress_dir(rt, clip_codec, dataset_dir, save_dir, tile_px: int = 256,
             clip_stream, clip_meta = clip_codec.quantize_u8_and_compress(clip_vec)
             enc_result["clip_stream"] = clip_stream
             enc_result["clip_meta"] = clip_meta
-            header = {
-                "version": 2,
-                "model_id": clip_meta.get("model_id", ""),
-                "embed_dim": int(clip_meta.get("dim", 0)),
-                "quant_type": clip_meta.get("quant", "u8_symmetric_-1_1"),
-                "image_hw": [int(H), int(W)],
-                "padding": [int(p) for p in pads],
-                # wire format of the semantic stream
-                "z_coder": "rans",
-                # h-stream coding contract: a decode replays the chain at
-                # this coding batch
-                "coding_batch": rt.h_coder.coding_batch,
-            }
+            header = c2df_header(rt, clip_meta, (H, W), pads)
             (bit_dir / f"{path.stem}.c2df").write_bytes(pack_c2df(enc_result, header))
             np.save(clip_dir / f"{path.stem}.npy", clip_vec)
             count += 1
@@ -116,9 +123,9 @@ def compress_dir(rt, clip_codec, dataset_dir, save_dir, tile_px: int = 256,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="sic_tpu_torch compress",
-        epilog="Not offered yet: --base_config (the spec comes from --spec), "
-               "--quant int8, and the multi-process flags (--world_size, "
-               "--rank, --coordinator): this runs one process on one device.")
+        epilog="Not offered yet: --quant int8 (ROADMAP queue 1 item 9) and "
+               "the multi-process flags (--world_size, --rank, "
+               "--coordinator): this runs one process on one device.")
     parser.add_argument("--dataset_dir", required=True,
                         help="directory of images (searched recursively)")
     parser.add_argument("--save_dir", required=True)
@@ -130,15 +137,17 @@ def main(argv=None):
                         help="device batch per padded-shape bucket")
     parser.add_argument("--stream_part", type=int, default=4,
                         help="rANS substreams per h stream")
+    parser.add_argument("--base_config", help="reference-layout YAML config "
+                        "(configs/*.yaml); excludes --spec")
     parser.add_argument("--spec", choices=["flagship", "small", "tiny"],
-                        default="flagship")
+                        default=None, help="model preset (default flagship)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' to run there)")
     args = parser.parse_args(argv)
 
     init_func()
     t0 = time.time()
-    spec = getattr(config, f"{args.spec}_spec")()
+    spec = cli_config(parser, args).spec
     rt = load_runtime(args.ckpt_path, spec, device=args.device,
                       stream_part=args.stream_part)
     try:

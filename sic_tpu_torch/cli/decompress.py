@@ -1,10 +1,15 @@
 """decompress CLI: ``.c2df`` bitstreams -> PNG reconstructions.
 
     python -m sic_tpu_torch.cli.decompress --dataset_dir DIR --save_dir OUT
-        [--ckpt_path params.npz] [--spec flagship|small|tiny] [--device cuda]
+        [--ckpt_path params.npz]
+        [--base_config CONFIG.yaml | --spec flagship|small|tiny]
+        [--device cuda] [--batch_size 8]
 
 (reference: src/decompress.py:79-140 — unpack, decode_only, negative-pad
-crop, save.)  Same-shaped files are decoded in device-batched groups.
+crop, save.)  Same-shaped files are decoded in device-batched groups of up
+to ``--batch_size`` (1: each file alone, as the service decodes a single
+request).  A header without ``z_coder`` is a reference file: its semantic
+stream is torchac-coded.
 """
 from __future__ import annotations
 
@@ -13,9 +18,8 @@ import sys
 import time
 from pathlib import Path
 
-from .. import config
 from ..container import sanitize_enc_result_types, unpack_c2df
-from ._common import load_runtime, save_png
+from ._common import cli_config, load_runtime, save_png
 
 
 def _crop_and_save(save_dir, stem, img, header):
@@ -68,17 +72,22 @@ def main(argv=None):
     parser.add_argument("--save_dir", required=True)
     parser.add_argument("--ckpt_path", help="flat params/... .npz of the JAX "
                         "package's parameter tree")
+    parser.add_argument("--base_config", help="reference-layout YAML config "
+                        "(configs/*.yaml); excludes --spec")
     parser.add_argument("--spec", choices=["flagship", "small", "tiny"],
-                        default="flagship")
+                        default=None, help="model preset (default flagship)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' to run there)")
+    parser.add_argument("--batch_size", type=int, default=8,
+                        help="files of one geometry decoded together")
     args = parser.parse_args(argv)
 
     t0 = time.time()
-    spec = getattr(config, f"{args.spec}_spec")()
+    spec = cli_config(parser, args).spec
     rt = load_runtime(args.ckpt_path, spec, device=args.device)
     try:
-        n = decompress_dir(rt, args.dataset_dir, args.save_dir)
+        n = decompress_dir(rt, args.dataset_dir, args.save_dir,
+                           batch_size=args.batch_size)
     finally:
         rt.close()
     print(f"[OK] decompressed {n} files in {time.time() - t0:.1f}s "

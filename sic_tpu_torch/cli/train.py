@@ -1,14 +1,17 @@
 """train CLI: the three-stage schedule on one device.
 
     python -m sic_tpu_torch.cli.train --train_dir IMGS [--val_dir IMGS]
-        [--qp 0..3] [--train_px 256|512] [--batch_size 2] [--epochs N]
+        [--base_config CONFIG.yaml | --qp 0..3 [--tiny]]
+        [--train_px 256|512] [--batch_size 2] [--epochs N]
         [--ckpt_dir ./ckpts] [--resume CKPT] [--reset_schedule]
         [--perceptual lpips|msssim|none] [--lpips_lin vgg.pth]
         [--lpips_vgg vgg16.pth] [--tiny] [--insert_pos ...] [--seed 0]
         [--device cuda]
 
-Drives ``feat_wo_bpp`` -> ``feat`` -> ``pix`` from a QP preset (the 512-px
-presets start in ``pix``) with the validation-bpp lambda controller, writes
+Drives ``feat_wo_bpp`` -> ``feat`` -> ``pix`` from a reference-layout YAML
+(its spec, training strategy, loss configs and ``tune_titok``) or a QP
+preset (the 512-px presets start in ``pix``) with the validation-bpp lambda
+controller, writes
 ``torch.save`` checkpoints into ``--ckpt_dir`` at every stage change and at
 the end (``last``), and finally ``deploy_params.npz``: the codec's
 parameters in the flat ``params/...`` layout that the compress and
@@ -24,16 +27,20 @@ from pathlib import Path
 
 import numpy as np
 
-_NOT_YET = ("Not offered yet: --base_config (the reference YAML), --log_dir "
-            "(TensorBoard), --world_size/--rank/--coordinator, "
-            "--tp/--tile/--fsdp/--pp, --no_donate and --f32_frozen: this "
-            "trains in one process on one device, in fp32.")
+_NOT_YET = ("Not offered yet (ROADMAP queue 1 item 7): --log_dir "
+            "(TensorBoard), rematerialisation (a YAML's save_mem: True is "
+            "refused), --no_donate and --f32_frozen; and (item 10) "
+            "--world_size/--rank/--coordinator, --tp/--tile/--fsdp/--pp: "
+            "this trains in one process on one device, in fp32.")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="sic_tpu_torch train", epilog=_NOT_YET)
-    ap.add_argument("--qp", type=int, default=0, choices=(0, 1, 2, 3),
-                    help="rate preset")
+    ap.add_argument("--base_config", default=None,
+                    help="reference-layout training YAML (spec, strategy, "
+                         "loss configs, tune_titok); excludes --qp and --tiny")
+    ap.add_argument("--qp", type=int, default=None, choices=(0, 1, 2, 3),
+                    help="rate preset instead of a YAML (default 0)")
     ap.add_argument("--train_px", type=int, default=256, choices=(256, 512))
     ap.add_argument("--train_list", help="txt file of training image paths")
     ap.add_argument("--val_list")
@@ -61,19 +68,32 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
-    from ..config import flagship_spec, qp_strategy, tiny_spec
+    from ..config import flagship_spec, load_config, qp_strategy, tiny_spec
     from ..data import ImageDataset
     from ..train import (FeatLossCfg, ImgLossCfg, Trainer, create_train_state,
                          load_checkpoint)
     from ..train.trainer import reset_schedule
     from ..weights import export_flax_params, load_npz
 
-    spec = tiny_spec() if args.tiny else flagship_spec()
+    if args.base_config:
+        if args.tiny or args.qp is not None:
+            ap.error("--base_config names the model and the strategy: give "
+                     "it without --tiny and --qp")
+        cfg = load_config(args.base_config)
+        if cfg.strategy is None:
+            ap.error(f"{args.base_config} has no training_strategy")
+        spec, strategy = cfg.spec, cfg.strategy
+        feat_cfg, img_cfg, tune_titok = cfg.feat_cfg, cfg.img_cfg, cfg.tune_titok
+    else:
+        spec = tiny_spec() if args.tiny else flagship_spec()
+        strategy = qp_strategy(args.qp or 0, args.train_px)
+        feat_cfg, img_cfg, tune_titok = FeatLossCfg(), ImgLossCfg(), False
+    if spec.remat:
+        ap.error("the config asks for rematerialisation (save_mem: True), "
+                 "which the port does not offer yet (ROADMAP queue 1 item 7)")
     if args.insert_pos is not None:
         spec = dataclasses.replace(spec, insert_pos_enc=tuple(args.insert_pos),
                                    insert_pos_dec=tuple(args.insert_pos))
-    strategy = qp_strategy(args.qp, args.train_px)
-    img_cfg = ImgLossCfg()
     if args.perceptual is not None:
         img_cfg = dataclasses.replace(img_cfg, perceptual=args.perceptual)
     print(f"[train] perceptual mode: {img_cfg.perceptual}"
@@ -93,8 +113,9 @@ def main(argv=None):
         val_ds = ImageDataset.from_dir(args.val_dir, args.train_px, False)
 
     model, state, steps = create_train_state(
-        spec, strategy, args.seed, feat_cfg=FeatLossCfg(), img_cfg=img_cfg,
-        device=args.device, lpips_lin=args.lpips_lin, lpips_vgg=args.lpips_vgg)
+        spec, strategy, args.seed, feat_cfg=feat_cfg, img_cfg=img_cfg,
+        device=args.device, lpips_lin=args.lpips_lin, lpips_vgg=args.lpips_vgg,
+        tune_titok=tune_titok)
     if args.resume:
         if str(args.resume).endswith(".npz"):
             # params-only warm start: optimizer and schedule start fresh

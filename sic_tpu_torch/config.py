@@ -3,13 +3,15 @@
 Plain dataclasses with the same fields and defaults as the JAX package's
 ``CodecSpec`` / ``TiTokSpec`` / ``VQGANSpec`` and its three presets, so one
 spec names the same geometry in both packages, and the eight training rate
-presets (:func:`qp_strategy`).  The reference-YAML loader is not ported
-yet.
+presets (:func:`qp_strategy`), and :func:`load_config`, which reads a
+reference-layout YAML (``configs/*.yaml``) through the port's own YAML
+reader (``config_yaml.py``) into a spec, a training strategy, loss configs
+and ``tune_titok``, as the JAX package's ``load_config`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 _VIT_SIZES = {"tiny": (128, 2, 2),  # test-scale, not in the reference table
               "small": (512, 8, 8), "base": (768, 12, 12),
@@ -156,3 +158,83 @@ def qp_strategy(qp: int, train_px: int = 256):
                     StageSpec(0, 0, (lam,), 0.015, 0.008),
                     StageSpec(90, 0, (lam,), band[1], band[0])))
     raise ValueError(f"train_px must be 256 or 512, got {train_px}")
+
+
+# -- reference-YAML ingestion ----------------------------------------------------
+
+def _titok_from_yaml(cfg: Dict) -> TiTokSpec:
+    vq = cfg["model"]["vq_model"]
+    return TiTokSpec(
+        model_size=vq.get("vit_enc_model_size", "large"),
+        patch_size=int(vq.get("vit_enc_patch_size", 16)),
+        num_latent_tokens=int(vq.get("num_latent_tokens", 32)),
+        token_size=int(vq.get("token_size", 12)),
+        codebook_size=int(vq.get("codebook_size", 4096)),
+        commitment_cost=float(vq.get("commitment_cost", 0.25)),
+        use_l2_norm=bool(vq.get("use_l2_norm", True)),
+        tile_px=int(cfg.get("dataset", {}).get("preprocessing", {})
+                    .get("crop_size", 256)))
+
+
+def _vqgan_from_yaml(cfg: Dict) -> VQGANSpec:
+    dd = cfg["ddconfig"]
+    return VQGANSpec(
+        ch=int(dd["ch"]), ch_mult=tuple(dd["ch_mult"]),
+        num_res_blocks=int(dd["num_res_blocks"]),
+        attn_resolutions=tuple(dd["attn_resolutions"]),
+        in_channels=int(dd["in_channels"]), out_ch=int(dd["out_ch"]),
+        z_channels=int(dd["z_channels"]), resolution=int(dd["resolution"]),
+        embed_dim=int(cfg["embed_dim"]), n_embed=int(cfg["n_embed"]),
+        dropout=float(dd.get("dropout", 0.0)))
+
+
+@dataclasses.dataclass(frozen=True)
+class LoadedConfig:
+    spec: CodecSpec
+    strategy: Optional[TrainingStrategy]
+    feat_cfg: FeatLossCfg
+    img_cfg: ImgLossCfg
+    tune_titok: bool = False
+    raw: Optional[Dict] = None   # the whole YAML dict (data section, paths, ...)
+
+
+def load_config(path) -> LoadedConfig:
+    """Load a reference-layout YAML (config_test.yaml, the train configs),
+    key for key as the JAX package's ``load_config``."""
+    from .config_yaml import load_path
+    from .train.steps import FeatLossCfg, ImgLossCfg
+    from .train.strategy import TrainingStrategy
+    raw = load_path(path)
+    p = raw["model"]["params"]
+    spec = CodecSpec(
+        titok=_titok_from_yaml(p["config"]),
+        vqgan=dataclasses.replace(_vqgan_from_yaml(p["vqganconfig"]),
+                                  use_attn=not p.get("no_attn_vqgan", False)),
+        feat_width=int(p.get("feat_dim", 768)),
+        quant_dim=int(p.get("embed_dim", 64)),
+        insert_pos_enc=tuple(p.get("in_pos_enc", (3, 7, 11, 15, 19))),
+        insert_pos_dec=tuple(p.get("in_pos_dec", (3, 7, 11, 15, 19))),
+        num_attns=int(p.get("n_attn", 2)),
+        merge_inner_width=int(p.get("merge_inner_width", 1024)),
+        remat=bool(p.get("save_mem", False)),
+        force_zero_thres=float(p.get("force_zero_thres", 0.12)))
+
+    strategy = None
+    if "training_strategy" in p:
+        strategy = TrainingStrategy.from_dict(p["training_strategy"])
+
+    il = p.get("imglossconfig", {})
+    img_cfg = ImgLossCfg(
+        disc_start=int(il.get("disc_start", 0)),
+        disc_weight=float(il.get("disc_weight", 0.75)),
+        codebook_weight=float(il.get("codebook_weight", 1.0)),
+        disc_num_layers=int(il.get("disc_num_layers", 3)),
+        disc_ndf=int(il.get("disc_ndf", 64)),
+        perceptual=str(il.get("perceptual", "lpips")))
+    fl = p.get("featlossconfig", {})
+    feat_cfg = FeatLossCfg(
+        mse_weight=float(fl.get("mse_weight", 1.0)),
+        ce_weight=float(fl.get("ce_weight", 0.25)),
+        vq_weight=float(fl.get("vq_weight", 1.0)))
+    return LoadedConfig(spec, strategy, feat_cfg, img_cfg,
+                        tune_titok=bool(p.get("tune_titok", False)), raw=raw)

@@ -1,5 +1,6 @@
 from .coder import EntropyCoder, RansDecoder, RansEncoder, pmf_to_quantized_cdf
 from .tables import GaussianCdfTables, build_gaussian_tables, scale_table
+from .torchac_compat import UniformTorchacCodec
 
 __all__ = [
     "EntropyCoder",
@@ -9,4 +10,5 @@ __all__ = [
     "GaussianCdfTables",
     "build_gaussian_tables",
     "scale_table",
+    "UniformTorchacCodec",
 ]

@@ -177,9 +177,11 @@ class BottleneckCoder:
         key = str(device)
         if key not in self._dev_tables:
             t = self.tables
-            self._dev_tables[key] = tuple(
+            # two threads may both build them: setdefault keeps one copy, so
+            # every caller passes the same tensors (one packed kernel table)
+            self._dev_tables.setdefault(key, tuple(
                 torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-                for a in (t.quantized_cdf, t.cdf_length, t.offset))
+                for a in (t.quantized_cdf, t.cdf_length, t.offset)))
         return self._dev_tables[key]
 
     # -- the step functions shared by encode and decode ---------------------

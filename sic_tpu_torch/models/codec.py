@@ -4,13 +4,15 @@ Counterpart of the JAX package's ``models/codec.py`` (reference:
 src/models/codec_sq_fixbpp.py:442-922).  :class:`Codec` holds the encode
 and decode modules, the VQGAN teacher encoder that only training runs, and
 the training forward; :class:`CodecRuntime` turns images into real bitstreams and back:
-the semantic (TiTok token) stream through a uniform-CDF rANS coder, the
-detail (h) stream through the bottleneck's autoregressive chain on the host
+the semantic (TiTok token) stream through a uniform-CDF rANS coder (or, with
+``z_format="torchac"``, the reference's arithmetic coder), the detail (h)
+stream through the bottleneck's autoregressive chain on the host
 coder or on the device rANS kernels, then the generative decode to pixels.
 """
 from __future__ import annotations
 
 import queue
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
@@ -22,9 +24,13 @@ from torch import nn
 
 from ..config import CodecSpec
 from ..entropy import EntropyCoder
+from ..entropy.torchac_compat import UniformTorchacCodec
 from .bottleneck import BottleneckCoder
 from .hybrid import FeatMerge, HybridCodec
 from .vqgan import VQGAN
+
+
+Z_CODERS = ("rans", "torchac")   # wire formats of the semantic stream
 
 
 def resolve_device(device=None) -> torch.device:
@@ -168,7 +174,9 @@ class EncodeRouter:
 
     The default priors (seconds of kernel walk per coding chunk, the
     packed/stream byte ratio) are the JAX package's values, kept so that
-    routing agrees; they describe no measurement of this port."""
+    routing agrees; they describe no measurement of this port.  Concurrent
+    encodes (``encode_decode_many``, the service) feed and ask it from
+    several threads: one lock orders its updates."""
 
     def __init__(self, dev_chunk_s: float = 0.09, dev_shrink: float = 8.0,
                  explore_every: int = 16):
@@ -179,6 +187,7 @@ class EncodeRouter:
         self.explore_every = explore_every
         self._n = 0                             # auto decisions taken
         self.last_explored = False              # observability
+        self._lock = threading.Lock()
 
     def note_fetch(self, nbytes: int, secs: float) -> None:
         """Feed a realized device->host fetch (large transfers only: small
@@ -186,42 +195,43 @@ class EncodeRouter:
         if nbytes < (1 << 18) or secs <= 0:
             return
         bw = nbytes / secs
-        self.link_bw = (bw if self.link_bw is None
-                        else 0.5 * self.link_bw + 0.5 * bw)
         spb = secs / nbytes
-        if self.host_spb is None:
-            self.host_spb = spb
-        elif spb > self.host_spb:
-            self.host_spb = 0.3 * self.host_spb + 0.7 * spb
-        else:
-            self.host_spb = 0.7 * self.host_spb + 0.3 * spb
+        with self._lock:
+            self.link_bw = (bw if self.link_bw is None
+                            else 0.5 * self.link_bw + 0.5 * bw)
+            if self.host_spb is None:
+                self.host_spb = spb
+            elif spb > self.host_spb:
+                self.host_spb = 0.3 * self.host_spb + 0.7 * spb
+            else:
+                self.host_spb = 0.7 * self.host_spb + 0.3 * spb
 
     def note_device_encode(self, dev_s: float, stream_bytes: int,
                            packed_bytes: int, n_chunks: int) -> None:
         """Feed a realized device-path encode (kernel walk + stream fetch)."""
-        if self.host_spb is not None:
-            kern = max(dev_s - stream_bytes * self.host_spb, 1e-3)
-            self.dev_chunk_s = (0.5 * self.dev_chunk_s
-                                + 0.5 * kern / max(n_chunks, 1))
-        if packed_bytes and stream_bytes:
-            self.dev_shrink = (0.5 * self.dev_shrink
-                               + 0.5 * packed_bytes / stream_bytes)
+        with self._lock:
+            if self.host_spb is not None:
+                kern = max(dev_s - stream_bytes * self.host_spb, 1e-3)
+                self.dev_chunk_s = (0.5 * self.dev_chunk_s
+                                    + 0.5 * kern / max(n_chunks, 1))
+            if packed_bytes and stream_bytes:
+                self.dev_shrink = (0.5 * self.dev_shrink
+                                   + 0.5 * packed_bytes / stream_bytes)
 
     def decide(self, packed_bytes: int, n_chunks: int) -> bool:
         """True -> device path.  Call only for auto-routable batches."""
-        if self.host_spb is None:
-            self.last_explored = False
-            return False                 # the first batch measures the link
-        t_host = packed_bytes * self.host_spb
-        t_dev = (n_chunks * self.dev_chunk_s
-                 + packed_bytes / self.dev_shrink * self.host_spb)
-        choice = t_dev < t_host
-        self._n += 1
-        self.last_explored = bool(
-            self.explore_every and self._n % self.explore_every == 0)
-        if self.last_explored:
-            choice = not choice
-        return choice
+        with self._lock:
+            if self.host_spb is None:
+                self.last_explored = False
+                return False             # the first batch measures the link
+            t_host = packed_bytes * self.host_spb
+            t_dev = (n_chunks * self.dev_chunk_s
+                     + packed_bytes / self.dev_shrink * self.host_spb)
+            choice = t_dev < t_host
+            self._n += 1
+            self.last_explored = bool(
+                self.explore_every and self._n % self.explore_every == 0)
+            return not choice if self.last_explored else choice
 
 
 class CodecRuntime:
@@ -240,12 +250,22 @@ class CodecRuntime:
     chain, so a stream's bytes and pixels do not depend on the streams
     batched with it (the float libraries sum differently at another batch
     size); the service's batchers ask for it.  False (the CLIs) batches
-    the networks too, for throughput."""
+    the networks too, for throughput.
+
+    ``z_format``: the semantic stream's wire format this runtime writes,
+    ``"rans"`` (its own) or ``"torchac"`` (the reference's); a decode
+    reads either, by the stream's ``z_coder``.
+
+    Several threads may share one runtime (``decode_only_many``,
+    ``round_trip_pipelined``, ``encode_decode_many``, the service): the
+    coders are pooled, and the router and the path counts take a lock."""
 
     def __init__(self, spec: CodecSpec, model: Codec, stream_part: int = 1,
-                 device_entropy: str = "auto"):
+                 device_entropy: str = "auto", z_format: str = "rans"):
         if device_entropy not in ("auto", "host", "device"):
             raise ValueError(f"device_entropy: {device_entropy}")
+        if z_format not in Z_CODERS:
+            raise ValueError(f"z_format: {z_format}")
         configure_numerics()
         self.spec = spec
         self.model = model.eval()
@@ -264,10 +284,13 @@ class CodecRuntime:
         self._z_cdf[0, -1] = 1 << precision
         self._z_pool: "queue.SimpleQueue" = queue.SimpleQueue()
         self._z_pool.put(self._new_z_coder())
+        self.z_format = z_format
+        self.z_torchac = UniformTorchacCodec(K)     # stateless: not pooled
         # host-side z coding overlaps the h chain
         self._io = ThreadPoolExecutor(max_workers=4, thread_name_prefix="sic-z")
         self.router = EncodeRouter()
         self.encode_path_counts = {"device": 0, "host": 0}
+        self._count_lock = threading.Lock()
 
     def close(self) -> None:
         self._io.shutdown(wait=True)
@@ -287,7 +310,10 @@ class CodecRuntime:
             return self._new_z_coder()
 
     def encode_z(self, idx_np: np.ndarray) -> bytes:
-        """Semantic-token indices -> rANS stream (uniform CDF)."""
+        """Semantic-token indices -> stream (uniform CDF) in
+        ``self.z_format``."""
+        if self.z_format == "torchac":
+            return self.z_torchac.encode(idx_np)
         coder, group = self._checkout_z()
         try:
             coder.reset()
@@ -301,10 +327,10 @@ class CodecRuntime:
     def _decode_z(self, z_bit_stream: bytes, token_length: int,
                   z_coder: str) -> np.ndarray:
         if z_coder == "torchac":
-            raise NotImplementedError(
-                "torchac-coded semantic streams (reference-produced .c2df "
-                "files) are not supported by the PyTorch port yet; re-encode "
-                "with z_coder='rans'")
+            return self.z_torchac.decode(z_bit_stream, int(token_length))
+        if z_coder != "rans":
+            raise ValueError(f"unknown semantic-stream coder {z_coder!r} "
+                             f"(one of {Z_CODERS})")
         coder, group = self._checkout_z()
         try:
             coder.set_stream(z_bit_stream)
@@ -343,7 +369,8 @@ class CodecRuntime:
         return self.router.decide(packed_bytes, n_chunks)
 
     def _count_path(self, use_dev: bool) -> None:
-        self.encode_path_counts["device" if use_dev else "host"] += 1
+        with self._count_lock:
+            self.encode_path_counts["device" if use_dev else "host"] += 1
 
     @staticmethod
     def _check_coding_batch(cb):
@@ -396,6 +423,21 @@ class CodecRuntime:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result().astype(np.int64).reshape(zshape))
         return self._decode_pixels(z.to(self.device), h_hat, stack_shape, output)
+
+    def decode_only_many(self, enc_results, workers: int = 4) -> list:
+        """Concurrent decodes, one :meth:`decode_only` a worker thread: each
+        request checks out its own host coders, so one stream's host work
+        overlaps another's kernels.  Each worker waits for its result on
+        the card before it takes the next request, which bounds the work in
+        flight to ``workers`` decodes.  Returns the x_hat list in order."""
+        def _one(e):
+            x = self.decode_only(**e)
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            return x
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(_one, enc_results))
 
     def decode_only_batched(self, enc_results, output: str = "float",
                             probe: Optional[Dict] = None,
@@ -569,6 +611,30 @@ class CodecRuntime:
             "token_length": n_tiles * n_latent,
             "z_indices_shape": (n_tiles, n_latent),
         } for b in range(B)]
+
+    def round_trip_pipelined(self, batches) -> list:
+        """Two-stage pipeline over same-shaped image batches: batch k+1's
+        encode (network pass and host rANS) runs on a worker thread while
+        batch k decodes.  Returns the x_hat of each batch, equal to
+        ``decode_only_batched(encode_only_batched(b))``."""
+        outs = []
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            enc_f = pool.submit(self.encode_only_batched, batches[0])
+            for i in range(len(batches)):
+                encs = enc_f.result()
+                if i + 1 < len(batches):
+                    enc_f = pool.submit(self.encode_only_batched, batches[i + 1])
+                outs.append(self.decode_only_batched(encs))
+        return outs
+
+    def encode_decode_many(self, images, original_shapes=None,
+                           workers: int = 2) -> list:
+        """:meth:`encode_decode` over a list of (1, H, W, 3) images on
+        ``workers`` threads, so one image's host coding overlaps the next
+        one's kernels.  Returns a list of (x_hat, bpp_dict, enc_result)."""
+        shapes = original_shapes or [tuple(im.shape[-3:-1]) for im in images]
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(self.encode_decode, images, shapes))
 
     def encode_decode(self, x, original_shape: Tuple[int, int]):
         """Round trip with bpp accounting (reference:

@@ -222,7 +222,7 @@ class HybridCodec(nn.Module):
         self.latent_tokens = _scaled_normal((spec.num_latent_tokens, spec.width),
                                             spec.width ** -0.5)
         self.quantize = L2VectorQuantizer(spec.codebook_size, spec.token_size,
-                                          spec.use_l2_norm)
+                                          spec.commitment_cost, spec.use_l2_norm)
         self.quantize_feat = CompressiveBottleneck(feat_width, quant_dim)
 
     def encode(self, x, training: bool = False,

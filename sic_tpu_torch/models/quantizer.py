@@ -21,13 +21,11 @@ def nearest_code(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return torch.argmax(scores, dim=-1)
 
 
-COMMITMENT_COST = 0.25   # the commitment weight of both codebooks' losses
-
-
 class L2VectorQuantizer(nn.Module):
     def __init__(self, codebook_size: int = 4096, token_size: int = 12,
-                 use_l2_norm: bool = True):
+                 commitment_cost: float = 0.25, use_l2_norm: bool = True):
         super().__init__()
+        self.commitment_cost = commitment_cost
         self.use_l2_norm = use_l2_norm
         self.embedding = nn.Parameter(torch.empty(codebook_size, token_size)
                                       .uniform_(-1.0 / codebook_size,
@@ -54,7 +52,7 @@ class L2VectorQuantizer(nn.Module):
         z_q = self.codebook()[idx]
         z32 = z.float()
         z_cmp = _l2n(z32) if self.use_l2_norm else z32
-        commitment = COMMITMENT_COST * torch.mean((z_q.detach() - z_cmp) ** 2)
+        commitment = self.commitment_cost * torch.mean((z_q.detach() - z_cmp) ** 2)
         codebook_loss = torch.mean((z_q - z_cmp.detach()) ** 2)
         z_q = z_cmp + (z_q - z_cmp).detach()
         return z_q.to(z.dtype), {
@@ -68,6 +66,11 @@ class L2VectorQuantizer(nn.Module):
         """(..,) int -> (.., token_size), l2-normalized to match encode."""
         z_q = self.codebook()[indices.long()]
         return _l2n(z_q) if self.use_l2_norm else z_q
+
+
+# the VQGAN codebook's commitment weight (taming's beta); the TiTok codebook
+# takes its spec's commitment_cost
+COMMITMENT_COST = 0.25
 
 
 class VQGANQuantizer(nn.Module):

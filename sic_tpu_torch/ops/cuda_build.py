@@ -101,6 +101,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Wrappers launch from several
+    threads at once (``CodecRuntime.decode_only_many``), and ``+=`` on an
+    attribute is not atomic, so the add holds a lock."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check_launch(rc: int, name: str) -> None:
     """Raise if the C launcher reported a CUDA error (a refused launch
     never runs, and a later synchronize would not report it)."""

@@ -212,7 +212,7 @@ def rans_decode_plane(idx, words, lengths, state, cdf, sizes, offsets):
         new_state.data_ptr(), S, npos, words.shape[1], ncdf, stride,
         cuda_build.stream_of(idx))
     cuda_build.check_launch(rc, "rans_decode_plane")
-    rans_decode_plane.launches += 1
+    cuda_build.count_launch(rans_decode_plane)
     return sym, new_state
 
 

@@ -228,7 +228,7 @@ def rans_encode_plane(sym, idx, words, state, cdf, sizes, offsets):
         words.data_ptr(), state.data_ptr(), new_state.data_ptr(), S, npos,
         4 * words.shape[1], ncdf, stride, cuda_build.stream_of(idx))
     cuda_build.check_launch(rc, "rans_encode_plane")
-    rans_encode_plane.launches += 1
+    cuda_build.count_launch(rans_encode_plane)
     return words, new_state
 
 

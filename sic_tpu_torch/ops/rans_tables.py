@@ -10,7 +10,9 @@ decode's count over a lane's 4 entries needs no mask.  The wrappers pass
 the block's three parts as the kernel's ``cdf``, ``sizes`` and ``offsets``
 and the stride as its ``width``; callers keep passing the plain
 ``(ncdf, width)`` table.  One packed copy is kept per table tensor and
-rebuilt when any of the three tensors is replaced or written to.
+rebuilt when any of the three tensors is replaced or written to; one lock
+guards the cache, since concurrent decodes (``decode_only_many``) look it
+up, prune it and insert into it from several threads.
 
 The kernels take quantized CDFs as the coder builds them
 (``entropy/tables.py``): every row strictly increasing from 0 to 1 << 16
@@ -19,6 +21,7 @@ table the kernels cannot take raises ``ValueError`` here.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 
 import torch
@@ -26,6 +29,7 @@ import torch
 MAX_STRIDE = 128   # 32 lanes x 4 entries: a row fills at most one warp
 
 _cache: dict = {}
+_cache_lock = threading.Lock()
 
 
 def packed_stride(width: int) -> int:
@@ -77,16 +81,17 @@ def packed_tables(cdf: torch.Tensor, sizes: torch.Tensor,
                          f"at most {MAX_STRIDE}")
     srcs = (cdf, sizes, offsets)
     versions = tuple(t._version for t in srcs)
-    hit = _cache.get(id(cdf))
-    if hit is not None:
-        refs, vers, block, stride = hit
-        if all(r() is t for r, t in zip(refs, srcs)) and vers == versions:
-            return block, stride
-    block, stride = _pack(cdf, sizes, offsets)
-    for key in [k for k, v in _cache.items() if v[0][0]() is None]:
-        del _cache[key]
-    _cache[id(cdf)] = (tuple(weakref.ref(t) for t in srcs), versions, block,
-                       stride)
+    with _cache_lock:
+        hit = _cache.get(id(cdf))
+        if hit is not None:
+            refs, vers, block, stride = hit
+            if all(r() is t for r, t in zip(refs, srcs)) and vers == versions:
+                return block, stride
+        block, stride = _pack(cdf, sizes, offsets)
+        for key in [k for k, v in _cache.items() if v[0][0]() is None]:
+            del _cache[key]
+        _cache[id(cdf)] = (tuple(weakref.ref(t) for t in srcs), versions,
+                           block, stride)
     return block, stride
 
 

@@ -57,7 +57,7 @@ def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor
                                heads, float(scale),
                                cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "seq_attention")
-    seq_attention.launches += 1
+    cuda_build.count_launch(seq_attention)
     return out
 
 

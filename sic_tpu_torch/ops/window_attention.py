@@ -108,7 +108,7 @@ def _forward_kernel(qkv, bias, scale, heads):
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, heads,
         ws, bias.shape[0], float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "window_attention_nhwc")
-    window_attention_nhwc.launches += 1
+    cuda_build.count_launch(window_attention_nhwc)
     return out
 
 
@@ -181,7 +181,7 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
         dbias.data_ptr(), ds.data_ptr(), stats.data_ptr(), B, H, W, C, heads,
         ws, nB, float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "window_attention_nhwc_bwd")
-    window_attention_nhwc_bwd.launches += 1
+    cuda_build.count_launch(window_attention_nhwc_bwd)
     return dqkv, dbias
 
 
@@ -270,7 +270,7 @@ def _gsd_kernel(q, k, v, bias, scale):
             out.data_ptr(), G, s, d, bias.shape[0], row, float(scale),
             cuda_build.stream_of(q))
     cuda_build.check_launch(rc, "window_attention")
-    window_attention.launches += 1
+    cuda_build.count_launch(window_attention)
     return out
 
 

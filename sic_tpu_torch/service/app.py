@@ -1,7 +1,8 @@
 """HTTP service: the JAX package's endpoint protocol on the port's runtime.
 
     python -m sic_tpu_torch.service.app [--host 0.0.0.0] [--port 8000]
-        [--spec flagship|small|tiny] [--device cuda]
+        [--base_config CONFIG.yaml | --spec flagship|small|tiny]
+        [--device cuda]
 
 Endpoints (reference: webapp.py:63-325):
 
@@ -20,10 +21,10 @@ Codec responses carry the ``X-SIC-Stage`` / ``X-SIC-Elapsed-MS`` /
 in process, at first use, and run the port's fp32 runtime on ``device``
 (CUDA unless named); concurrent requests share batched device work through
 ``service/batcher.py``.  The environment is read as the JAX service reads
-it: ``CKPT_PATH``, ``CLIP_CKPT``, ``INDEX_DIR``, ``MEDIA_ROOT`` and
-``PREVIEW_CACHE``.  ``BASE_CONFIG`` names a YAML config, which the port
-cannot read yet: the spec comes from ``--spec``.  Built on the stdlib
-``http.server`` (threaded).
+it: ``BASE_CONFIG`` (a reference-layout YAML, which gives the model in
+place of ``--spec``), ``CKPT_PATH``, ``CLIP_CKPT``, ``INDEX_DIR``,
+``MEDIA_ROOT`` and ``PREVIEW_CACHE``.  Built on the stdlib ``http.server``
+(threaded).
 """
 from __future__ import annotations
 
@@ -86,20 +87,25 @@ class ServiceState:
     """Models, batchers and indexes of one service, loaded at first use.
 
     ``spec``: a ``CodecSpec`` or the name of a preset (``flagship``,
-    ``small``, ``tiny``); ``device``: where the models and the index
-    searches run (CUDA unless named).  Paths left as None come from the
-    environment, as in the JAX service."""
+    ``small``, ``tiny``); ``base_config`` (or ``BASE_CONFIG``): a
+    reference-layout YAML whose spec the service runs instead; naming both
+    is an error, and with neither the spec is the flagship.  ``device``:
+    where the models and the index searches run (CUDA unless named).
+    Paths left as None come from the environment, as in the JAX service."""
 
-    def __init__(self, spec="flagship", ckpt_path=None, index_dir=None,
+    def __init__(self, spec=None, ckpt_path=None, index_dir=None,
                  media_root=None, preview_cache=None, clip_ckpt=None,
-                 static_dir=None, device=None):
-        if os.getenv("BASE_CONFIG"):
-            raise ValueError("BASE_CONFIG is set, but the port reads no YAML "
-                             "config yet: unset it and choose the spec with "
-                             "--spec")
-        if isinstance(spec, str):
+                 static_dir=None, device=None, base_config=None):
+        self.base_config = base_config or os.getenv("BASE_CONFIG") or None
+        if self.base_config:
+            if spec is not None:
+                raise ValueError(f"BASE_CONFIG ({self.base_config}) and the "
+                                 f"spec {spec!r} both name the model: give one")
+            from ..config import load_config
+            spec = load_config(self.base_config).spec
+        if isinstance(spec, str) or spec is None:
             from .. import config
-            spec = getattr(config, f"{spec}_spec")()
+            spec = getattr(config, f"{spec or 'flagship'}_spec")()
         self.spec = spec
         self.device = device
         self.ckpt_path = ckpt_path or os.getenv("CKPT_PATH") or None
@@ -187,6 +193,7 @@ class ServiceState:
         without its clip_vecs and index side outputs."""
         import torch
 
+        from ..cli.compress import c2df_header
         from ..container import pack_c2df
         from ..data import load_image
         from ..models import get_padding_size, pad_replicate
@@ -201,16 +208,7 @@ class ServiceState:
         clip_stream, clip_meta = clip_codec.quantize_u8_and_compress(clip_vec)
         enc_result["clip_stream"] = clip_stream
         enc_result["clip_meta"] = clip_meta
-        header = {
-            "version": 2,
-            "model_id": clip_meta.get("model_id", ""),
-            "embed_dim": int(clip_meta.get("dim", 0)),
-            "quant_type": clip_meta.get("quant", "u8_symmetric_-1_1"),
-            "image_hw": [int(H), int(W)],
-            "padding": [int(p) for p in pads],
-            "z_coder": "rans",
-            "coding_batch": rt.h_coder.coding_batch,
-        }
+        header = c2df_header(rt, clip_meta, (H, W), pads)
         return [(f"{Path(filename).stem}.c2df",
                  pack_c2df(enc_result, header))]
 
@@ -510,12 +508,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="sic_tpu_torch service")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--base_config", default=None,
+                    help="reference-layout YAML config (or BASE_CONFIG); "
+                         "excludes --spec")
     ap.add_argument("--spec", choices=["flagship", "small", "tiny"],
-                    default="flagship")
+                    default=None, help="model preset (default flagship)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
-    srv = make_server(ServiceState(args.spec, device=args.device),
+    srv = make_server(ServiceState(args.spec, device=args.device,
+                                   base_config=args.base_config),
                       port=args.port, host=args.host)
     print(f"[sic_tpu_torch] serving on http://{args.host}:{args.port}")
     srv.serve_forever()

@@ -44,6 +44,11 @@ def hinge_d_loss(logits_real, logits_fake):
                   + torch.mean(F.relu(1.0 + logits_fake)))
 
 
+def vanilla_d_loss(logits_real, logits_fake):
+    return 0.5 * (torch.mean(F.softplus(-logits_real))
+                  + torch.mean(F.softplus(logits_fake)))
+
+
 def adopt_weight(weight: float, global_step: int, threshold: int = 0,
                  value: float = 0.0) -> float:
     """(reference: vqperceptual.py:26-29)"""

@@ -6,7 +6,9 @@ codec_sq_fixbpp.py:510-520, 560-569), in PyTorch idiom:
 - a *static* partition labels each codec parameter frozen (TiTok backbone,
   latent tokens, TiTok codebook, VQGAN teacher encoder) or trainable, by
   its JAX-package key (:func:`weights.flax_key`); frozen parameters get
-  ``requires_grad_(False)`` and no optimizer state;
+  ``requires_grad_(False)`` and no optimizer state.  With ``tune_titok``
+  the TiTok encoder and decoder backbones train too (latent tokens and
+  codebook stay frozen);
 - the *stage-dependent* freeze (the VQGAN decoder side during the feat
   stages) is a gradient mask applied before the update.  It writes zeros,
   not ``None``: ``torch.optim.Adam`` skips a parameter whose gradient is
@@ -39,7 +41,7 @@ ADAM_BETAS = (0.5, 0.9)
 ADAM_EPS = 1e-8
 
 
-def is_frozen_path(path: Tuple[str, ...]) -> bool:
+def is_frozen_path(path: Tuple[str, ...], tune_titok: bool = False) -> bool:
     """True for parameters the optimizer never updates (reference:
     codec_sq_fixbpp.py:48-52, 471-474); ``path`` is a JAX-package key split
     at ``/``."""
@@ -49,7 +51,7 @@ def is_frozen_path(path: Tuple[str, ...]) -> bool:
     if p[0] == "hybrid_codec":
         if p[1] in ("latent_tokens", "quantize"):
             return True
-        if p[1] in ("encoder", "decoder"):
+        if p[1] in ("encoder", "decoder") and not tune_titok:
             leaf = p[2]
             return leaf in _FROZEN_TITOK_LEAVES or leaf.startswith("transformer_")
         return False
@@ -70,12 +72,12 @@ def named_codec_params(model: nn.Module) -> List[Tuple[Tuple[str, ...], nn.Param
     return [(tuple(k.split("/")), p) for k, p in named_flax_params(model)]
 
 
-def partition(model: nn.Module):
+def partition(model: nn.Module, tune_titok: bool = False):
     """Freeze the static partition in place; returns the trainable (path,
     parameter) pairs."""
     trainable = []
     for path, p in named_codec_params(model):
-        frozen = is_frozen_path(path)
+        frozen = is_frozen_path(path, tune_titok)
         p.requires_grad_(not frozen)
         if not frozen:
             trainable.append((path, p))

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .losses import (adaptive_d_weight, adopt_weight, feat_align_loss,
-                     hinge_d_loss)
+                     hinge_d_loss, vanilla_d_loss)
 from .state import TrainState, stage_grad_mask
 
 
@@ -31,6 +31,7 @@ class FeatLossCfg:
     mse_weight: float = 1.0
     ce_weight: float = 0.25
     vq_weight: float = 1.0
+    rate_push_w: float = 1.0     # weight of the below-band rate hinge
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +40,21 @@ class ImgLossCfg:
 
     ``perceptual``: ``"lpips"`` (needs a VGG16 checkpoint to mean
     anything), ``"msssim"`` (1 - MS-SSIM, checkpoint-free) or ``"none"``.
-    The discriminator loss is the hinge, and both stages add the below-band
-    rate hinge ``relu(rate_floor - bpp_noise)`` at weight 1."""
+    ``disc_loss``: ``"hinge"`` or ``"vanilla"`` (softplus).
+
+    ``rate_push_w``: both stages add the below-band rate hinge
+    ``rate_push_w * relu(rate_floor - bpp_noise)`` (the feat stages at
+    ``FeatLossCfg.rate_push_w``).  The lambda * bpp term only pushes the
+    rate down; once every symbol rounds to zero the hard-quant stream is
+    empty and lambda has no lever left, so the hinge pushes the noise-proxy
+    rate up exactly when it falls below the stage's band floor
+    (``rate_floor`` 0 disables it).
+
+    ``align_weight > 0`` keeps the feat stages' teacher-alignment terms
+    (latent MSE and index CE against the frozen VQGAN teacher) in the pix
+    objective at this weight, for a run that enters pix before alignment
+    has converged (the reference's pix stage drops them, starting from a
+    converged feat model: codec_sq_fixbpp.py:739-777)."""
     disc_start: int = 0
     disc_weight: float = 0.75
     disc_factor: float = 1.0
@@ -49,7 +63,10 @@ class ImgLossCfg:
     adaptive_disc_max: float = 1e4
     disc_num_layers: int = 3
     disc_ndf: int = 64
+    disc_loss: str = "hinge"
     perceptual: str = "lpips"
+    align_weight: float = 0.0
+    rate_push_w: float = 1.0
 
 
 def _last_conv_apply(h_pre, w, b):
@@ -69,7 +86,11 @@ class TrainSteps:
     def __init__(self, feat_cfg: FeatLossCfg, img_cfg: ImgLossCfg):
         if img_cfg.perceptual not in ("lpips", "msssim", "none"):
             raise ValueError(f"unknown perceptual mode: {img_cfg.perceptual!r}")
+        if img_cfg.disc_loss not in ("hinge", "vanilla"):
+            raise ValueError(f"unknown disc_loss: {img_cfg.disc_loss!r}")
         self.feat_cfg, self.img_cfg = feat_cfg, img_cfg
+        self.d_loss_fn = (hinge_d_loss if img_cfg.disc_loss == "hinge"
+                          else vanilla_d_loss)
 
     def _nll(self, state: TrainState, x, x_hat):
         rec = torch.mean(torch.abs(x - x_hat))
@@ -102,7 +123,7 @@ class TrainSteps:
             out["vqgan_latent"], out["logits"], teacher_latent, teacher_idx,
             out["vq_loss"], out["bpp_loss"], mse_weight=cfg.mse_weight,
             ce_weight=cfg.ce_weight, vq_weight=cfg.vq_weight, sq_weight=lmbda)
-        rate_push = F.relu(state.rate_floor - out["bpp_loss"])
+        rate_push = cfg.rate_push_w * F.relu(state.rate_floor - out["bpp_loss"])
         loss = loss + rate_push
         logs.update({"train/rate_push": rate_push, "train/align_loss": loss,
                      "train/bpp": out["bpp_loss"],
@@ -123,6 +144,9 @@ class TrainSteps:
         lmbda = state.current_lmbda()
         disc_factor = adopt_weight(cfg.disc_factor, state.global_step,
                                    cfg.disc_start)
+        if cfg.align_weight > 0.0:
+            with torch.no_grad():
+                teacher_latent, teacher_idx = model.encode_to_vqgan(x)
 
         def g_of(xh):
             return -torch.mean(disc(xh, train=True))
@@ -142,15 +166,24 @@ class TrainSteps:
             disc_weight=cfg.disc_weight, max_weight=cfg.adaptive_disc_max)
         loss = (nll + d_weight * disc_factor * g_loss
                 + cfg.codebook_weight * out["vq_loss"] + lmbda * out["bpp_loss"])
-        rate_push = F.relu(state.rate_floor - out["bpp_loss"])
+        rate_push = cfg.rate_push_w * F.relu(state.rate_floor - out["bpp_loss"])
         loss = loss + rate_push
-        logs = {
+        logs = {}
+        if cfg.align_weight > 0.0:
+            fc = self.feat_cfg
+            align, _ = feat_align_loss(
+                out["vqgan_latent"], out["logits"], teacher_latent, teacher_idx,
+                out["vq_loss"], out["bpp_loss"], mse_weight=fc.mse_weight,
+                ce_weight=fc.ce_weight, vq_weight=0.0, sq_weight=0.0)
+            loss = loss + cfg.align_weight * align   # vq and rate are above
+            logs["train/pix_align_loss"] = align
+        logs.update({
             "train/rate_push": rate_push, "train/ae_loss": loss,
             "train/nll_loss": nll, "train/rec_loss": rec, "train/p_loss": p,
             "train/g_loss": g_loss, "train/d_weight": d_weight,
             "train/quant_loss": out["vq_loss"], "train/bpp": out["bpp_loss"],
             "train/bpp_hard_quant": out["bpp_hard_quant"],
-            "train/lambda": lmbda, "train/disc_factor": disc_factor}
+            "train/lambda": lmbda, "train/disc_factor": disc_factor})
         state.opt_ae.zero_grad(set_to_none=True)
         loss.backward()
         stage_grad_mask(state.trainable, "pix")
@@ -162,7 +195,7 @@ class TrainSteps:
         x_hat = x_hat.detach()
         logits_real = disc(x, train=True, update_stats=True)
         logits_fake = disc(x_hat, train=True, update_stats=True)
-        d_loss = disc_factor * hinge_d_loss(logits_real, logits_fake)
+        d_loss = disc_factor * self.d_loss_fn(logits_real, logits_fake)
         state.opt_disc.zero_grad(set_to_none=True)
         d_loss.backward()
         state.opt_disc.step()

@@ -15,7 +15,7 @@ validation bpp leaves the stage's ``[bpp_lower, bpp_upper]`` band
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 STAGE_NAMES = ("feat_wo_bpp", "feat", "pix")
 
@@ -38,6 +38,21 @@ class TrainingStrategy:
         StageSpec(4, 0, (1.0, 7.2, 7.37), 0.012, 0.007),
         StageSpec(90, 0, (1.0, 7.2, 7.37), 0.015, 0.010),
     )
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "TrainingStrategy":
+        """Parse the reference YAML layout
+        (reference: src/config/config_test.yaml:80-107)."""
+        stages = tuple(
+            StageSpec(
+                epoch_num=int(d[f"stage{i}"]["epoch_num"]),
+                init_lmbda_idx=int(d[f"stage{i}"]["init_lmbda_idx"]),
+                lmbda_list=tuple(float(x) for x in d[f"stage{i}"]["lmbda_list"]),
+                bpp_upper=float(d[f"stage{i}"]["bpp_upper"]),
+                bpp_lower=float(d[f"stage{i}"]["bpp_lower"]),
+            ) for i in range(3))
+        return cls(learning_rate=float(d.get("learning_rate", 5e-5)),
+                   start_epoch=int(d.get("start_epoch", 0)), stages=stages)
 
     @property
     def total_epochs(self) -> int:

@@ -33,14 +33,16 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
                        seed: int = 0, feat_cfg: FeatLossCfg = FeatLossCfg(),
                        img_cfg: ImgLossCfg = ImgLossCfg(), codec_params=None,
                        device=None, lpips_lin: Optional[str] = None,
-                       lpips_vgg: Optional[str] = None):
+                       lpips_vgg: Optional[str] = None, tune_titok: bool = False):
     """Models, optimizers and steps, on ``device`` (CUDA unless named).
 
     ``codec_params``: a flat ``params/...`` dict for the codec (default: the
     seeded initialisation).  ``lpips_lin``/``lpips_vgg``: torch checkpoints
     of the LPIPS calibration heads and the VGG16 backbone; with
     ``perceptual == "lpips"`` and no backbone the perceptual term scores a
-    seeded network, and a warning says so.  Returns (model, state, steps)."""
+    seeded network, and a warning says so.  ``tune_titok``: the TiTok
+    encoder and decoder backbones train too.  Returns (model, state,
+    steps)."""
     steps = TrainSteps(feat_cfg, img_cfg)     # a bad flag fails before the build
     dev = resolve_device(device)
     configure_numerics()
@@ -66,7 +68,7 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
             "UNCALIBRATED (seeded weights) and the perceptual loss is "
             "meaningless. Pass a torchvision VGG16 checkpoint or train with "
             "perceptual='msssim'.", stacklevel=2)
-    trainable = partition(model)
+    trainable = partition(model, tune_titok)
     _, stage0 = strategy.stage_at(strategy.start_epoch)
     state = TrainState(
         model=model, disc=disc, lpips=lpips, trainable=trainable,

@@ -77,9 +77,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 def test_torchac_semantic_streams_are_refused_clearly():
+    """torchac streams (the reference's z format) decode as the JAX coder
+    decodes them; a coder the header names that is neither torchac nor
+    rans is refused with its name."""
+    from sic_tpu.entropy.torchac_compat import UniformTorchacCodec
     rt = load_runtime(str(GOLDEN / "params.npz"), tcfg.tiny_spec(), device="cpu")
-    with pytest.raises(NotImplementedError, match="torchac"):
-        rt._decode_z(b"\x00" * 8, 4, "torchac")
+    toks = np.random.default_rng(5).integers(0, 64, 16)
+    stream = UniformTorchacCodec(64).encode(toks)
+    np.testing.assert_array_equal(rt._decode_z(stream, 16, "torchac"), toks)
+    with pytest.raises(ValueError, match="huffman"):
+        rt._decode_z(stream, 16, "huffman")
     rt.close()
 
 

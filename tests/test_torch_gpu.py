@@ -720,3 +720,94 @@ def test_golden_input_encodes_on_the_card(cuda):
     rt.decode_only(**encs["device"], coding_batch=8, probe=out)
     rt.close()
     assert torch.equal(out["h_hat"], probes["device"]["y_hat"])
+
+
+def _tiny_runtime(**kw):
+    from sic_tpu_torch.cli._common import load_runtime
+    from sic_tpu_torch.config import tiny_spec
+    return load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
+                        stream_part=4, **kw)
+
+
+def test_concurrent_entry_points_on_the_card(cuda):
+    """decode_only_many (four workers; kernel 3 decodes every stream),
+    round_trip_pipelined and encode_decode_many on the card, each equal to
+    its serial counterpart bit for bit."""
+    from sic_tpu_torch.data import load_image
+    heldout = GOLDEN.parents[2] / "artifacts_r05" / "heldout"
+    imgs = [load_image(heldout / f"val{i}.png")[None] for i in range(4)]
+    rt = _tiny_runtime()
+    try:
+        encs = [rt.encode_only(x) for x in imgs]
+        serial = [rt.decode_only(**e) for e in encs]
+        before = ops.launch_counts()["rans_decode_plane"]
+        many = rt.decode_only_many(encs, workers=4)
+        assert ops.launch_counts()["rans_decode_plane"] == before + 4 * len(encs)
+        assert all(torch.equal(a, b) for a, b in zip(many, serial))
+        batches = [np.concatenate(imgs[:2]), np.concatenate(imgs[2:])]
+        piped = rt.round_trip_pipelined(batches)
+        for b, out in zip(batches, piped):
+            assert torch.equal(out, rt.decode_only_batched(rt.encode_only_batched(b)))
+        for x, (x_hat, bpp, enc) in zip(imgs, rt.encode_decode_many(imgs)):
+            x_ref, bpp_ref, enc_ref = rt.encode_decode(x, x.shape[1:3])
+            assert torch.equal(x_hat, x_ref) and bpp == bpp_ref
+            assert enc["h_bit_stream"] == enc_ref["h_bit_stream"]
+    finally:
+        rt.close()
+
+
+def test_reference_format_files_on_the_card(cuda, tmp_path):
+    """A torchac z stream (the reference's format), packed with and
+    without z_coder, decodes through the decompress CLI to the PNG bytes
+    of the rans-format file of the same image, alone and batched."""
+    import sys
+    from sic_tpu_torch.cli.decompress import decompress_dir
+    from sic_tpu_torch.container import pack_c2df
+    from sic_tpu_torch.models import CodecRuntime
+    sys.path.insert(0, str(GOLDEN.parents[1]))
+    from fixtures.golden.generate import golden_input
+    rt = _tiny_runtime()
+    trt = CodecRuntime(rt.spec, rt.model, stream_part=4, z_format="torchac")
+    header = {"version": 2, "image_hw": [256, 256], "padding": [0, 0, 0, 0],
+              "coding_batch": 8}
+    try:
+        x = golden_input()[None]
+        files = {"rans": pack_c2df(rt.encode_only(x), dict(header, z_coder="rans")),
+                 "torchac": pack_c2df(trt.encode_only(x),
+                                      dict(header, z_coder="torchac")),
+                 "reference": pack_c2df(trt.encode_only(x), header)}
+        pngs = {}
+        for batch_size in (1, 8):
+            for name, data in files.items():
+                d = tmp_path / f"{name}_{batch_size}"
+                (d / "in").mkdir(parents=True)
+                for i in range(2):
+                    (d / "in" / f"f{i}.c2df").write_bytes(data)
+                decompress_dir(rt, d / "in", d / "png", batch_size=batch_size)
+                pngs[name, batch_size] = [(d / "png" / f"f{i}.png").read_bytes()
+                                          for i in range(2)]
+    finally:
+        trt.close()
+        rt.close()
+    for batch_size in (1, 8):
+        assert pngs["torchac", batch_size] == pngs["rans", batch_size]
+        assert pngs["reference", batch_size] == pngs["rans", batch_size]
+
+
+def test_base_config_clis_on_the_card(cuda, tmp_path):
+    """configs/config_small_r4.yaml (seeded) through the compress and
+    decompress CLIs on the card."""
+    import shutil
+    from sic_tpu_torch.cli.compress import main as compress_main
+    from sic_tpu_torch.cli.decompress import main as decompress_main
+    root = GOLDEN.parents[2]
+    (tmp_path / "in").mkdir()
+    shutil.copy(root / "artifacts_r05" / "heldout" / "val1.png", tmp_path / "in")
+    common = ["--base_config", str(root / "configs" / "config_small_r4.yaml"),
+              "--device", "cuda"]
+    assert compress_main(["--dataset_dir", str(tmp_path / "in"), "--save_dir",
+                          str(tmp_path / "c"), *common])["images"] == 1
+    assert decompress_main(["--dataset_dir", str(tmp_path / "c" / "bitstreams"),
+                            "--save_dir", str(tmp_path / "d"), *common]) == 1
+    from PIL import Image
+    assert np.asarray(Image.open(tmp_path / "d" / "val1.png")).shape == (256, 256, 3)

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor flax nor any
-module of the JAX package, and neither does ``chip_smoke.py``."""
+module of the JAX package, and neither does ``chip_smoke.py``; nor does it
+import PyYAML (it reads YAML itself: ``config_yaml.py``) or orbax, which the
+card's machine does not have."""
 import ast
 import subprocess
 import sys
@@ -9,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sic_tpu_torch"
-FORBIDDEN = ("jax", "flax", "sic_tpu")
+FORBIDDEN = ("jax", "flax", "sic_tpu", "yaml", "orbax")
 
 
 def _port_sources():
@@ -45,12 +47,13 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports in a process where jax and flax
-    cannot be imported, and pulls in no module of the JAX package."""
+    """Every module of the port imports in a process where jax, flax, yaml
+    and orbax cannot be imported, and pulls in no module of the JAX
+    package."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for m in ('jax', 'flax', 'yaml', 'orbax'):\n"
+        "    sys.modules[m] = None\n"
         "import sic_tpu_torch\n"
         "for m in pkgutil.walk_packages(sic_tpu_torch.__path__, 'sic_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -4,8 +4,8 @@ endpoints, ``X-SIC-*`` headers, NDJSON lines, ``/file`` gating, concurrent
 micro-batching giving byte-identical answers, a corrupt stream failing
 alone, ``/healthz``.  Besides: text search answers (the text tower is
 ported), the JAX-encoded golden stream decodes within the golden bound
-with the golden params named by ``CKPT_PATH``, and a ``BASE_CONFIG`` is
-refused."""
+with the golden params named by ``CKPT_PATH``, and a ``BASE_CONFIG`` beside
+an explicit spec is refused (both name the model)."""
 import concurrent.futures
 import io
 import json

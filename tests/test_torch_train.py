@@ -15,6 +15,12 @@ interpret mode, or through their references).  Tolerances:
   the two packages' difference (there its sign agrees, and the step is
   lr * g / (|g| + eps)); frozen parameters bit-identical; discrete outputs
   (VQ indices) exactly.
+
+The options a reference YAML reaches (``tune_titok``, the vanilla
+discriminator loss, the pix stage's alignment anchor, the rate hinge's
+weight under an active floor, the TiTok commitment weight) are held to
+the JAX steps by the same limits, in one feat step and one pix step that
+turn them on together.
 """
 import dataclasses
 
@@ -371,11 +377,14 @@ def test_losses_match_jax():
 
 # -- one step of each kind from shared params ------------------------------------
 
-def _strategy(pkg):
+def _strategy(pkg, floor=0.001):
+    """Three one-epoch stages; ``floor``: the first stage's band floor,
+    which both states start with as their rate floor."""
     S = pkg.StageSpec
     return pkg.TrainingStrategy(
         learning_rate=LR, start_epoch=0,
-        stages=(S(1, 0, (1.0, 2.0), 2.0, 0.001), S(1, 0, (1.0, 2.0), 0.012, 0.007),
+        stages=(S(1, 0, (1.0, 2.0), max(2.0, 2 * floor), floor),
+                S(1, 0, (1.0, 2.0), 0.012, 0.007),
                 S(1, 0, (1.0, 2.0), 0.015, 0.010)))
 
 
@@ -386,13 +395,13 @@ def _stash():
         lambda updates, state, params=None: (updates, updates))
 
 
-@pytest.fixture(scope="module")
-def twins():
+def _make_twins(commitment_cost=0.25, feat_kw=None, img_kw=None,
+                tune_titok=False, floor=0.001):
     """(port state factory, JAX state, JAX steps, batch, flat params): the
     tiny spec with seeded weights and an O(1) bottleneck (as trained
     weights keep it; test_torch_bottleneck.py says why), its exported
     params, discriminator and LPIPS in a JAX TrainState whose optimizers
-    stash their gradients."""
+    stash their gradients; both packages under the same options."""
     from sic_tpu.config import tiny_spec as jtiny
     from sic_tpu.models.codec import Codec as JCodec
     from sic_tpu.models.discriminator import NLayerDiscriminator as JD
@@ -404,7 +413,11 @@ def twins():
     from sic_tpu_torch import train
     from test_torch_bottleneck import _randomize
 
-    spec = tcfg.tiny_spec()
+    feat_kw, img_kw = feat_kw or {}, dict(DISC, **(img_kw or {}))
+    spec = tcfg.tiny_spec(titok=dataclasses.replace(
+        tcfg.tiny_spec().titok, commitment_cost=commitment_cost))
+    jspec = jtiny(titok=dataclasses.replace(jtiny().titok,
+                                            commitment_cost=commitment_cost))
     model, state, _ = train.create_train_state(
         spec, _strategy(train), 0, img_cfg=train.ImgLossCfg(**DISC), device="cpu")
     _randomize(model.hybrid_codec.quantize_feat, 4).requires_grad_(True)
@@ -412,16 +425,19 @@ def twins():
 
     def port_state():
         return train.create_train_state(
-            spec, _strategy(train), 0, img_cfg=train.ImgLossCfg(**DISC),
-            device="cpu", codec_params=flat)
+            spec, _strategy(train, floor), 0,
+            feat_cfg=train.FeatLossCfg(**feat_kw),
+            img_cfg=train.ImgLossCfg(**img_kw), device="cpu",
+            codec_params=flat, tune_titok=tune_titok)
 
     params = {"params": unflatten_dict(flat, sep="/")["params"]}
     dv, lv = _vars(state.disc), _vars(state.lpips)
     ae_tx = optax.chain(_stash(), optax.adam(LR, b1=0.5, b2=0.9))
     disc_tx = optax.chain(_stash(), optax.adam(LR, b1=0.5, b2=0.9))
-    jsteps = make_steps(JCodec(jtiny()), JD(ndf=16, n_layers=2), JLPIPS(),
-                        JFeat(), JImg(**DISC), ae_tx, disc_tx)
-    trainable, _ = jstate_mod.split_params(params)
+    jsteps = make_steps(JCodec(jspec), JD(ndf=16, n_layers=2), JLPIPS(),
+                        JFeat(**feat_kw), JImg(**img_kw), ae_tx, disc_tx,
+                        tune_titok=tune_titok)
+    trainable, _ = jstate_mod.split_params(params, tune_titok)
     jst = jstate_mod.TrainState(
         params=params, opt_state_ae=ae_tx.init(trainable),
         disc_params=dv["params"], disc_stats=dv["batch_stats"],
@@ -430,10 +446,15 @@ def twins():
         epoch_for_strategy=jnp.asarray(0, jnp.int32),
         lmbda_idx=jnp.asarray(0, jnp.int32),
         lmbda_list=jnp.asarray((1.0, 2.0), jnp.float32),
-        rate_floor=jnp.asarray(0.001, jnp.float32), rng=jax.random.PRNGKey(5))
+        rate_floor=jnp.asarray(floor, jnp.float32), rng=jax.random.PRNGKey(5))
     x = np.clip(0.6 * np.sin(np.mgrid[0:256, 0:256][1] / 9.0)[None, :, :, None]
                 + _x((1, 256, 256, 3), 30, 0.3), -1, 1).astype(np.float32)
     return port_state, jst, jsteps, x, flat
+
+
+@pytest.fixture(scope="module")
+def twins():
+    return _make_twins()
 
 
 def _jax_noise(jst, shape=(1, 8, 8, 16)):
@@ -541,6 +562,66 @@ def test_eval_step_matches_jax(twins):
     jlogs = eval_step(jst, jnp.asarray(x))
     _, state, steps = port_state()
     _check_logs(steps.eval_step(state, _t(x)), jlogs)
+
+
+# -- the options a reference YAML reaches ----------------------------------------
+
+# a band floor far above the tiny model's noise-proxy rate: the rate hinge
+# is active, so its weight shows in the loss
+ACTIVE_FLOOR = 50.0
+
+
+def test_feat_step_options_match_jax():
+    """tune_titok (the TiTok backbones train: the trainable set is JAX's
+    partition_labels 'ae' leaves), commitment weight 0.5 and the feat
+    stage's rate hinge at weight 2 under an active floor."""
+    from sic_tpu.train.state import partition_labels
+    port_state, jst, (feat_step, _, _), x, flat = _make_twins(
+        commitment_cost=0.5, feat_kw=dict(rate_push_w=2.0), tune_titok=True,
+        floor=ACTIVE_FLOOR)
+    jnew, jlogs = feat_step(jst, jnp.asarray(x))
+    _, state, steps = port_state()
+    logs = steps.feat_step(state, _t(x), noise=_t(_jax_noise(jst)))
+    labels = flatten_dict(partition_labels(jst.params, tune_titok=True), sep="/")
+    ae = {k for k, v in labels.items() if v == "ae"}
+    assert {"/".join(path) for path, _ in state.trainable} == ae
+    assert any("/transformer_" in k for k in ae)          # the backbones train
+    assert float(logs["train/rate_push"]) > 0
+    _check_logs(logs, jlogs)
+    _check_update(state, jnew, flat)
+
+
+def test_pix_step_options_match_jax():
+    """The vanilla (softplus) discriminator loss, the alignment anchor at
+    0.5 and the pix stage's rate hinge at weight 2 under an active floor:
+    logs, the generator's and the discriminator's gradients and Adam steps."""
+    port_state, jst, (_, pix_step, _), x, flat = _make_twins(
+        img_kw=dict(disc_loss="vanilla", align_weight=0.5, rate_push_w=2.0),
+        floor=ACTIVE_FLOOR)
+    jnew, jlogs = pix_step(jst, jnp.asarray(x))
+    _, state, steps = port_state()
+    logs = steps.pix_step(state, _t(x), noise=_t(_jax_noise(jst)))
+    assert "train/pix_align_loss" in jlogs and float(logs["train/rate_push"]) > 0
+    _check_logs(logs, jlogs)
+    _check_update(state, jnew, flat)
+    jd = flatten_dict(jnew.opt_state_disc[0], sep="/")
+    jdp = flatten_dict(jnew.disc_params, sep="/")
+    adam = _adam_state(jnew.opt_state_disc, lambda t: flatten_dict(t, sep="/"))
+    floor = _floor(jd.values())
+    for k, p in _named(state.disc):
+        leaf = k[len("params/"):]
+        _adam_close(state.opt_disc, p, leaf, jdp[leaf], jd[leaf], adam, floor)
+
+
+def test_vanilla_d_loss_matches_jax():
+    from sic_tpu.train import losses as jl
+    from sic_tpu_torch.train import losses
+    r, fk = _x((2, 6, 6, 1), 40, 3.0), _x((2, 6, 6, 1), 41, 3.0)
+    _rel(losses.vanilla_d_loss(_t(r), _t(fk)),
+         jl.vanilla_d_loss(jnp.asarray(r), jnp.asarray(fk)), TOL)
+    from sic_tpu_torch.train import FeatLossCfg, ImgLossCfg, TrainSteps
+    with pytest.raises(ValueError, match="disc_loss"):
+        TrainSteps(FeatLossCfg(), ImgLossCfg(disc_loss="wgan"))
 
 
 # -- schedule, presets, data ----------------------------------------------------
