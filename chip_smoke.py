@@ -2,7 +2,7 @@
 """Chip check of the PyTorch port on one CUDA card: encode, decode, the
 (G, s, d) window-attention op, the HTTP service with search, the evaluate
 CLI, the concurrent runtime entry points, reference-format files and YAML
-configs, and training.
+configs, bf16 serving, and training.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -10,9 +10,11 @@ Phases, each printing one JSON line with the card's name and power limit:
 
 1. build    - the six CUDA kernels (one nvcc per source, in parallel) and
               the native rANS coder, from the sources in the checkout; the
-              HGMMA (wgmma) count of the four attention libraries (kernels
-              1, 2, 5 and 6), which run split TF32 on the tensor cores,
-              must be above 0; a dependent-chain probe
+              HGMMA (wgmma) count of each kernel function of the four
+              attention libraries (kernels 1, 2, 5 and 6; split TF32, and
+              the bf16 entries of 1, 2 and 6), which must be above 0 in
+              every one but kernel 5's dbias pass, bf16 HGMMA only in the
+              bf16 entries and none in the f32 ones; a dependent-chain probe
               (csrc/chain_probe.cu) reads the least latency of one step of
               each rANS chain in SM cycles, and nvidia-smi the SM's highest
               clock, for the rANS rows' chain bound;
@@ -32,7 +34,11 @@ Phases, each printing one JSON line with the card's name and power limit:
               SDPA's autograd backward, whose forward lies outside any
               capture, the sum of its kernels in a torch.profiler trace,
               the method named in each row), each attention row's bounds
-              on the f32 cores and, as split TF32, on the tensor cores,
+              on the f32 cores and, as split TF32, on the tensor cores;
+              the bf16 entries of kernels 1, 2 and 6 at the f32 rows'
+              shapes, each within 1.5x the plain bf16 version's error
+              against f64, SDPA in bf16 as their yardstick, their bound on
+              the bf16 tensor cores and in bytes at 2 bytes an element;
               each rANS row's bytes bound and chain bound (the longest
               substream's coded symbols times the probe's step), and its
               error against an f64 reference; every attention kernel
@@ -58,9 +64,10 @@ Phases, each printing one JSON line with the card's name and power limit:
 6. op       - the (G, s, d) window-attention op, forward and gradient, at
               kernel_check's geometry and on one flagship Swin layer's real
               qkv (FeatMerge's shifted feat_in layer on the 512x512
-              request, -inf masks included), whose output must agree
-              with kernel 2's on the same qkv within GSD_FWD_TOL (one
-              tensor-core body, two geometries);
+              request, -inf masks included), in f32 and through the bf16
+              entry, whose output must agree with kernel 2's on the same
+              qkv within GSD_FWD_TOL in both dtypes (one tensor-core body,
+              two geometries);
 7. serve    - the port's HTTP service in process (flagship spec, seeded
               codec and CLIP, INDEX_DIR at phase 4's faiss/): /compress and
               /decompress against the runtime's encode_only / decode_only,
@@ -88,7 +95,18 @@ Phases, each printing one JSON line with the card's name and power limit:
               (BASE_CONFIG), the service's answers byte-equal to the CLIs'
               files; the train CLI with tests/fixtures/config_tiny.yaml,
               one epoch a stage (kernel 5 launched);
-9. train    - the seeded flagship trained through create_train_state and
+9. bf16     - the bf16 serving mode at flagship width through the
+              defaults (load_runtime, the compress and decompress CLIs and
+              the service with no dtype: bf16 on CUDA): encode_only and
+              encode_only_batched of phase 4's images, each stream decoding
+              to its encoder's y_hat bit for bit through the bf16 and the
+              fp32 runtime; decode_only / decode_only_batched of phase 5's
+              streams, h_hat equal to y_hat, pixels against the fp32
+              runtime's within 2x the JAX package's own bf16-vs-fp32 gap
+              on golden.c2df (tests/fixtures/golden_bf16.py); one served
+              /compress and /decompress; request times of bf16 beside
+              fp32 (median of 5) and one profiled bf16 decode;
+10. train   - the seeded flagship trained through create_train_state and
               Trainer at 256 px, batch 2, on the heldout images: four steps
               of each stage (feat_wo_bpp, feat, pix) and an eval step after
               each, every loss finite, frozen leaves bit-unchanged,
@@ -99,7 +117,7 @@ Phases, each printing one JSON line with the card's name and power limit:
               deploy_params.npz, and one image compressed and decompressed
               with those params, h_hat equal to the encoder's y_hat; step
               times, peak memory and one profiled pix step;
-10. cpu     - the first 256x256 request decoded again on the CPU (plain
+11. cpu     - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
               one 256x256 image encoded on the CPU, its differences from
               the card's encode reported; and one tiny-spec feat step and
@@ -111,9 +129,12 @@ Phases, each printing one JSON line with the card's name and power limit:
 
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
-serving, phase 8 for the surface, phase 9 for training) and read just after; every kernel of the
-path must have launched, and the (G, s, d) kernel on no model path.  Then
-a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+serving, phase 8 for the surface, phase 9 for bf16 serving, phase 10 for
+training) and read just after, by wrapper and by bf16 entry; every kernel
+of the path must have launched, and the (G, s, d) kernel on no model path.
+Every phase but 9 runs fp32 and asks for it.  Then a ``{"kernels":
+[...]}`` line (the bf16 entries as rows of their own), the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 without a CUDA device, outside the repository, or if any phase fails.
 Work files go to ``WORK`` below.
@@ -141,6 +162,7 @@ HELDOUT = ROOT / "artifacts_r05" / "heldout"
 
 F32_TFLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_TFLOPS = 495e12    # H100 SXM dense TF32 on the tensor cores
+BF16_TFLOPS = 989e12    # H100 SXM dense bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 CHAIN_PROBE_STEPS = 1 << 16   # steps of each dependent-chain probe
 ATTN_TOL = 1e-4         # kernel vs plain, fp32: only the summation order differs
@@ -156,6 +178,9 @@ TRAIN_GRAD_TOL = 1e-3   # card vs CPU: each leaf's gradient, relative to its nor
 PIX_LOSS_TOL = 1e-3
 PIX_GRAD_TOL = 5e-3
 CPU_PIXEL_TOL = 1e-3    # card vs CPU decode of the flagship, [-1, 1] floats
+# a bf16 entry's error against the f64 function, as a multiple of the plain
+# bf16 version's error against it
+BF16_F64_RATIO = 1.5
 # the (G, s, d) window-attention kernel vs its plain version: the forward
 # within this share of the output's largest magnitude, each gradient (q, k,
 # v, bias) within GSD_GRAD_TOL of its own largest magnitude; f32 summation
@@ -191,6 +216,7 @@ class Smoke:
         self.failed = []
         self.kernels = {}
         self.counts = {}      # path -> launch counts of its main-path run
+        self.bf16_counts = {}  # path -> launches of the bf16 entries in that run
         self.requests = {}    # stem -> decode_only kwargs + the encoder's y_hat
 
     def phase(self, name, fn):
@@ -208,6 +234,14 @@ class Smoke:
         print(json.dumps(rec), flush=True)
 
     # -- helpers --------------------------------------------------------------
+    def read_counts(self, path):
+        """The launch counts of ``path``'s main-path run, read right after
+        it: by wrapper, and the bf16 entries' apart."""
+        from sic_tpu_torch import ops
+        self.bf16_counts[path] = ops.bf16_launch_counts()
+        self.counts[path] = ops.launch_counts()
+        return self.counts[path]
+
     def time_ms(self, fn, iters=20, warmup=3):
         torch = self.torch
         for _ in range(warmup):
@@ -290,15 +324,13 @@ class Smoke:
         return 3 * flops / TF32_TFLOPS * 1e3
 
     @staticmethod
-    def hgmma_count(name):
-        """HGMMA (wgmma) instructions in kernel library ``name``'s SASS."""
-        from sic_tpu_torch.ops import cuda_build
-        cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
-        out = subprocess.run([str(cuobjdump), "-sass", str(cuda_build.lib_path(name))],
-                             capture_output=True, text=True, timeout=300)
-        if out.returncode != 0:
-            raise RuntimeError(f"cuobjdump -sass {name}: {out.stderr.strip()}")
-        return sum("HGMMA" in ln for ln in out.stdout.splitlines())
+    def bf16_bound(flops, nbytes):
+        """Least time of a bf16 entry, ms, and what bounds it: its products
+        on the bf16 tensor cores against the bytes it moves once (2 bytes
+        an operand element, 4 a bias element)."""
+        t_ops, t_bytes = flops / BF16_TFLOPS, nbytes / HBM_BYTES_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
 
     # -- phase 1 ----------------------------------------------------------------
     def build(self):
@@ -324,13 +356,19 @@ class Smoke:
                 for n, r in reports.items()}
         for n in cuda_build.KERNELS:
             cuda_build.load(n)
-        # the attention kernels (1, 2, 5, 6) run on the tensor cores: their
-        # libraries hold wgmma
-        hgmma = {n: self.hgmma_count(n) for n in (
+        # the attention kernels (1, 2, 5 and 6) run on the tensor cores: every
+        # kernel function (entry and warpgroup count) holds wgmma but kernel
+        # 5's dbias pass (a sum over the batch on the CUDA cores), the bf16
+        # entries' bf16 wgmma only, the f32 entries' none
+        hgmma = {n: cuda_build.sass_hgmma(n) for n in (
             "seq_attention", "window_attention", "window_attention_bwd",
             "window_attention_gsd")}
-        if not all(c > 0 for c in hgmma.values()):
-            raise AssertionError(f"no HGMMA instruction in {hgmma}")
+        bad = {f"{n}: {f}": c for n, fns in hgmma.items() for f, c in fns.items()
+               if (c["hgmma"] == 0 and f != "bwd_dbias_kernel")
+               or c["bf16"] != ("bfloat16" in f) * c["hgmma"]}
+        n_bf16 = sum("bfloat16" in f for fns in hgmma.values() for f in fns)
+        if bad or n_bf16 != 6:
+            raise AssertionError(f"HGMMA by kernel function: {hgmma}")
         self.chain = self.chain_probe()
         return {"built": sorted(reports), "build_s": round(time.perf_counter() - t0, 3),
                 "ptxas": regs, "hgmma": hgmma, "chain_probe": self.chain}
@@ -474,6 +512,8 @@ class Smoke:
         out["window_attention_gsd"] = self.kernels["window_attention"] = \
             self._gsd_check(*self._gsd_bench_inputs(g), 64 ** -0.5)
 
+        out.update(self._bf16_kernel_checks(g))
+
         out["rans_decode"] = dec = {
             f"{B * nparts}x{npos}": self._rans_check(B, nparts, npos)
             for B, nparts, npos in ((1, 4, 1024), (1, 1, 4096), (8, 4, 256))}
@@ -489,6 +529,105 @@ class Smoke:
         out["rans_encode_overflow"] = self._rans_encode_overflow()
         self.kernels["rans_encode_plane"] = enc["4x1024"]
         return out
+
+    def _bf16_row(self, kernel, plain, library, relayout, ref, flops, nbytes):
+        """One bf16 entry against its plain bf16 version and the f64
+        function on the same inputs: errors, eager and device times beside
+        the plain version's and the library call's (SDPA in bf16 on
+        pre-laid-out heads, its bias rounded to bf16 as SDPA takes it;
+        ``relayout`` brings its output to the kernel's layout, untimed),
+        the bound on the bf16 tensor cores and in bytes at 2 bytes an
+        element."""
+        torch = self.torch
+        k_out, p_out = kernel(), plain()
+        lib = relayout(library())
+        f64 = (k_out.double() - ref).abs().max().item()
+        plain_f64 = (p_out.double() - ref).abs().max().item()
+        rec = {"dtype": "bfloat16", "max_abs_err": (k_out.float() - p_out.float()).abs().max().item(),
+               "f64_max_abs_err": f64, "plain_f64_max_abs_err": plain_f64,
+               "f64_err_ratio": f64 / plain_f64 if plain_f64 else None,
+               "library_f64_max_abs_err": (lib.double() - ref).abs().max().item(),
+               "finite": bool(torch.isfinite(k_out).all()),
+               "deterministic": torch.equal(k_out, kernel()),
+               "ms": self.time_ms(kernel), "plain_ms": self.time_ms(plain),
+               "library_ms": self.time_ms(library),
+               "device_ms": self.device_ms(kernel),
+               "library_device_ms": self.device_ms(library)}
+        rec["bound_ms"], rec["bound_by"] = self.bf16_bound(flops, nbytes)
+        rec["tc_bound_ms"] = flops / BF16_TFLOPS * 1e3
+        if not (k_out.dtype == torch.bfloat16 and rec["finite"] and rec["deterministic"]
+                and f64 <= BF16_F64_RATIO * plain_f64):
+            raise AssertionError(f"bf16 entry: {rec}")
+        return rec
+
+    def _bf16_kernel_checks(self, g):
+        """The bf16 entries of kernels 1, 2 and 6 at the f32 rows' shapes."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.models.swin import _full_shift_mask
+        dev, bf = torch.device("cuda"), torch.bfloat16
+        scale, out = 64 ** -0.5, {}
+        for tag, (B, S, C, heads) in {"trunk": (4, 289, 1024, 16),
+                                      "cross": (4, 545, 768, 12),
+                                      "clip": (1, 50, 768, 12)}.items():
+            qkv = torch.randn((B, S, 3 * C), device=dev, generator=g).to(bf)
+            d = C // heads
+            q, k, v = (t.view(B, S, heads, d).transpose(1, 2) for t in qkv.split(C, dim=-1))
+            out[f"seq_attention_bf16_{tag}"] = self._bf16_row(
+                lambda: ops.seq_attention(qkv, scale, heads),
+                lambda: ops.seq_attention_plain(qkv, scale, heads),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                lambda o: o.transpose(1, 2).reshape(B, S, C),
+                self._seq_f64(qkv, scale, heads),
+                4 * B * heads * S * S * d, B * S * 4 * C * 2)
+        self.kernels["seq_attention_bf16"] = out["seq_attention_bf16_trunk"]
+        ws, s = 16, 256
+        for C, heads in ((768, 12), (1024, 16)):
+            qkv = torch.randn((1, 32, 32, 3 * C), device=dev, generator=g).to(bf)
+            rel = torch.randn((1, s, s), device=dev, generator=g)
+            d = C // heads
+            t = qkv.reshape(1, 2, ws, 2, ws, 3, heads, d).permute(
+                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, 4, heads, s, d).contiguous()
+            for nB in (1, 4):
+                bias = rel if nB == 1 else (rel + torch.from_numpy(
+                    _full_shift_mask(2, 2, ws)).to(dev)).contiguous()
+                mask = bias.to(bf).expand(4, s, s)[:, None]
+                out[f"window_attention_bf16_c{C}_nb{nB}"] = self._bf16_row(
+                    lambda: ops.window_attention_nhwc(qkv, bias, scale, heads),
+                    lambda: ops.window_attention_nhwc_plain(qkv, bias, scale, heads),
+                    lambda: F.scaled_dot_product_attention(
+                        t[0], t[1], t[2], attn_mask=mask, scale=scale),
+                    lambda o: self._from_gsd(o.transpose(0, 1).reshape(heads * 4, s, d),
+                                             1, 32, 32, heads, ws),
+                    self._window_f64(qkv, bias, scale, heads),
+                    4 * 4 * heads * s * s * d, 32 * 32 * 4 * C * 2 + nB * s * s * 4)
+        self.kernels["window_attention_nhwc_bf16"] = out["window_attention_bf16_c768_nb4"]
+        q, k, v, bias = self._gsd_bench_inputs(g)
+        out["window_attention_gsd_bf16"] = self.kernels["window_attention_bf16"] = \
+            self._gsd_bf16_row(q.to(bf), k.to(bf), v.to(bf), bias, scale)
+        return out
+
+    def _gsd_bf16_row(self, q, k, v, bias, scale):
+        """Kernel 6's bf16 entry (f32 bias) as :meth:`_bf16_row` measures it."""
+        import torch.nn.functional as F
+
+        from sic_tpu_torch import ops
+        G, s, d = q.shape
+        nW = bias.shape[0]
+        qb, kb, vb = (t.view(G // nW, nW, s, d) for t in (q, k, v))
+        mask = bias.to(q.dtype)[None]
+        rec = self._bf16_row(
+            lambda: ops.window_attention(q, k, v, bias, scale),
+            lambda: ops.window_attention_plain(q, k, v, bias, scale),
+            lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask,
+                                                   scale=scale),
+            lambda o: o.reshape(G, s, d),
+            self._gsd_f64(q, k, v, bias, scale),
+            4 * G * s * s * d, 4 * G * s * d * 2 + nW * s * s * 4)
+        rec.update(shape=[G, s, d], nW=nW)
+        return rec
 
     @staticmethod
     def _seq_f64(qkv, scale, heads):
@@ -949,10 +1088,11 @@ class Smoke:
         (src / "golden.c2df").write_bytes((GOLDEN / "golden.c2df").read_bytes())
         decompress_main(["--dataset_dir", str(src), "--save_dir", str(dst),
                          "--spec", "tiny", "--ckpt_path", str(GOLDEN / "params.npz"),
-                         "--device", "cuda"])
+                         "--device", "cuda", "--dtype", "float32"])
         cli_max, cli_frac = bound(np.asarray(Image.open(dst / "golden.png")))
 
-        rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda")
+        rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
+                          dtype="float32")
         enc, header = unpack_c2df(GOLDEN / "golden.c2df")
         enc = sanitize_enc_result_types(enc)
         kw = dict(z_coder=header["z_coder"], coding_batch=header["coding_batch"],
@@ -990,7 +1130,7 @@ class Smoke:
         from sic_tpu_torch.config import tiny_spec
         from sic_tpu_torch.container import pack_c2df, unpack_c2df
         rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
-                          stream_part=1)
+                          stream_part=1, dtype="float32")
         encs, probes = {}, {}
         for path in ("host", "device"):
             rt.device_entropy = path
@@ -1052,7 +1192,8 @@ class Smoke:
         from sic_tpu_torch.data import load_image
         spec = flagship_spec()
         t0 = time.perf_counter()
-        rt = self.rt = load_runtime(None, spec, device="cuda", stream_part=4)
+        rt = self.rt = load_runtime(None, spec, device="cuda", stream_part=4,
+                                    dtype="float32")
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in rt.model.parameters())
         clip = self.clip = load_clip_codec(None, device="cuda")
@@ -1085,14 +1226,15 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         cli = compress_main(["--dataset_dir", str(src), "--save_dir", str(out_dir),
-                             "--spec", "flagship", "--device", "cuda"])
+                             "--spec", "flagship", "--device", "cuda",
+                             "--dtype", "float32"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t1
         encs, probes = {}, {}
         for mode in ("device", "host"):
             probes[mode] = {}
             encs[mode] = run(mode, probes[mode])
-        self.counts["encode"] = ops.launch_counts()
+        self.read_counts("encode")
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         # ---------------------------------------------------------------------
         rt.device_entropy = "auto"
@@ -1248,10 +1390,11 @@ class Smoke:
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         t1 = time.perf_counter()
         n_cli = decompress_main(["--dataset_dir", str(src), "--save_dir", str(dst),
-                                 "--spec", "flagship", "--device", "cuda"])
+                                 "--spec", "flagship", "--device", "cuda",
+                                 "--dtype", "float32"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t1
-        self.counts["decode"] = counts = ops.launch_counts()
+        counts = self.read_counts("decode")
         # -----------------------------------------------------------------------
 
         exact = {}
@@ -1485,8 +1628,9 @@ class Smoke:
         this phase drives as bench.py's kernel_check drives the JAX one:
         forward and gradient at kernel_check's geometry, and on the (G, s,
         d) relayout of one flagship Swin layer's real qkv (with its -inf
-        shift masks).  Then the layer's output against kernel 2's on the
-        same qkv, and the layer shape against the plain version, timed."""
+        shift masks), in f32 and through the bf16 entry (q, k, v in bf16).
+        Then the layer's output against kernel 2's on the same qkv, in both
+        dtypes, and the layer shape against the plain version, timed."""
         torch = self.torch
 
         from sic_tpu_torch import ops
@@ -1495,29 +1639,36 @@ class Smoke:
         qkv, bias, heads, scale = self._layer_qkv()
         B, H, W, _ = qkv.shape
         layer = (*self._to_gsd(qkv, heads, 16), bias)
+        bf = torch.bfloat16
+        bench_bf, layer_bf = ((*(t.to(bf) for t in x[:3]), x[3]) for x in (bench, layer))
 
         # -- the op's path: counts from 0, read right after ----------------------
         ops.reset_launch_counts()
-        for inputs, sc in ((bench, 64 ** -0.5), (layer, scale)):
+        for inputs, sc in ((bench, 64 ** -0.5), (layer, scale),
+                           (bench_bf, 64 ** -0.5), (layer_bf, scale)):
             self._gsd_grads(ops.window_attention, *inputs, sc)
         torch.cuda.synchronize()
-        self.counts["op"] = counts = ops.launch_counts()
+        counts = self.read_counts("op")
         # -------------------------------------------------------------------------
 
-        out6 = ops.window_attention(*layer, scale)
-        out2 = ops.window_attention_nhwc(qkv, bias, scale, heads)
-        vs_k2 = (self._from_gsd(out6, B, H, W, heads, 16) - out2).abs().max().item()
+        vs_k2 = {}
+        for name, x, lay in (("f32", qkv, layer), ("bf16", qkv.to(bf), layer_bf)):
+            out6 = ops.window_attention(*lay, scale)
+            out2 = ops.window_attention_nhwc(x, bias, scale, heads)
+            vs_k2[name] = ((self._from_gsd(out6, B, H, W, heads, 16).float()
+                            - out2.float()).abs().max() / out2.float().abs().max()).item()
         rec = {"layer": "prior_fusion.feat_in.block.1 (shifted), 512x512 request",
                "qkv_shape": list(qkv.shape), "heads": heads, "nW": bias.shape[0],
                "qkv_max_abs": qkv.abs().max().item(),
-               "vs_window_attention_nhwc_max_abs_err": vs_k2,
-               "vs_window_attention_nhwc_rel_err": vs_k2 / out2.abs().max().item(),
+               "vs_window_attention_nhwc_rel_err": vs_k2,
                "layer_check": self._gsd_check(*layer, scale),
-               "launches": counts,
+               "layer_check_bf16": self._gsd_bf16_row(*layer_bf, scale),
+               "launches": counts, "bf16_launches": self.bf16_counts["op"],
                "model_path_launches": {p: c.get("window_attention", 0)
                                        for p, c in self.counts.items() if p != "op"}}
         if counts["window_attention"] < 1 or \
-                rec["vs_window_attention_nhwc_rel_err"] > GSD_FWD_TOL:
+                self.bf16_counts["op"]["window_attention"] < 1 or \
+                max(vs_k2.values()) > GSD_FWD_TOL:
             raise AssertionError(f"window_attention op path: {rec}")
         return rec
 
@@ -1538,7 +1689,7 @@ class Smoke:
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
-            state = ServiceState("flagship", device="cuda")
+            state = ServiceState("flagship", device="cuda", dtype="float32")
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -1688,7 +1839,7 @@ class Smoke:
             "search_image": median_ms(lambda: post("/search/stream/image", val3_png, "v.png")),
             "search_text": median_ms(lambda: post("/search/stream/text", {"text": text}))}
         torch.cuda.synchronize()
-        self.counts["serve"] = counts = ops.launch_counts()
+        counts = self.read_counts("serve")
         # -------------------------------------------------------------------------
 
         # /compress then /decompress against the runtime on the same image
@@ -1831,7 +1982,7 @@ class Smoke:
             launches[name] = {k: after[k] - before[k] for k in after}
             gc.collect()
             torch.cuda.empty_cache()
-        self.counts["surface"] = counts = ops.launch_counts()
+        counts = self.read_counts("surface")
         # -----------------------------------------------------------------------
         rec = {**parts, "launches_by_part": launches, "launches": counts,
                "checks": ok}
@@ -1855,7 +2006,8 @@ class Smoke:
         rt = self.rt
         out = io.StringIO()
         t0 = time.perf_counter()
-        summary = evaluate_main(["--dataset_dir", str(HELDOUT), "--device", "cuda"],
+        summary = evaluate_main(["--dataset_dir", str(HELDOUT), "--device", "cuda",
+                                 "--dtype", "float32"],
                                 out=out)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
@@ -2005,7 +2157,8 @@ class Smoke:
         (root / "in").mkdir(parents=True)
         for i in range(4):
             shutil.copy(HELDOUT / f"val{i}.png", root / "in")
-        common = ["--base_config", str(cfg), "--device", "cuda", "--batch_size", "1"]
+        common = ["--base_config", str(cfg), "--device", "cuda", "--dtype", "float32",
+                  "--batch_size", "1"]
         t0 = time.perf_counter()
         compress_main(["--dataset_dir", str(root / "in"), "--save_dir",
                        str(root / "c"), *common])
@@ -2018,7 +2171,7 @@ class Smoke:
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
-            state = ServiceState(device="cuda")
+            state = ServiceState(device="cuda", dtype="float32")
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -2068,6 +2221,261 @@ class Smoke:
                 "ok": (n_dec == 4 and spec_name == "small" and all(served.values())
                        and train["global_step"] == 12
                        and train["epoch_for_strategy"] == 3)}
+
+    # -- the bf16 phase ----------------------------------------------------------
+    def bf16(self):
+        """The bf16 serving mode at flagship width, on load_runtime's
+        default (bf16 on CUDA, as the JAX package serves on an
+        accelerator): encode_only of the 512x512 and 256x768 images and
+        encode_only_batched of the eight 256x256 (the encode kernel's
+        coder, as phase 4 drives it; the router picks the host coder for
+        these), each stream decoding to
+        its encoder's y_hat exactly through the bf16 and the fp32 runtime;
+        decode_only and decode_only_batched of the decode phase's streams
+        (h_hat equal to y_hat; pixels against the fp32 runtime's within the
+        bound fixtures/golden_bf16.py derives from the JAX package's own
+        bf16-vs-fp32 gap); the compress and decompress CLIs and one served
+        /compress and /decompress, none given a dtype; then request times
+        of bf16 beside fp32 and one profiled bf16 decode."""
+        import gc
+
+        import numpy as np
+        torch = self.torch
+        from PIL import Image
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.cli._common import load_runtime
+        from sic_tpu_torch.cli.compress import main as compress_main
+        from sic_tpu_torch.cli.decompress import main as decompress_main
+        from sic_tpu_torch.config import flagship_spec
+        from sic_tpu_torch.container import unpack_c2df
+        from sic_tpu_torch.data import load_image
+        sys.path.insert(0, str(ROOT / "tests"))
+        from fixtures.golden_bf16 import GAP_MULTIPLE, JAX_GAP_MAX, JAX_GAP_MEAN
+        rt32 = self.rt
+        t0 = time.perf_counter()
+        rt = load_runtime(None, flagship_spec(), device="cuda", stream_part=4)
+        init_s = time.perf_counter() - t0
+        same_weights = all(torch.equal(a, b) for a, b in
+                           zip(rt.model.parameters(), rt32.model.parameters()))
+        src = WORK / "encode_in"
+        img = {p.stem: load_image(p) for p in sorted(src.glob("*.png"))}
+        x = {"a_512x512": img["a_512x512"][None], "b_256x768": img["b_256x768"][None],
+             "group_of_8": np.stack([img[f"c_256x256_{i}"] for i in range(8)])}
+        requests = {k: {f: v for f, v in e.items() if f != "y_hat"}
+                    for k, e in self.requests.items()}
+        group = [f"c_256x256_{i}" for i in range(4)]
+
+        def encode(probes=None):
+            def probe(k):
+                return None if probes is None else probes.setdefault(k, {})
+            out = {k: rt.encode_only(x[k], probe=probe(k)) for k in ("a_512x512", "b_256x768")}
+            out["group_of_8"] = rt.encode_only_batched(x["group_of_8"], probe=probe("group_of_8"))
+            return out
+
+        def decode(r, output="float", probes=None):
+            def probe(k):
+                return None if probes is None else probes.setdefault(k, {})
+            out = {k: r.decode_only(**requests[k], output=output, probe=probe(k))
+                   for k in ("a_512x512", "b_256x768")}
+            out["group_of_4"] = r.decode_only_batched([requests[k] for k in group],
+                                                      output=output, probe=probe("group_of_4"))
+            torch.cuda.synchronize()
+            return out
+
+        encode()          # warm-up (cuBLAS/cuDNN handles), not counted
+        decode(rt)
+
+        # -- the bf16 main path: counts from 0, read right after ---------------------
+        ops.reset_launch_counts()
+        enc_probes, dec_probes = {}, {}
+        rt.device_entropy = "device"     # the encode kernel's coder, as phase 4
+        encs = encode(enc_probes)
+        rt.device_entropy = "auto"
+        x_bf = decode(rt, probes=dec_probes)
+        cli_in, cli_out = WORK / "bf16_cli_in", WORK / "bf16_cli_out"
+        shutil.rmtree(cli_in, ignore_errors=True)
+        cli_in.mkdir(parents=True)
+        shutil.copy(src / "a_512x512.png", cli_in)
+        shutil.copy(src / "c_256x256_0.png", cli_in)
+        t1 = time.perf_counter()
+        cli = compress_main(["--dataset_dir", str(cli_in), "--save_dir", str(cli_out),
+                             "--spec", "flagship", "--device", "cuda"])
+        n_dec = decompress_main(["--dataset_dir", str(cli_out / "bitstreams"),
+                                 "--save_dir", str(cli_out / "png"), "--spec", "flagship",
+                                 "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        served = self._bf16_serve(src / "a_512x512.png")
+        torch.cuda.synchronize()
+        counts = self.read_counts("bf16")
+        bf16_counts = self.bf16_counts["bf16"]
+        # ------------------------------------------------------------------------------
+
+        # every stream the bf16 encode wrote decodes to its y_hat in both dtypes
+        exact = {}
+        for name, r in (("bf16", rt), ("fp32", rt32)):
+            for k in ("a_512x512", "b_256x768"):
+                d = {}
+                r.decode_only(**encs[k], coding_batch=8, probe=d)
+                exact[f"encode_{k}_{name}"] = bool(torch.equal(d["h_hat"],
+                                                               enc_probes[k]["y_hat"]))
+            d = {}
+            r.decode_only_batched([dict(e, coding_batch=8) for e in encs["group_of_8"]],
+                                  probe=d)
+            exact[f"encode_group_of_8_{name}"] = bool(torch.equal(
+                d["h_hat"], enc_probes["group_of_8"]["y_hat"]))
+        # the decode phase's streams: the encoder's y_hat, pixels near fp32's
+        for k in ("a_512x512", "b_256x768"):
+            exact[f"decode_{k}"] = bool(torch.equal(dec_probes[k]["h_hat"],
+                                                    self.requests[k]["y_hat"]))
+        exact["decode_group_of_4"] = bool(torch.equal(
+            dec_probes["group_of_4"]["h_hat"],
+            torch.cat([self.requests[k]["y_hat"] for k in group])))
+        x32 = decode(rt32)
+        pixels = {k: {"max_abs_diff": (x_bf[k] - x32[k]).abs().max().item(),
+                      "mean_abs_diff": (x_bf[k] - x32[k]).abs().mean().item()}
+                  for k in x_bf}
+        bound = {"max": GAP_MULTIPLE * JAX_GAP_MAX, "mean": GAP_MULTIPLE * JAX_GAP_MEAN}
+        # the CLIs' files: the runtime's bytes for the same image, PNGs written
+        cli_a = unpack_c2df(cli_out / "bitstreams" / "a_512x512.c2df")[0]
+        cli_equal = (cli_a["h_bit_stream"] == encs["a_512x512"]["h_bit_stream"]
+                     and cli_a["z_bit_stream"] == encs["a_512x512"]["z_bit_stream"])
+        png = np.asarray(Image.open(cli_out / "png" / "a_512x512.png"))
+        timing = self._bf16_timing(rt, rt32, x, requests, group)
+        rec = {"spec": "flagship", "dtype": str(rt.dtype).replace("torch.", ""),
+               "init_s": round(init_s, 3), "same_weights_as_fp32_runtime": same_weights,
+               "h_hat_bit_exact": exact, "pixels_vs_fp32": pixels,
+               "pixel_bound": bound,
+               "pixel_bound_source": "fixtures/golden_bf16.py: 2 x the JAX package's "
+                                     "bf16-vs-fp32 gap on golden.c2df (CPU)",
+               "cli": cli, "cli_files": n_dec, "cli_s": round(cli_s, 3),
+               "cli_streams_equal_runtime": cli_equal, "cli_png_shape": list(png.shape),
+               "served": served, "launches": counts, "bf16_launches": bf16_counts,
+               "h_paths": {k: v.get("h_path")
+                           for k, v in {**enc_probes, **dec_probes}.items()},
+               **timing}
+        rt.close()
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+        need = ("seq_attention", "window_attention_nhwc")
+        if not (rec["dtype"] == "bfloat16" and same_weights and all(exact.values())
+                and all(p["max_abs_diff"] <= bound["max"]
+                        and p["mean_abs_diff"] <= bound["mean"] for p in pixels.values())
+                and cli["images"] == 2 and n_dec == 2 and cli_equal
+                and png.shape == (512, 512, 3) and served["ok"]
+                and min(bf16_counts[k] for k in need) >= 1
+                and counts["rans_decode_plane"] >= 1 and counts["rans_encode_plane"] >= 1
+                and counts["window_attention"] == 0
+                and {enc_probes[k]["h_path"] for k in enc_probes} == {"device"}):
+            raise AssertionError(f"bf16 phase: {rec}")
+        return rec
+
+    def _bf16_serve(self, image):
+        """One /compress and one /decompress of the service with no dtype
+        given (its default, bf16 on CUDA): its runtime's dtype, the
+        response headers, and its PNG against the served stream decoded by
+        that runtime."""
+        import gc
+        import io
+        import os
+
+        import numpy as np
+        torch = self.torch
+        from PIL import Image
+
+        from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
+        from sic_tpu_torch.service import ServiceState, make_server
+        env = {"INDEX_DIR": str(WORK / "encode_out" / "faiss"),
+               "MEDIA_ROOT": str(WORK), "PREVIEW_CACHE": str(WORK / "previews")}
+        saved = {k: os.environ.get(k) for k in (*env, "SIC_DTYPE")}
+        os.environ.update(env)
+        os.environ.pop("SIC_DTYPE", None)
+        try:
+            state = ServiceState("flagship", device="cuda")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        srv = make_server(state, host="127.0.0.1", port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def post(path, payload, name):
+            body, ctype = _multipart(name, payload)
+            req = urllib.request.Request(base + path, data=body,
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.read(), dict(resp.headers)
+
+        try:
+            c2df, hdr_c = post("/compress", image.read_bytes(), image.name)
+            png, hdr_d = post("/decompress", c2df, "a.c2df")
+            rt = state.runtime
+            enc, header = unpack_c2df(c2df)
+            enc = dict(sanitize_enc_result_types(enc), z_coder=header["z_coder"],
+                       coding_batch=header["coding_batch"])
+            want = rt.decode_only(**enc, output="u8")[0].cpu().numpy()
+            rec = {"dtype": str(rt.dtype).replace("torch.", ""),
+                   "compress_stage": hdr_c.get("X-SIC-Stage"),
+                   "decompress_stage": hdr_d.get("X-SIC-Stage"),
+                   "png_equals_decode_only": bool(np.array_equal(
+                       np.asarray(Image.open(io.BytesIO(png))), want))}
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join()
+            state.close()
+            del state, srv, th
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["ok"] = (rec["dtype"] == "bfloat16" and rec["png_equals_decode_only"]
+                     and rec["decompress_stage"] == "decompress")
+        return rec
+
+    def _bf16_timing(self, rt, rt32, x, requests, group, reps=5):
+        """Request times, median of ``reps``, of the bf16 and the fp32
+        runtime in turns (fp32, bf16), the encode kernel's coder on both;
+        and one profiled bf16 decode of the 512x512 stream."""
+        import statistics
+        torch = self.torch
+
+        def median_ms(fn):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        calls = {
+            "encode_a_512x512": lambda r: r.encode_only(x["a_512x512"]),
+            "encode_b_256x768": lambda r: r.encode_only(x["b_256x768"]),
+            "encode_group_of_8": lambda r: r.encode_only_batched(x["group_of_8"]),
+            "decode_a_512x512": lambda r: r.decode_only(**requests["a_512x512"],
+                                                        output="u8"),
+            "decode_b_256x768": lambda r: r.decode_only(**requests["b_256x768"],
+                                                        output="u8"),
+            "decode_group_of_4": lambda r: r.decode_only_batched(
+                [requests[k] for k in group], output="u8")}
+        out = {"fp32": {}, "bf16": {}}
+        for r in (rt, rt32):
+            r.device_entropy = "device"
+        try:
+            for name, fn in calls.items():
+                for tag, r in (("fp32", rt32), ("bf16", rt)):
+                    out[tag][name] = median_ms(lambda: fn(r))
+        finally:
+            for r in (rt, rt32):
+                r.device_entropy = "auto"
+        return {"request_ms_p50": out,
+                "profile_decode_512x512": self._profile(
+                    lambda: rt.decode_only(**requests["a_512x512"], output="u8"))}
 
     # -- phase 9 ----------------------------------------------------------------
     def train(self):
@@ -2153,7 +2561,7 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         cli = self._train_cli()
-        self.counts["train"] = counts = ops.launch_counts()
+        counts = self.read_counts("train")
         # ----------------------------------------------------------------------
         rec = {"spec": "flagship", "dtype": "float32", "init_s": round(init_s, 3),
                "stages_run": stages_run, "steps": {k: len(v) for k, v in step_ms.items()},
@@ -2210,12 +2618,15 @@ class Smoke:
         shutil.copy(WORK / "encode_in" / "a_512x512.png", src / "a_512x512.png")
         t0 = time.perf_counter()
         compress_main(["--dataset_dir", str(src), "--save_dir", str(TRAIN_WORK / "c"),
-                       "--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda"])
+                       "--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda",
+                       "--dtype", "float32"])
         n_dec = decompress_main(["--dataset_dir", str(TRAIN_WORK / "c" / "bitstreams"),
                                  "--save_dir", str(TRAIN_WORK / "d"), "--ckpt_path",
-                                 str(deploy), "--spec", "flagship", "--device", "cuda"])
+                                 str(deploy), "--spec", "flagship", "--device", "cuda",
+                                 "--dtype", "float32"])
         rec["cli_round_trip_s"] = round(time.perf_counter() - t0, 3)
-        rt = load_runtime(str(deploy), flagship_spec(), device="cuda", stream_part=4)
+        rt = load_runtime(str(deploy), flagship_spec(), device="cuda", stream_part=4,
+                          dtype="float32")
         probe, dec = {}, {}
         enc = rt.encode_only(load_image(src / "a_512x512.png")[None], probe=probe)
         rt.decode_only(**enc, coding_batch=8, probe=dec)
@@ -2395,14 +2806,22 @@ class Smoke:
                                        "sic_tpu/ops/rans_encode.py:77"),
                  "window_attention": ("sic_tpu_torch/csrc/window_attention_gsd.cu",
                                       "sic_tpu/ops/window_attention.py:27")}
+        from sic_tpu_torch.ops import BF16_ENTRIES
+        entries = [(name, entry) for name in names
+                   for entry in (("", "_bf16") if name in BF16_ENTRIES else ("",))]
         rows = []
-        for name, (source, replaces) in names.items():
-            k = self.kernels.get(name, {})
-            # launches over the main-path runs (encode, decode, the
-            # (G, s, d) op, serving, training)
-            launches = sum(c.get(name, 0) for c in self.counts.values())
-            rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, "launches": launches,
+        for name, entry in entries:
+            source, replaces = names[name]
+            k = self.kernels.get(name + entry, {})
+            # launches over the main-path runs (encode, decode, the (G, s,
+            # d) op, serving, the surface, bf16 serving, training), of the
+            # bf16 entry and of the f32 one apart
+            total = sum(c.get(name, 0) for c in self.counts.values())
+            bf16 = sum(c.get(name, 0) for c in self.bf16_counts.values())
+            rows.append({"name": name + entry, "route": "cuda", "source": source,
+                         "dtype": "bfloat16" if entry else "float32",
+                         "replaces": replaces,
+                         "launches": bf16 if entry else total - bf16,
                          "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
                          "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                          "bound_by": k.get("bound_by"),
@@ -2441,6 +2860,7 @@ def main() -> int:
         smoke.phase("op", smoke.op)
         smoke.phase("serve", smoke.serve)
         smoke.phase("surface", smoke.surface)
+        smoke.phase("bf16", smoke.bf16)
         smoke.phase("train", smoke.train)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)

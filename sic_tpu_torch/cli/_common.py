@@ -12,6 +12,7 @@ import torch
 
 from ..config import CodecSpec, flagship_spec
 from ..models import Codec, CodecRuntime, resolve_device
+from ..models.codec import resolve_dtype
 from ..weights import init_seeded, load_npz
 
 
@@ -57,10 +58,14 @@ def cli_config(parser, args):
 def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = None,
                  device=None, stream_part: int = 4,
                  base_config: Optional[str] = None,
-                 z_format: str = "rans") -> CodecRuntime:
-    """A fp32 CodecRuntime on ``device`` (CUDA unless named), of ``spec`` or
-    of the YAML ``base_config`` (not both; flagship without either).
+                 z_format: str = "rans", dtype=None) -> CodecRuntime:
+    """A CodecRuntime on ``device`` (CUDA unless named), of ``spec`` or of
+    the YAML ``base_config`` (not both; flagship without either).
 
+    ``dtype``: the networks' compute dtype.  ``None`` (or ``"auto"``)
+    follows the JAX package's ``load_runtime``: bf16 on an accelerator
+    (here CUDA), fp32 on the CPU; ``"float32"`` / ``"bfloat16"`` (or the
+    torch dtypes) pick one.  The coding chain is fp32 in both.
     ``stream_part``: rANS substreams per stream this runtime writes;
     decoding reads the count from each stream.  ``z_format``: the semantic
     stream's format it writes.  Without ``ckpt_path`` it warns and uses the
@@ -73,7 +78,18 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
         print("[WARN] no --ckpt_path given; running with random weights",
               file=sys.stderr)
     model = build_model(spec, dev, ckpt_path)
-    return CodecRuntime(spec, model, stream_part=stream_part, z_format=z_format)
+    return CodecRuntime(spec, model, stream_part=stream_part, z_format=z_format,
+                        dtype=resolve_dtype(dtype, dev))
+
+
+def add_dtype_arg(parser) -> None:
+    """``--dtype``: the CLIs' counterpart of the JAX ``load_runtime``'s
+    dtype, surfaced as ``--device`` surfaces its platform."""
+    parser.add_argument("--dtype", choices=["auto", "float32", "bfloat16"],
+                        default="auto",
+                        help="compute dtype of the networks (default auto: "
+                             "bfloat16 on CUDA, float32 on the CPU, as the "
+                             "JAX package picks); the coding chain is fp32")
 
 
 def load_clip_codec(clip_ckpt: Optional[str] = None,

@@ -3,7 +3,8 @@
     python -m sic_tpu_torch.cli.compress --dataset_dir DIR --save_dir OUT
         [--ckpt_path params.npz] [--clip_ckpt open_clip.pt]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
-        [--device cuda] [--batch_size 8] [--stream_part 4]
+        [--device cuda] [--dtype auto|float32|bfloat16] [--batch_size 8]
+        [--stream_part 4]
 
 Same output layout as the reference's compress script (reference:
 src/compress.py:203-333): per image pad to 256 (replicate),
@@ -25,8 +26,8 @@ from ..container import pack_c2df
 from ..data import list_images, load_image, shard_list
 from ..models import get_padding_size, pad_replicate
 from ..retrieval import VectorIndex
-from ._common import (cli_config, init_func, load_clip_codec, load_runtime,
-                      progress)
+from ._common import (add_dtype_arg, cli_config, init_func, load_clip_codec,
+                      load_runtime, progress)
 
 
 def c2df_header(rt, clip_meta: dict, hw, pads) -> dict:
@@ -143,13 +144,14 @@ def main(argv=None):
                         default=None, help="model preset (default flagship)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' to run there)")
+    add_dtype_arg(parser)
     args = parser.parse_args(argv)
 
     init_func()
     t0 = time.time()
     spec = cli_config(parser, args).spec
     rt = load_runtime(args.ckpt_path, spec, device=args.device,
-                      stream_part=args.stream_part)
+                      stream_part=args.stream_part, dtype=args.dtype)
     try:
         clip_codec = load_clip_codec(args.clip_ckpt, device=args.device)
         n = compress_dir(rt, clip_codec, args.dataset_dir, args.save_dir,

@@ -3,7 +3,7 @@
     python -m sic_tpu_torch.cli.decompress --dataset_dir DIR --save_dir OUT
         [--ckpt_path params.npz]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
-        [--device cuda] [--batch_size 8]
+        [--device cuda] [--dtype auto|float32|bfloat16] [--batch_size 8]
 
 (reference: src/decompress.py:79-140 — unpack, decode_only, negative-pad
 crop, save.)  Same-shaped files are decoded in device-batched groups of up
@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 from ..container import sanitize_enc_result_types, unpack_c2df
-from ._common import cli_config, load_runtime, save_png
+from ._common import add_dtype_arg, cli_config, load_runtime, save_png
 
 
 def _crop_and_save(save_dir, stem, img, header):
@@ -80,11 +80,12 @@ def main(argv=None):
                         help="torch device (default: cuda; 'cpu' to run there)")
     parser.add_argument("--batch_size", type=int, default=8,
                         help="files of one geometry decoded together")
+    add_dtype_arg(parser)
     args = parser.parse_args(argv)
 
     t0 = time.time()
     spec = cli_config(parser, args).spec
-    rt = load_runtime(args.ckpt_path, spec, device=args.device)
+    rt = load_runtime(args.ckpt_path, spec, device=args.device, dtype=args.dtype)
     try:
         n = decompress_dir(rt, args.dataset_dir, args.save_dir,
                            batch_size=args.batch_size)

@@ -1,18 +1,20 @@
 // Tensor-core body of the attention forwards, for Hopper (sm_90a): the
 // sequence (kernel 1), NHWC window (kernel 2) and (G, s, d) window
 // (kernel 6) attention, and the row statistics of the NHWC backward
-// (kernel 5's first pass).  fp32 attention on the tensor cores in split
-// TF32 (3xTF32), tiles loaded by TMA into a shared-memory ring, online
-// softmax on the wgmma accumulator fragments.
+// (kernel 5's first pass).  Two bodies over one plan: fp32 attention in
+// split TF32 (3xTF32, `attend_tf32`) and bf16 attention with f32
+// accumulation (`attend_bf16`, kernels 1, 2 and 6 only); tiles loaded by
+// TMA into a shared-memory ring, online softmax in f32 on the wgmma
+// accumulator fragments, the softmax steps and the epilogue shared.
 //
 // One block holds NWG consumer warpgroups (128 threads each); warpgroup w
 // owns query rows [64 w, 64 w + 64) of the block's tile of 64 * NWG rows,
 // and all of them share each 64-key tile of k, v (and of the bias).  No
 // producer warp: thread 0 issues the TMA loads, two key tiles ahead.
 //
-// Numbers.  Every product is fp32 accuracy from three TF32 products: each
-// operand x is split as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi),
-// and a.b is summed as lo.hi + hi.lo + hi.hi, small terms first, into one
+// Numbers (split TF32).  Every product is fp32 accuracy from three TF32
+// products: each operand x is split as hi = cvt.rna.tf32(x), lo =
+// cvt.rna.tf32(x - hi), and a.b is summed as lo.hi + hi.lo + hi.hi, small terms first, into one
 // f32 accumulator (the lo.lo term is below f32's rounding).  q is scaled
 // before it is split.  A single TF32 pass errs by about 1e3 times plain
 // f32 (tests/test_torch_attention_tf32.py pins this on the CPU).  The
@@ -23,8 +25,13 @@
 // key tile through the output accumulator instead erred 3-4 times more
 // than plain f32 against an f64 reference on an H100 (PERF.md).
 //
-// Operand layouts.  tf32 wgmma takes both operands K-major (the transpose
-// bits exist only for 16-bit types):
+// The bf16 body (see `attend_bf16`) has no split and stages nothing: one
+// k16 wgmma per 16-deep step, v read MN-major as it lands, P from the
+// logits fragment as it lies; its bf16 rounding of the probabilities and
+// of the output is what the JAX package's bf16 mode rounds.
+//
+// Operand layouts (split TF32).  tf32 wgmma takes both operands K-major
+// (the transpose bits exist only for 16-bit types):
 //   * S = (q scale) k^T: K = head dim.  q is the register A operand (its
 //     hi and lo fragments stay in registers for the whole block); k rows
 //     lie with d contiguous, so the TMA tile is B as it lands, split in
@@ -37,8 +44,9 @@
 //     memory: logical k = kk of a chunk holds key 2 kk (kk < 4) or
 //     2 (kk - 4) + 1.  The sum over keys is the same set of products.
 //
-// Memory.  128-byte swizzle on every operand tile (a head row of 64 floats
-// arrives as two 32-float boxes, one per swizzle atom along K); all tiles
+// Memory (split TF32; the bf16 plan is `Plan16`).  128-byte swizzle on
+// every operand tile (a head row of 64 floats arrives as two 32-float
+// boxes, one per swizzle atom along K); all tiles
 // start on 1024-byte boundaries.  Per ring stage: k (16 KB, split in
 // place to hi), v (16 KB, raw), and with a bias (kernels 2, 5 and 6) its
 // tile (16 KB a warpgroup).  Beside the ring: k lo, v^T hi, v^T lo (48 KB), where the q
@@ -54,6 +62,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -251,34 +260,181 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// -- bf16 --------------------------------------------------------------------
+
+// d (64 x 64 f32, wgmma fragment) (+)= a (64 x 16 bf16, register fragment)
+// . b (16 x 64 bf16 in shared memory at `desc`): kTransB 0 reads b K-major
+// (its 16 K values of a column contiguous), 1 MN-major (its 64 columns of a
+// K row contiguous), which 16-bit wgmma can take from a swizzled tile
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint32_t a0,
+                                                     uint32_t a1, uint32_t a2,
+                                                     uint32_t a3, uint64_t desc,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// Byte offset of element (r, c), c < 64, of a bf16 tile of 64-element rows
+// (one 128-byte swizzle row each, the TMA's SWIZZLE_128B layout).
+__device__ __forceinline__ uint32_t swz16(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + ((c & 7) << 1);
+}
+
+// two floats -> one register of two bf16, round to nearest even; lo in
+// the low half (the lower column of a wgmma fragment pair)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared-memory plan of the bf16 body: a 64-row tile of one head is 64 x
+// 64 bf16, one 8 KB box (a head row is one 128-byte swizzle row).  Per ring
+// stage: k, v (8 KB each) and, with a bias, its f32 tile (16 KB a
+// warpgroup, laid out as in Plan); the q tile beside the ring.
+template <int NWG, bool kBias>
+struct Plan16 {
+  static constexpr int kRows = NWG * kWgRows;
+  static constexpr int kBiasBytes = kBias ? NWG * kTileBytes : 0;
+  static constexpr int kStageBytes = 2 * kBoxBytes + kBiasBytes;
+  static constexpr int kK = 0;                       // within a stage
+  static constexpr int kV = kBoxBytes;
+  static constexpr int kB = 2 * kBoxBytes;
+  static constexpr int kQ = kStages * kStageBytes;
+  static constexpr int kBar = kQ + NWG * kBoxBytes;
+  static constexpr int kBytes = kBar + 64;
+  static constexpr int kAlloc = kBytes + 1024;       // slack to align the base
+};
+
 // -- the body ----------------------------------------------------------------
 
 // A Geo with `static constexpr bool kStats = true` takes the backward's row
-// statistics instead of the output rows (see `attend`).
+// statistics instead of the output rows (see `attend_tf32`).
 template <class G, class = void>
 struct WritesStats : std::false_type {};
 template <class G>
 struct WritesStats<G, std::void_t<decltype(G::kStats)>>
     : std::bool_constant<G::kStats> {};
 
+// The steps the two bodies share, on a thread's fragment of one 64-key
+// tile of logits: slot 4j+e holds row r0 + 8 (e >> 1), key 8j + 2t + (e & 1).
+
+// adds the f32 bias tile (rows r0 and r0 + 8 of a stage's tile of `rows`
+// rows), masks keys past n to -inf, and returns each row's largest logit
+// over the four lanes of the row
+template <bool kBias>
+__device__ __forceinline__ void bias_mask_max(float (&s)[32], const uint8_t* btile,
+                                              int rows, int r0, int t, int k0,
+                                              int n, float (&tmax)[2]) {
+  const float NEG_INF = -INFINITY;
+  tmax[0] = tmax[1] = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e >> 1;
+      const int kc = 8 * j + 2 * t + (e & 1);
+      float v = s[4 * j + e];
+      if constexpr (kBias) {
+        v += *reinterpret_cast<const float*>(btile + swz(rows, r0 + 8 * row, kc));
+      }
+      if (k0 + kc >= n) v = NEG_INF;
+      s[4 * j + e] = v;
+      tmax[row] = fmaxf(tmax[row], v);
+    }
+  }
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    tmax[row] = fmaxf(tmax[row], __shfl_xor_sync(0xffffffffu, tmax[row], 1));
+    tmax[row] = fmaxf(tmax[row], __shfl_xor_sync(0xffffffffu, tmax[row], 2));
+  }
+}
+
+// the online-softmax update of the running max m from the tile's row
+// maxima: alpha rescales the rows' running sums, m_use is the max the
+// tile's exponentials are taken against (0 while a row has seen only -inf)
+__device__ __forceinline__ void softmax_rescale(const float (&tmax)[2], float (&m)[2],
+                                                float (&alpha)[2],
+                                                float (&m_use)[2]) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const float m_new = fmaxf(m[row], tmax[row]);
+    m_use[row] = (m_new == -INFINITY) ? 0.f : m_new;
+    alpha[row] = expf(m[row] - m_use[row]);  // 0 while m is still -inf
+    m[row] = m_new;
+  }
+}
+
+// l = l alpha + the tile's row sums (over the four lanes of a row)
+__device__ __forceinline__ void update_sums(float (&psum)[2], const float (&alpha)[2],
+                                            float (&l)[2]) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    psum[row] += __shfl_xor_sync(0xffffffffu, psum[row], 1);
+    psum[row] += __shfl_xor_sync(0xffffffffu, psum[row], 2);
+    l[row] = l[row] * alpha[row] + psum[row];
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the output rows r0 and r0 + 8 of the tile, 16 columns each: O / l,
+// rounded once to the output's type
+template <class Geo>
+__device__ __forceinline__ void write_rows(const Geo& geo, const float (&o)[32],
+                                          const float (&l)[2], int q0, int r0,
+                                          int t, int n) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int qi = q0 + r0 + 8 * row;
+    if (qi < n) {
+      const float inv = 1.f / l[row];
+      auto* orow = geo.out_row(qi);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store_pair(orow + 8 * j + 2 * t, o[4 * j + 2 * row] * inv,
+                   o[4 * j + 2 * row + 1] * inv);
+    }
+  }
+}
+
 // Geo supplies the tile loads and the output rows of one (sequence or
 // window, head):
 //   load(dst, bar, which, half, row0): TMA box of 64 rows starting at token
 //     row0 of q (which 0), k (1) or v (2), channels [32 half, 32 half + 32)
-//     of the head;
+//     of the head (f32; a bf16 box is the whole head, half 0);
 //   load_bias(dst, bar, half, qrow0, k0): bias rows qrow0.., keys
 //     k0 + 32 half..;
-//   out_row(t): the head's 64 output floats of token t;
+//   out_row(t): the head's 64 output values of token t (float or bf16);
 // or, with kStats, g_row(t) (the head's 64 floats of the output gradient
 // at token t) and write_stats(t, lse, D): the epilogue then writes
 // lse = m + log l and D = sum_d g_d O_d for each query row instead of O.
-// T is the operand type; the one entry point today is float (split TF32),
-// the slot a bf16 entry would take.
-template <typename T, int NWG, bool kBias, class Geo>
-__device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
-                                       int q0, uint8_t* smem_raw) {
-  static_assert(std::is_same<T, float>::value,
-                "the split-TF32 body takes f32 operands");
+
+// The split-TF32 body (f32 operands).
+template <int NWG, bool kBias, class Geo>
+__device__ __forceinline__ void attend_tf32(const Geo& geo, int n, float scale,
+                                            int q0, uint8_t* smem_raw) {
   using P = Plan<NWG, kBias>;
   constexpr int kThreads = NWG * 128;
   uint8_t* smem = align1024(smem_raw);
@@ -414,36 +570,11 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
     wgmma_wait_all();
     fence_regs(s);
 
-    // online softmax; fragment slot 4j+e holds row r0 + 8 (e >> 1), key
-    // 8j + 2t + (e & 1)
-    const int k0 = i * kKeyTile;
-    float tmax[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e >> 1;
-        const int kc = 8 * j + 2 * t + (e & 1);
-        float v = s[4 * j + e];
-        if constexpr (kBias) {
-          v += *reinterpret_cast<const float*>(
-              stage + P::kB + swz(P::kRows, r0 + 8 * row, kc));
-        }
-        if (k0 + kc >= n) v = NEG_INF;
-        s[4 * j + e] = v;
-        tmax[row] = fmaxf(tmax[row], v);
-      }
-    }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      tmax[row] = fmaxf(tmax[row], __shfl_xor_sync(0xffffffffu, tmax[row], 1));
-      tmax[row] = fmaxf(tmax[row], __shfl_xor_sync(0xffffffffu, tmax[row], 2));
-      const float m_new = fmaxf(m[row], tmax[row]);
-      m_use[row] = (m_new == NEG_INF) ? 0.f : m_new;
-      alpha[row] = expf(m[row] - m_use[row]);  // 0 while m is still -inf
-      m[row] = m_new;
-    }
+    // online softmax
+    float tmax[2], alpha[2], m_use[2];
+    bias_mask_max<kBias>(s, stage + P::kB, P::kRows, r0, t, i * kKeyTile, n,
+                         tmax);
+    softmax_rescale(tmax, m, alpha, m_use);
     float psum[2] = {0.f, 0.f};
     uint32_t phi[32], plo[32];
 #pragma unroll
@@ -459,12 +590,7 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
         split(p, phi[4 * j + slot], plo[4 * j + slot]);
       }
     }
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      psum[row] += __shfl_xor_sync(0xffffffffu, psum[row], 1);
-      psum[row] += __shfl_xor_sync(0xffffffffu, psum[row], 2);
-      l[row] = l[row] * alpha[row] + psum[row];
-    }
+    update_sums(psum, alpha, l);
 
     // this tile's P v (lo.hi, hi.lo, hi.hi) in a fresh accumulator, then
     // O = alpha O + P v on the CUDA cores
@@ -519,31 +645,194 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
         geo.write_stats(qi, m[row] + logf(l[row]), dot / l[row]);
     }
   } else {
-    // epilogue: rows r0 and r0 + 8 of the tile, 16 floats each
+    write_rows(geo, o, l, q0, r0, t, n);
+  }
+}
+
+// The bf16 body: bf16 operands, f32 accumulation, one wgmma of k16 per
+// 16-deep step and no split.  q is the register A operand of S = q k^T
+// (K = the head dim; its fragments read once from the landed tile), k the
+// K-major B operand as TMA lands it; the logits are scaled, biased and
+// masked in f32, the online softmax runs in f32, and the unnormalised
+// probabilities exp(s - m), rounded to bf16, are the register A operand of
+// O = P v straight from the logits fragment (for 16-bit types the
+// accumulator's slots of keys 16kk.. are exactly the A fragment of step
+// kk); v is the MN-major B operand as TMA lands it (the transpose bit), so
+// nothing is staged.  Each key tile's P v goes to a fresh accumulator and
+// O = alpha O + P v is an f32 FMA, as in the split-TF32 body; O / l is
+// rounded once to bf16.
+template <int NWG, bool kBias, class Geo>
+__device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
+                                            int q0, uint8_t* smem_raw) {
+  static_assert(!WritesStats<Geo>::value, "the bf16 body writes output rows");
+  using P = Plan16<NWG, kBias>;
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
+  uint64_t* qbar = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wg * kWgRows + warp * 16 + g;  // rows r0 and r0 + 8 of the tile
+  const int ntiles = (n + kKeyTile - 1) / kKeyTile;
+  const float NEG_INF = -INFINITY;
+
+  auto issue_tile = [&](int i, int st) {
+    uint8_t* stage = smem + st * P::kStageBytes;
+    mbar_expect_tx(&full[st], P::kStageBytes);
+    const int k0 = i * kKeyTile;
+    geo.load(stage + P::kK, &full[st], 1, 0, k0);
+    geo.load(stage + P::kV, &full[st], 2, 0, k0);
+    if constexpr (kBias) {
 #pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      const int qi = q0 + r0 + 8 * row;
-      if (qi < n) {
-        const float inv = 1.f / l[row];
-        float* orow = geo.out_row(qi);
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = make_float2(
-              o[4 * j + 2 * row] * inv, o[4 * j + 2 * row + 1] * inv);
-        }
+        for (int b = 0; b < NWG; ++b)
+          geo.load_bias(stage + P::kB + h * NWG * kBoxBytes + b * kBoxBytes,
+                        &full[st], h, q0 + b * kBoxRows, k0);
+    }
+  };
+
+  init_bars(full, kStages + 1);  // the ring's and q's
+  if (tid == 0) {
+    mbar_expect_tx(qbar, NWG * kBoxBytes);
+#pragma unroll
+    for (int b = 0; b < NWG; ++b)
+      geo.load(smem + P::kQ + b * kBoxBytes, qbar, 0, 0, q0 + b * kBoxRows);
+    for (int i = 0; i < kStages && i < ntiles; ++i) issue_tile(i, i);
+  }
+
+  // q as A fragments: step kk, registers (r0, 16kk+2t..), (r0+8, 16kk+2t..),
+  // (r0, 16kk+8+2t..), (r0+8, 16kk+8+2t..), two bf16 each
+  uint32_t qf[16];
+  mbar_wait(qbar, 0);
+  {
+    const uint8_t* qs = smem + P::kQ;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int r = r0 + ((s & 1) ? 8 : 0);
+        const int c = 16 * kk + 2 * t + ((s & 2) ? 8 : 0);
+        qf[4 * kk + s] = *reinterpret_cast<const uint32_t*>(qs + swz16(r, c));
       }
     }
   }
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i & 1;
+    uint8_t* stage = smem + st * P::kStageBytes;
+    mbar_wait(&full[st], (i >> 1) & 1);
+
+    // S = q k^T, four k16 steps along the head dim (32 bytes of a
+    // swizzled row each)
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    const uint32_t k_a = smem_u32(stage + P::kK);
+    fence_regs(qf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_bf16<0>(s, qf[4 * kk], qf[4 * kk + 1], qf[4 * kk + 2],
+                              qf[4 * kk + 3], desc_sw128(k_a + 32 * kk), kk != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(qf);
+
+    // online softmax in f32 on the scaled logits
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= scale;
+    float tmax[2], alpha[2], m_use[2];
+    bias_mask_max<kBias>(s, stage + P::kB, P::kRows, r0, t, i * kKeyTile, n,
+                         tmax);
+    softmax_rescale(tmax, m, alpha, m_use);
+    float psum[2] = {0.f, 0.f};
+    uint32_t pf[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[4 * j + e] - m_use[e >> 1]);
+        psum[e >> 1] += p[e];
+      }
+      // chunk j = 2kk + h: registers 4kk + 2h (row r0) and 4kk + 2h + 1
+      // (row r0 + 8), keys 8j + 2t and 8j + 2t + 1
+      pf[2 * j] = pack_bf16(p[0], p[1]);
+      pf[2 * j + 1] = pack_bf16(p[2], p[3]);
+    }
+    update_sums(psum, alpha, l);
+
+    // this tile's P v in a fresh accumulator: four k16 steps along the
+    // keys, 16 rows of v (2048 bytes) each
+    const uint32_t v_a = smem_u32(stage + P::kV);
+    float pv[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) pv[e] = 0.f;
+    fence_regs(pv);
+    fence_regs(pf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_bf16<1>(pv, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                              pf[4 * kk + 3], desc_sw128(v_a + 2048 * kk),
+                              kk != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pv);
+    fence_regs(pf);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = fmaf(o[e], alpha[(e >> 1) & 1], pv[e]);
+    __syncthreads();  // every warpgroup is done with this stage
+    if (tid == 0 && i + kStages < ntiles) {
+      fence_async_smem();  // the bias reads above before the TMA overwrites
+      issue_tile(i + kStages, st);
+    }
+  }
+  write_rows(geo, o, l, q0, r0, t, n);
+}
+
+// T is the operand type: float runs the split-TF32 body, __nv_bfloat16
+// the bf16 body.
+template <typename T, int NWG, bool kBias, class Geo>
+__device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
+                                       int q0, uint8_t* smem_raw) {
+  if constexpr (std::is_same<T, float>::value) {
+    attend_tf32<NWG, kBias>(geo, n, scale, q0, smem_raw);
+  } else {
+    static_assert(std::is_same<T, __nv_bfloat16>::value,
+                  "the bodies take f32 or bf16 operands");
+    attend_bf16<NWG, kBias>(geo, n, scale, q0, smem_raw);
+  }
+}
+
+// The dynamic shared memory a block of the T body takes.
+template <typename T, int NWG, bool kBias>
+constexpr int alloc_bytes() {
+  return std::is_same<T, float>::value ? Plan<NWG, kBias>::kAlloc
+                                       : Plan16<NWG, kBias>::kAlloc;
 }
 
 // Token t of a ws x ws window of an NHWC map, and the tile loads of one
 // (batch, window, head) through a 4-D map over (channels, W, H, B) whose
-// box of (32 channels, ws columns, 64 / ws rows, 1) is a 64-token tile of
-// the window as it lies in NHWC (kernels 2 and 5).
-struct WindowGeo {
+// box of (one swizzle row of channels, ws columns, 64 / ws rows, 1) is a
+// 64-token tile of the window as it lies in NHWC (kernels 2 and 5); T is
+// the output's type.
+template <typename T>
+struct WindowGeoT {
   const CUtensorMap* map;
   const CUtensorMap* bias_map;
-  float* out;
+  T* out;
   int H, W, C, ws, head, b, x0, y0, bias_win;
   __device__ __forceinline__ int64_t pix(int t) const {
     return ((int64_t)b * H + y0 + t / ws) * W + x0 + t % ws;
@@ -557,10 +846,11 @@ struct WindowGeo {
                                             int qrow0, int k0) const {
     tma_load_3d(dst, bias_map, bar, k0 + half * 32, qrow0, bias_win);
   }
-  __device__ __forceinline__ float* out_row(int t) const {
+  __device__ __forceinline__ T* out_row(int t) const {
     return out + pix(t) * C + head * kHeadDim;
   }
 };
+using WindowGeo = WindowGeoT<float>;
 
 // -- host ---------------------------------------------------------------------
 
@@ -609,17 +899,24 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// An f32 tensor map with 128-byte swizzle; dims innermost first, strides
-// in bytes for dims 1.., rows past the end read as zeros.  0 on success.
-static inline int encode_f32_map(CUtensorMap* map, const void* base, int rank,
-                                 const cuuint64_t* dims,
-                                 const cuuint64_t* strides,
-                                 const cuuint32_t* box) {
+// A tensor map with 128-byte swizzle over f32 or bf16 elements (T); dims
+// innermost first, strides in bytes for dims 1.., rows past the end read
+// as zeros.  0 on success.
+template <typename T>
+static inline int encode_map(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims, const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  static_assert(std::is_same<T, float>::value ||
+                    std::is_same<T, __nv_bfloat16>::value,
+                "f32 or bf16 maps");
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-                        const_cast<void*>(base), dims, strides, box, elem,
+  const CUresult r = fn(map,
+                        std::is_same<T, float>::value
+                            ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        rank, const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -627,21 +924,37 @@ static inline int encode_f32_map(CUtensorMap* map, const void* base, int rank,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The 4-D map of an NHWC f32 map of `channels` channels read in 64-token
-// window tiles (WindowGeo::load), and the 3-D map of an (n, s, s) f32
+static inline int encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box) {
+  return encode_map<float>(map, base, rank, dims, strides, box);
+}
+
+// Elements of T in one 128-byte swizzle row: the inner box of a tile
+// (half an f32 head row, a whole bf16 one).
+template <typename T>
+constexpr int atom_elems() {
+  return 128 / (int)sizeof(T);
+}
+
+// The 4-D map of an NHWC map of `channels` channels of T read in 64-token
+// window tiles (WindowGeoT::load), and the 3-D map of an (n, s, s) f32
 // stack of s x s matrices read in (64 rows, 32 columns) boxes, its rows
 // `row_floats` apart.  0 on success.
+template <typename T = float>
 static inline int encode_window_map(CUtensorMap* map, const void* base,
                                     int channels, int W, int H, int B,
                                     int ws) {
+  const cuuint64_t e = sizeof(T);
   const cuuint64_t dims[4] = {(cuuint64_t)channels, (cuuint64_t)W,
                               (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)channels * 4,
-                                 (cuuint64_t)W * channels * 4,
-                                 (cuuint64_t)H * W * channels * 4};
-  const cuuint32_t box[4] = {kAtomFloats, (cuuint32_t)ws,
+  const cuuint64_t strides[3] = {(cuuint64_t)channels * e,
+                                 (cuuint64_t)W * channels * e,
+                                 (cuuint64_t)H * W * channels * e};
+  const cuuint32_t box[4] = {(cuuint32_t)atom_elems<T>(), (cuuint32_t)ws,
                              (cuuint32_t)(kBoxRows / ws), 1};
-  return encode_f32_map(map, base, 4, dims, strides, box);
+  return encode_map<T>(map, base, 4, dims, strides, box);
 }
 
 static inline int encode_square_map(CUtensorMap* map, const void* base, int s,

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel sic_tpu/ops/seq_attention.py::_seq_attn_kernel
 // (launcher _seq_attn_pallas): unmasked multi-head attention from
 // (B, S, 3C) packed [q | k | v] to (B, S, C) head-major, f32 logits and
-// softmax.  S is 289 in the ViT trunks, 545 in the cross-attention blocks
+// softmax, in f32 or bf16.  S is 289 in the ViT trunks, 545 in the cross-attention blocks
 // and 50 in the CLIP image tower; head dim 64.
 //
 // What bounds it on the H100: 4*S*d flops per (query, head) against
@@ -37,13 +37,20 @@
 //     waves; cross (4, 545, 2304): 5 x 12 x 4 = 240 blocks, 1.82 waves;
 //     64-row tiles would give 320 and 432 blocks at two an SM by shared
 //     memory but not by registers.
+//
+// The bf16 entry (sic_seq_attention_bf16; the JAX package's bf16 serving
+// mode): bf16 qkv and out, one bf16 wgmma per product on the tensor cores
+// with f32 accumulation, f32 logits and softmax (attention_tc.cuh's bf16
+// body).  Its bound is 4 * B * heads * S^2 * d over 989 TFLOP/s, with
+// 2-byte elements; the same grid, 48 KB of ring and 16 KB of q tile.
 #include "attention_tc.cuh"
 
 namespace {
 
+template <typename T>
 struct SeqGeo {
   const CUtensorMap* map;
-  float* out;
+  T* out;
   int S, C, head, b;
   __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
                                        int half, int row0) const {
@@ -51,53 +58,69 @@ struct SeqGeo {
                         which * C + head * sic_tc::kHeadDim + half * 32, row0,
                         b);
   }
-  __device__ __forceinline__ float* out_row(int t) const {
+  __device__ __forceinline__ T* out_row(int t) const {
     return out + ((int64_t)b * S + t) * C + head * sic_tc::kHeadDim;
   }
 };
 
 // grid: x = query tile, y = head, z = sequence
-template <int NWG>
+template <typename T, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
     seq_attention_kernel(const __grid_constant__ CUtensorMap map,
-                         float* __restrict__ out, int S, int C, float scale) {
+                         T* __restrict__ out, int S, int C, float scale) {
   extern __shared__ uint8_t smem[];
-  const SeqGeo geo{&map, out, S, C, (int)blockIdx.y, (int)blockIdx.z};
-  sic_tc::attend<float, NWG, false>(geo, S, scale,
-                                    blockIdx.x * NWG * sic_tc::kWgRows, smem);
+  const SeqGeo<T> geo{&map, out, S, C, (int)blockIdx.y, (int)blockIdx.z};
+  sic_tc::attend<T, NWG, false>(geo, S, scale,
+                                blockIdx.x * NWG * sic_tc::kWgRows, smem);
 }
 
-template <int NWG>
-int launch(const CUtensorMap& map, float* out, int B, int S, int C, int heads,
+template <typename T, int NWG>
+int launch(const CUtensorMap& map, T* out, int B, int S, int C, int heads,
            float scale, cudaStream_t stream) {
-  constexpr int bytes = sic_tc::Plan<NWG, false>::kAlloc;
-  const int rc = sic_tc::allow_smem<seq_attention_kernel<NWG>>(bytes);
+  constexpr int bytes = sic_tc::alloc_bytes<T, NWG, false>();
+  const int rc = sic_tc::allow_smem<seq_attention_kernel<T, NWG>>(bytes);
   if (rc != 0) return rc;
   const int rows = NWG * sic_tc::kWgRows;
   const dim3 grid((S + rows - 1) / rows, heads, B);
-  seq_attention_kernel<NWG><<<grid, NWG * 128, bytes, stream>>>(map, out, S, C,
-                                                                scale);
+  seq_attention_kernel<T, NWG><<<grid, NWG * 128, bytes, stream>>>(
+      map, out, S, C, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int sic_seq_attention(const void* qkv, void* out, int B, int S,
-                                 int C, int heads, float scale,
-                                 void* stream) {
+template <typename T>
+int run(const void* qkv, void* out, int B, int S, int C, int heads,
+        float scale, void* stream) {
   if (C != heads * sic_tc::kHeadDim || B <= 0 || S <= 0 ||
       reinterpret_cast<uintptr_t>(qkv) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap map;
+  const cuuint64_t e = sizeof(T);
   const cuuint64_t dims[3] = {(cuuint64_t)3 * C, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)3 * C * 4,
-                                 (cuuint64_t)S * 3 * C * 4};
-  const cuuint32_t box[3] = {sic_tc::kAtomFloats, sic_tc::kBoxRows, 1};
-  const int rc = sic_tc::encode_f32_map(&map, qkv, 3, dims, strides, box);
+  const cuuint64_t strides[2] = {(cuuint64_t)3 * C * e,
+                                 (cuuint64_t)S * 3 * C * e};
+  const cuuint32_t box[3] = {(cuuint32_t)sic_tc::atom_elems<T>(),
+                             sic_tc::kBoxRows, 1};
+  const int rc = sic_tc::encode_map<T>(&map, qkv, 3, dims, strides, box);
   if (rc != 0) return rc;
   cudaStream_t s = (cudaStream_t)stream;
   return S <= sic_tc::kWgRows
-             ? launch<1>(map, (float*)out, B, S, C, heads, scale, s)
-             : launch<2>(map, (float*)out, B, S, C, heads, scale, s);
+             ? launch<T, 1>(map, (T*)out, B, S, C, heads, scale, s)
+             : launch<T, 2>(map, (T*)out, B, S, C, heads, scale, s);
+}
+
+}  // namespace
+
+// f32 qkv and out (split TF32)
+extern "C" int sic_seq_attention(const void* qkv, void* out, int B, int S,
+                                 int C, int heads, float scale,
+                                 void* stream) {
+  return run<float>(qkv, out, B, S, C, heads, scale, stream);
+}
+
+// bf16 qkv and out (bf16 tensor cores, f32 accumulation and softmax)
+extern "C" int sic_seq_attention_bf16(const void* qkv, void* out, int B, int S,
+                                      int C, int heads, float scale,
+                                      void* stream) {
+  return run<__nv_bfloat16>(qkv, out, B, S, C, heads, scale, stream);
 }

@@ -39,58 +39,62 @@
 // widths 768 (0.73 of a wave) and 1024 (0.97) read the same device time,
 // so a block's latency, not the SMs left idle, sets it; a split would
 // halve that latency at the cost of a second, fixed-order pass.
+//
+// The bf16 entry (sic_window_attention_bf16; every Swin layer in the JAX
+// package's bf16 serving mode): bf16 qkv and out, f32 bias, one bf16
+// wgmma per product with f32 accumulation, f32 logits and softmax
+// (attention_tc.cuh's bf16 body): the same grid, 113 KB of shared memory
+// (two stages of bf16 k and v, 8 KB each, and the f32 bias tile, 32 KB;
+// 16 KB of q tile).  Its bound is 4 * s * d flops a query over 989 TFLOP/s.
 #include "attention_tc.cuh"
 
 namespace {
 
 // grid: x = head * ntiles + query tile, y = window (i * nww + j), z = batch
-template <int NWG>
+template <typename T, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
     window_attention_kernel(const __grid_constant__ CUtensorMap map,
                             const __grid_constant__ CUtensorMap bias_map,
-                            float* __restrict__ out, int H, int W, int C,
-                            int ws, int nB, float scale) {
+                            T* __restrict__ out, int H, int W, int C, int ws,
+                            int nB, float scale) {
   extern __shared__ uint8_t smem[];
   const int s = ws * ws;
   const int ntiles = s / (NWG * sic_tc::kWgRows);
   const int nww = W / ws;
   const int win = blockIdx.y;
-  const sic_tc::WindowGeo geo{&map,
-                              &bias_map,
-                              out,
-                              H,
-                              W,
-                              C,
-                              ws,
-                              (int)blockIdx.x / ntiles,
-                              (int)blockIdx.z,
-                              (win % nww) * ws,
-                              (win / nww) * ws,
-                              win % nB};
-  sic_tc::attend<float, NWG, true>(
+  const sic_tc::WindowGeoT<T> geo{&map,
+                                  &bias_map,
+                                  out,
+                                  H,
+                                  W,
+                                  C,
+                                  ws,
+                                  (int)blockIdx.x / ntiles,
+                                  (int)blockIdx.z,
+                                  (win % nww) * ws,
+                                  (win / nww) * ws,
+                                  win % nB};
+  sic_tc::attend<T, NWG, true>(
       geo, s, scale, ((int)blockIdx.x % ntiles) * NWG * sic_tc::kWgRows, smem);
 }
 
-template <int NWG>
-int launch(const CUtensorMap& map, const CUtensorMap& bias_map, float* out,
-           int B, int H, int W, int C, int heads, int ws, int nB, float scale,
+template <typename T, int NWG>
+int launch(const CUtensorMap& map, const CUtensorMap& bias_map, T* out, int B,
+           int H, int W, int C, int heads, int ws, int nB, float scale,
            cudaStream_t stream) {
-  constexpr int bytes = sic_tc::Plan<NWG, true>::kAlloc;
-  const int rc = sic_tc::allow_smem<window_attention_kernel<NWG>>(bytes);
+  constexpr int bytes = sic_tc::alloc_bytes<T, NWG, true>();
+  const int rc = sic_tc::allow_smem<window_attention_kernel<T, NWG>>(bytes);
   if (rc != 0) return rc;
   const int ntiles = ws * ws / (NWG * sic_tc::kWgRows);
   const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
-  window_attention_kernel<NWG><<<grid, NWG * 128, bytes, stream>>>(
+  window_attention_kernel<T, NWG><<<grid, NWG * 128, bytes, stream>>>(
       map, bias_map, out, H, W, C, ws, nB, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int sic_window_attention(const void* qkv, const void* bias,
-                                    void* out, int B, int H, int W, int C,
-                                    int heads, int ws, int nB, float scale,
-                                    void* stream) {
+template <typename T>
+int run(const void* qkv, const void* bias, void* out, int B, int H, int W,
+        int C, int heads, int ws, int nB, float scale, void* stream) {
   if (C != heads * sic_tc::kHeadDim || ws < 8 || sic_tc::kBoxRows % ws ||
       H % ws || W % ws || nB <= 0 || B <= 0 ||
       reinterpret_cast<uintptr_t>(qkv) % 16 ||
@@ -99,14 +103,33 @@ extern "C" int sic_window_attention(const void* qkv, const void* bias,
   }
   const int s = ws * ws;
   CUtensorMap map, bias_map;
-  int rc = sic_tc::encode_window_map(&map, qkv, 3 * C, W, H, B, ws);
+  int rc = sic_tc::encode_window_map<T>(&map, qkv, 3 * C, W, H, B, ws);
   if (rc != 0) return rc;
   rc = sic_tc::encode_square_map(&bias_map, bias, s, s, nB);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   return s % (2 * sic_tc::kWgRows) == 0
-             ? launch<2>(map, bias_map, (float*)out, B, H, W, C, heads, ws, nB,
-                         scale, st)
-             : launch<1>(map, bias_map, (float*)out, B, H, W, C, heads, ws, nB,
-                         scale, st);
+             ? launch<T, 2>(map, bias_map, (T*)out, B, H, W, C, heads, ws, nB,
+                            scale, st)
+             : launch<T, 1>(map, bias_map, (T*)out, B, H, W, C, heads, ws, nB,
+                            scale, st);
+}
+
+}  // namespace
+
+// f32 qkv and out (split TF32); the bias is f32 in both entries
+extern "C" int sic_window_attention(const void* qkv, const void* bias,
+                                    void* out, int B, int H, int W, int C,
+                                    int heads, int ws, int nB, float scale,
+                                    void* stream) {
+  return run<float>(qkv, bias, out, B, H, W, C, heads, ws, nB, scale, stream);
+}
+
+// bf16 qkv and out (bf16 tensor cores, f32 accumulation, bias and softmax)
+extern "C" int sic_window_attention_bf16(const void* qkv, const void* bias,
+                                         void* out, int B, int H, int W, int C,
+                                         int heads, int ws, int nB,
+                                         float scale, void* stream) {
+  return run<__nv_bfloat16>(qkv, bias, out, B, H, W, C, heads, ws, nB, scale,
+                            stream);
 }

@@ -32,16 +32,22 @@
 // of one window-head) where s is a multiple of 128, else one.  The
 // flagship layer's (48, 256, 64) gives 48 x 2 = 96 blocks of 256 threads
 // (0.73 of a wave on 132 SMs), kernel 2's grid on the same layer.
+//
+// The bf16 entry (sic_window_attention_gsd_bf16, as the JAX op takes bf16
+// q, k, v): bf16 operands and output, f32 bias, attention_tc.cuh's bf16
+// body; the maps' box is one whole 64-wide bf16 head row.  Its bound is
+// 4 * s * d flops a query over 989 TFLOP/s.
 #include "attention_tc.cuh"
 
 namespace {
 
+template <typename T>
 struct GsdGeo {
   const CUtensorMap* q_map;
   const CUtensorMap* k_map;
   const CUtensorMap* v_map;
   const CUtensorMap* bias_map;
-  float* out;
+  T* out;
   int s, g, win;
   __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
                                        int half, int row0) const {
@@ -52,53 +58,51 @@ struct GsdGeo {
                                             int qrow0, int k0) const {
     sic_tc::tma_load_3d(dst, bias_map, bar, k0 + half * 32, qrow0, win);
   }
-  __device__ __forceinline__ float* out_row(int t) const {
+  __device__ __forceinline__ T* out_row(int t) const {
     return out + ((int64_t)g * s + t) * sic_tc::kHeadDim;
   }
 };
 
 // grid: x = g * ntiles + query tile
-template <int NWG>
+template <typename T, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
     window_attention_gsd_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
                                 const __grid_constant__ CUtensorMap bias_map,
-                                float* __restrict__ out, int s, int nW,
+                                T* __restrict__ out, int s, int nW,
                                 float scale) {
   extern __shared__ uint8_t smem[];
   constexpr int rows = NWG * sic_tc::kWgRows;
   const int ntiles = (s + rows - 1) / rows;
   const int g = blockIdx.x / ntiles;
-  const GsdGeo geo{&q_map, &k_map, &v_map, &bias_map, out, s, g, g % nW};
-  sic_tc::attend<float, NWG, true>(geo, s, scale,
-                                   ((int)blockIdx.x % ntiles) * rows, smem);
+  const GsdGeo<T> geo{&q_map, &k_map, &v_map, &bias_map, out, s, g, g % nW};
+  sic_tc::attend<T, NWG, true>(geo, s, scale,
+                               ((int)blockIdx.x % ntiles) * rows, smem);
 }
 
-template <int NWG>
-int launch(const CUtensorMap (&maps)[4], float* out, int G, int s, int nW,
+template <typename T, int NWG>
+int launch(const CUtensorMap (&maps)[4], T* out, int G, int s, int nW,
            float scale, cudaStream_t stream) {
-  constexpr int bytes = sic_tc::Plan<NWG, true>::kAlloc;
-  const int rc = sic_tc::allow_smem<window_attention_gsd_kernel<NWG>>(bytes);
+  constexpr int bytes = sic_tc::alloc_bytes<T, NWG, true>();
+  const int rc =
+      sic_tc::allow_smem<window_attention_gsd_kernel<T, NWG>>(bytes);
   if (rc != 0) return rc;
   constexpr int rows = NWG * sic_tc::kWgRows;
   const long long blocks = (long long)G * ((s + rows - 1) / rows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  window_attention_gsd_kernel<NWG><<<(unsigned)blocks, NWG * 128, bytes,
-                                     stream>>>(maps[0], maps[1], maps[2],
-                                               maps[3], out, s, nW, scale);
+  window_attention_gsd_kernel<T, NWG><<<(unsigned)blocks, NWG * 128, bytes,
+                                        stream>>>(maps[0], maps[1], maps[2],
+                                                  maps[3], out, s, nW, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
 // bias rows are `row_floats` apart (s rounded up to a multiple of 4 by the
 // caller, zero columns past s)
-extern "C" int sic_window_attention_gsd(const void* q, const void* k,
-                                        const void* v, const void* bias,
-                                        void* out, int G, int s, int d,
-                                        int nW, int row_floats, float scale,
-                                        void* stream) {
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* bias,
+        void* out, int G, int s, int d, int nW, int row_floats, float scale,
+        void* stream) {
   if (d != sic_tc::kHeadDim || G <= 0 || s <= 0 || nW <= 0 || G % nW ||
       row_floats < s || row_floats % 4) {
     return (int)cudaErrorInvalidValue;
@@ -107,18 +111,42 @@ extern "C" int sic_window_attention_gsd(const void* q, const void* k,
   for (const void* p : bases)
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
+  const cuuint64_t e = sizeof(T);
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)G};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)s * d * 4};
-  const cuuint32_t box[3] = {sic_tc::kAtomFloats, sic_tc::kBoxRows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * e, (cuuint64_t)s * d * e};
+  const cuuint32_t box[3] = {(cuuint32_t)sic_tc::atom_elems<T>(),
+                             sic_tc::kBoxRows, 1};
   for (int i = 0; i < 3; ++i) {
     const int rc =
-        sic_tc::encode_f32_map(&maps[i], bases[i], 3, dims, strides, box);
+        sic_tc::encode_map<T>(&maps[i], bases[i], 3, dims, strides, box);
     if (rc != 0) return rc;
   }
   const int rc = sic_tc::encode_square_map(&maps[3], bias, s, row_floats, nW);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   return s % (2 * sic_tc::kWgRows) == 0
-             ? launch<2>(maps, (float*)out, G, s, nW, scale, st)
-             : launch<1>(maps, (float*)out, G, s, nW, scale, st);
+             ? launch<T, 2>(maps, (T*)out, G, s, nW, scale, st)
+             : launch<T, 1>(maps, (T*)out, G, s, nW, scale, st);
+}
+
+}  // namespace
+
+// f32 q, k, v and out (split TF32); the bias is f32 in both entries
+extern "C" int sic_window_attention_gsd(const void* q, const void* k,
+                                        const void* v, const void* bias,
+                                        void* out, int G, int s, int d,
+                                        int nW, int row_floats, float scale,
+                                        void* stream) {
+  return run<float>(q, k, v, bias, out, G, s, d, nW, row_floats, scale,
+                    stream);
+}
+
+// bf16 q, k, v and out (bf16 tensor cores, f32 accumulation and softmax)
+extern "C" int sic_window_attention_gsd_bf16(const void* q, const void* k,
+                                             const void* v, const void* bias,
+                                             void* out, int G, int s, int d,
+                                             int nW, int row_floats,
+                                             float scale, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, bias, out, G, s, d, nW, row_floats,
+                            scale, stream);
 }

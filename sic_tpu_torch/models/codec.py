@@ -11,6 +11,7 @@ coder or on the device rANS kernels, then the generative decode to pixels.
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -27,6 +28,7 @@ from ..entropy import EntropyCoder
 from ..entropy.torchac_compat import UniformTorchacCodec
 from .bottleneck import BottleneckCoder
 from .hybrid import FeatMerge, HybridCodec
+from .layers import cast_compute
 from .vqgan import VQGAN
 
 
@@ -45,16 +47,39 @@ def resolve_device(device=None) -> torch.device:
 
 
 def configure_numerics() -> None:
-    """Full-fp32 matmuls and convolutions with deterministic algorithms.
+    """Full-fp32 matmuls and convolutions with deterministic algorithms,
+    and bf16 matmuls that reduce in f32.
 
     The decoder recomputes the encoder's CDF-index planes bit for bit, so
     the prior CNN must give the same floats on both sides of a stream:
     TF32 (cuDNN's default for fp32 convs) and run-to-run algorithm search
-    would break that."""
+    would break that.  A bf16 GEMM (the bf16 serving mode) accumulates in
+    f32, as the TPU's matrix unit does, not in cuBLAS's reduced-precision
+    split reductions."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(dtype, device) -> torch.dtype:
+    """The compute dtype of a runtime on ``device``: ``None`` or ``"auto"``
+    follows the JAX package's rule (bf16 on an accelerator, here CUDA;
+    fp32 on the CPU); ``"float32"`` / ``"bfloat16"``, or the torch dtype
+    itself, names one of the two."""
+    if dtype is None or dtype == "auto":
+        return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    if isinstance(dtype, str):
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype {dtype!r}: one of auto, {', '.join(DTYPES)}")
+        return DTYPES[dtype]
+    if dtype not in DTYPES.values():
+        raise ValueError(f"dtype {dtype}: float32 or bfloat16")
+    return dtype
 
 
 def get_padding_size(height: int, width: int, p: int = 256):
@@ -76,9 +101,16 @@ def pad_replicate(x: torch.Tensor, pads) -> torch.Tensor:
 
 class Codec(nn.Module):
     """Hybrid codec + VQGAN (pixel decoder and teacher encoder) + prior
-    fusion (parameter names mirror the JAX package's tree)."""
+    fusion (parameter names mirror the JAX package's tree).
 
-    def __init__(self, spec: CodecSpec):
+    ``dtype``: the compute dtype, as the JAX package's ``Codec(spec,
+    dtype)``: with ``torch.bfloat16`` every Linear and Conv outside the
+    detail bottleneck computes in bf16 (:func:`layers.cast_compute`); the
+    bottleneck, the norms, the positional parameters and the codebooks stay
+    f32, and so does the coding chain (the JAX bottleneck takes no
+    dtype)."""
+
+    def __init__(self, spec: CodecSpec, dtype: Optional[torch.dtype] = None):
         super().__init__()
         s = spec
         self.spec = spec
@@ -88,6 +120,15 @@ class Codec(nn.Module):
         self.vqgan = VQGAN(s.vqgan)
         self.prior_fusion = FeatMerge(s.titok.width, s.feat_width,
                                       s.vqgan.n_embed, s.merge_inner_width)
+        if dtype is not None:
+            self.set_compute_dtype(dtype)
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "Codec":
+        """Cast every Linear and Conv outside the bottleneck to ``dtype``."""
+        hc = self.hybrid_codec
+        for m in (hc.encoder, hc.decoder, self.vqgan, self.prior_fusion):
+            cast_compute(m, dtype)
+        return self
 
     def encode_stage(self, x01):
         """[0, 1] padded image -> (z token indices (BT, n_latent), detail
@@ -106,6 +147,7 @@ class Codec(nn.Module):
         """Soft codebook mixture from fused logits
         (reference: codec_sq_fixbpp.py:658-663)."""
         logits = self.prior_fusion(titok_hat, feat_hat)
+        # f32 softmax and mixture in every compute dtype, cast back
         probs = torch.softmax(logits.float(), dim=-1)
         latent = torch.matmul(probs, self.vqgan.quantize.codebook())
         return latent.to(logits.dtype), logits
@@ -144,7 +186,8 @@ class Codec(nn.Module):
 
 
 def to_u8(x: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] floats -> uint8 pixels, truncating as the JAX package does."""
+    """[-1, 1] floats -> uint8 pixels, truncating as the JAX package does
+    (in x's dtype: bf16 pixels round in bf16, as its bf16 mode's do)."""
     return torch.clamp((x + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
 
 
@@ -256,12 +299,26 @@ class CodecRuntime:
     ``"rans"`` (its own) or ``"torchac"`` (the reference's); a decode
     reads either, by the stream's ``z_coder``.
 
+    ``dtype``: the compute dtype of the network stages, as the JAX
+    package's ``CodecRuntime(dtype=...)``: ``None`` (fp32) runs ``model``
+    itself; ``torch.bfloat16`` runs ``encode_stage`` and ``decode_stage``
+    on a runtime-owned copy of ``model`` (``self.net``) whose Linear and
+    Conv weights are cast to bf16 once (:meth:`Codec.set_compute_dtype`),
+    taken when the runtime is built.  The caller's model is left as it is,
+    and the coding chain stays f32 in both modes: the detail latent ``h``
+    enters the bottleneck coder in f32, and the coder and its prior are the
+    caller's f32 modules, shared with any fp32 runtime of the same model.
+    So a stream decodes in either mode.  ``decode_only`` returns f32 pixels
+    (bf16 values, exactly) or uint8 pixels rounded as the JAX bf16 mode
+    rounds them.
+
     Several threads may share one runtime (``decode_only_many``,
     ``round_trip_pipelined``, ``encode_decode_many``, the service): the
     coders are pooled, and the router and the path counts take a lock."""
 
     def __init__(self, spec: CodecSpec, model: Codec, stream_part: int = 1,
-                 device_entropy: str = "auto", z_format: str = "rans"):
+                 device_entropy: str = "auto", z_format: str = "rans",
+                 dtype: Optional[torch.dtype] = None):
         if device_entropy not in ("auto", "host", "device"):
             raise ValueError(f"device_entropy: {device_entropy}")
         if z_format not in Z_CODERS:
@@ -270,6 +327,14 @@ class CodecRuntime:
         self.spec = spec
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self.dtype = torch.float32 if dtype is None else resolve_dtype(dtype, self.device)
+        if self.dtype == torch.float32:
+            self.net = self.model
+        else:
+            # the bottleneck is shared, not copied: it stays the caller's f32
+            bottleneck = model.hybrid_codec.quantize_feat
+            self.net = copy.deepcopy(model, {id(bottleneck): bottleneck})
+            self.net.set_compute_dtype(self.dtype).eval()
         self.stream_part = stream_part
         self.device_entropy = device_entropy
         self.h_coder = BottleneckCoder(model.hybrid_codec.quantize_feat,
@@ -383,8 +448,13 @@ class CodecRuntime:
 
     @torch.no_grad()
     def _decode_pixels(self, z_indices, h_hat, stack_shape, output: str):
-        x = self.model.decode_stage(z_indices, h_hat, stack_shape)
-        return to_u8(x) if output == "u8" else x
+        x = self.net.decode_stage(z_indices, h_hat, stack_shape)
+        return to_u8(x) if output == "u8" else x.float()
+
+    def _encode_stage(self, x: torch.Tensor):
+        """(z indices, h) of images in [-1, 1]; h in f32 for the coder."""
+        z_indices, h, _ = self.net.encode_stage(x * 0.5 + 0.5)
+        return z_indices, h.float()
 
     # -- decode entry points ----------------------------------------------------
     def decode_only(self, z_bit_stream, h_bit_stream, img_shape, feat_shape,
@@ -510,7 +580,7 @@ class CodecRuntime:
         use_dev = B == 1 and self._use_device_encode(
             4 * (H // 32) * (W // 32) * q, 1, latent_shape)
         self._count_path(use_dev)
-        z_indices, h, _ = self.model.encode_stage(x * 0.5 + 0.5)
+        z_indices, h = self._encode_stage(x)
         stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
         if use_dev:
             streams, y_hat = self.h_coder.compress_device(h)
@@ -537,11 +607,11 @@ class CodecRuntime:
         pass an image (a repeated image, a padded lane, reuses its
         result)."""
         if not per_stream:
-            return self.model.encode_stage(x * 0.5 + 0.5)[:2]
+            return self._encode_stage(x)
         outs = []
         for b in range(x.shape[0]):
             outs.append(outs[-1] if b and torch.equal(x[b], x[b - 1]) else
-                        self.model.encode_stage(x[b:b + 1] * 0.5 + 0.5)[:2])
+                        self._encode_stage(x[b:b + 1]))
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     @torch.no_grad()

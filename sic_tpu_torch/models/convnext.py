@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, LayerNorm
+from .layers import Conv2d, LayerNorm, Linear
 
 
 class ConvNeXtBlock(nn.Module):
@@ -19,13 +19,14 @@ class ConvNeXtBlock(nn.Module):
         self.layer_scale = nn.Parameter(torch.ones(in_ch))
         self.conv = Conv2d(in_ch, in_ch, kernel_size, groups=in_ch)
         self.norm = LayerNorm(in_ch)
-        self.mlp_fc1 = nn.Linear(in_ch, int(in_ch * mlp_ratio))
-        self.mlp_fc2 = nn.Linear(int(in_ch * mlp_ratio), out_ch)
+        self.mlp_fc1 = Linear(in_ch, int(in_ch * mlp_ratio))
+        self.mlp_fc2 = Linear(int(in_ch * mlp_ratio), out_ch)
         if out_ch != in_ch:
-            self.short = nn.Linear(in_ch, out_ch)
+            self.short = Linear(in_ch, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = self.short(x) if hasattr(self, "short") else x
-        h = self.conv(x * self.layer_scale)
+        # the layer scale multiplies in the activation's dtype
+        h = self.conv(x * self.layer_scale.to(x.dtype))
         h = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm(h))))
         return h + identity

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm, ResidualAttentionBlock
+from .layers import LayerNorm, Linear, ResidualAttentionBlock
 
 
 def tile_nhwc_to_tokens(x: torch.Tensor, tile: int):
@@ -44,14 +44,14 @@ class InteractiveCrossAttn(nn.Module):
         tw, fw = titok_width, feat_width
         self.titok_pos_emb = nn.Parameter(torch.zeros(s_titok, tw))
         self.feat_pos_emb = nn.Parameter(torch.zeros(feat_patch_size ** 2, fw))
-        self.titok_compress_proj = nn.Linear(tw, fw)
+        self.titok_compress_proj = Linear(tw, fw)
         self.attn = nn.ModuleList(ResidualAttentionBlock(fw, fw // 64, mlp_ratio)
                                   for _ in range(num_attns))
         self.feat_add_ln = LayerNorm(fw)
-        self.feat_add_fc = nn.Linear(fw, fw)
-        self.titok_decompress_fc = nn.Linear(fw, fw * 2)
+        self.feat_add_fc = Linear(fw, fw)
+        self.titok_decompress_fc = Linear(fw, fw * 2)
         self.titok_decompress_ln = LayerNorm(fw * 2)
-        self.zero_add = nn.Linear(fw * 2, tw)
+        self.zero_add = Linear(fw * 2, tw)
 
     def forward(self, feat: torch.Tensor, titok_tokens: torch.Tensor,
                 stack_shape: Tuple[int, int]):
@@ -59,8 +59,9 @@ class InteractiveCrossAttn(nn.Module):
         (B*nTiles, S_titok, titok_width)."""
         fp2 = self.fp * self.fp
         feat_tokens, _ = tile_nhwc_to_tokens(feat, self.fp)
-        f_pos = feat_tokens + self.feat_pos_emb
-        t_pos = self.titok_compress_proj(titok_tokens + self.titok_pos_emb)
+        f_pos = feat_tokens + self.feat_pos_emb.to(feat_tokens.dtype)
+        t_pos = self.titok_compress_proj(
+            titok_tokens + self.titok_pos_emb.to(titok_tokens.dtype))
         f = torch.cat([t_pos, f_pos], dim=1)
         for blk in self.attn:
             f = blk(f)

@@ -19,7 +19,7 @@ from .bottleneck import CompressiveBottleneck
 from .convnext import ConvNeXtBlock
 from .cross import (InteractiveCrossAttn, tile_nhwc_to_tokens,
                     tokens_to_tile_nhwc)
-from .layers import Conv2d, LayerNorm, ResidualAttentionBlock
+from .layers import Conv2d, LayerNorm, Linear, ResidualAttentionBlock
 from .quantizer import L2VectorQuantizer
 from .swin import SwinStack
 
@@ -70,8 +70,8 @@ class HybridEncoder(nn.Module):
         self.transformer = nn.ModuleList(
             ResidualAttentionBlock(s.width, s.num_heads) for _ in range(s.num_layers))
         self.ln_post = LayerNorm(s.width)
-        self.conv_out = nn.Linear(s.width, s.token_size)
-        self.pix_emb_proj = nn.Linear(s.width, feat_width)
+        self.conv_out = Linear(s.width, s.token_size)
+        self.pix_emb_proj = Linear(s.width, feat_width)
         self.feat_in = SwinStack(feat_width, 4)
         self.inter_blocks = nn.ModuleDict({
             str(i): InteractiveCrossAttn(s.width, feat_width, num_attns,
@@ -83,7 +83,7 @@ class HybridEncoder(nn.Module):
         self.feat_out_swin = SwinStack(feat_width, 2)
         self.feat_out_down = Conv2d(feat_width, feat_width, 2, stride=2)
         self.feat_out_ln = LayerNorm(feat_width)
-        self.feat_out_fc = nn.Linear(feat_width, feat_width)
+        self.feat_out_fc = Linear(feat_width, feat_width)
 
     def forward(self, pixel_values, latent_tokens):
         """pixel_values: (B, H, W, 3) in [0, 1], H and W multiples of the
@@ -94,11 +94,13 @@ class HybridEncoder(nn.Module):
         x_emb = self.patch_embed(pixel_values)            # (B, H/16, W/16, width)
         feat_emb = self.pix_emb_proj(x_emb)
         x, stack_shape = tile_nhwc_to_tokens(x_emb, s.grid_size)
-        BT = x.shape[0]
-        cls = self.class_embedding.expand(BT, 1, s.width)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
-        lat = latent_tokens[None].expand(BT, s.num_latent_tokens, s.width) \
-            + self.latent_token_positional_embedding
+        BT, dt = x.shape[0], x.dtype
+        # the parameters join the tokens in the compute dtype, each cast
+        # first, as the JAX module casts them
+        cls = self.class_embedding.to(dt).expand(BT, 1, s.width)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+        lat = latent_tokens.to(dt)[None].expand(BT, s.num_latent_tokens, s.width) \
+            + self.latent_token_positional_embedding.to(dt)
         x = torch.cat([x, lat], dim=1)                    # (BT, 1+256+n, width)
 
         feat = self.feat_in(feat_emb)
@@ -134,7 +136,7 @@ class HybridDecoder(nn.Module):
         # parameters for it, e.g. the tiny spec's 2 layers)
         self.insert_pos = tuple(p for p in insert_pos if p < s.num_layers)
         scale = s.width ** -0.5
-        self.decoder_embed = nn.Linear(s.token_size, s.width)
+        self.decoder_embed = Linear(s.token_size, s.width)
         self.class_embedding = _scaled_normal((1, s.width), scale)
         self.positional_embedding = _scaled_normal((s.grid_size ** 2 + 1, s.width), scale)
         self.mask_token = _scaled_normal((1, 1, s.width), scale)
@@ -161,14 +163,16 @@ class HybridDecoder(nn.Module):
         (B, H/32, W/32, feat_width).  Returns (titok_hat (B, H/16, W/16,
         width), feat (B, H/16, W/16, feat_width))."""
         s = self.spec
-        x = self.decoder_embed(z_quantized)
+        x = self.decoder_embed(z_quantized)               # the compute dtype
         BT, seq_len, _ = x.shape
-        mask = self.mask_token.expand(BT, s.grid_size ** 2, s.width)
-        cls = self.class_embedding.expand(BT, 1, s.width)
-        mask = torch.cat([cls, mask], dim=1) + self.positional_embedding
-        x = x + self.latent_token_positional_embedding[:seq_len]
+        dt = x.dtype
+        mask = self.mask_token.to(dt).expand(BT, s.grid_size ** 2, s.width)
+        cls = self.class_embedding.to(dt).expand(BT, 1, s.width)
+        mask = torch.cat([cls, mask], dim=1) + self.positional_embedding.to(dt)
+        x = x + self.latent_token_positional_embedding[:seq_len].to(dt)
         x = torch.cat([mask, x], dim=1)                   # (BT, 1+256+n, width)
 
+        # the decoded (f32) h enters the compute dtype in feat_up_conv
         feat = pixel_shuffle(self.feat_up_conv(h_quantized), 2)
         feat = self.feat_up_swin(feat)
 
@@ -193,13 +197,13 @@ class FeatMerge(nn.Module):
         tw = titok_width
         self.titok_in = SwinStack(tw, 2)
         self.feat_in = SwinStack(feat_width, 2)
-        self.merge_fc1 = nn.Linear(tw + feat_width, tw * 2)
+        self.merge_fc1 = Linear(tw + feat_width, tw * 2)
         self.merge_ln = LayerNorm(tw * 2)
-        self.merge_fc2 = nn.Linear(tw * 2, inner_width)
+        self.merge_fc2 = Linear(tw * 2, inner_width)
         self.merge_swin = SwinStack(inner_width, 4)
         self.ffn_ln = LayerNorm(inner_width)
-        self.ffn_fc1 = nn.Linear(inner_width, inner_width * 2)
-        self.ffn_fc2 = nn.Linear(inner_width * 2, n_embed)
+        self.ffn_fc1 = Linear(inner_width, inner_width * 2)
+        self.ffn_fc2 = Linear(inner_width * 2, n_embed)
 
     def forward(self, titok: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
         h = torch.cat([self.titok_in(titok), self.feat_in(feat)], dim=-1)

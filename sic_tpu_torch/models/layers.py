@@ -1,9 +1,21 @@
-"""Shared layers of the port: NHWC convolution, pre-LN transformer blocks.
+"""Shared layers of the port: NHWC convolution, pre-LN transformer blocks,
+and the compute-dtype rules the modules share.
 
 Sequences are batch-major ``(B, S, D)`` and feature maps NHWC, as in the
 JAX package.  The qkv projection stays packed so the attention kernel reads
 ``[q | k | v]`` straight from one matmul's output (torch
 ``nn.MultiheadAttention`` checkpoints map 1:1 onto ``in_proj``/``out_proj``).
+
+Compute dtype (the JAX package's flax modules built with ``dtype=bf16``:
+f32 parameters, bf16 compute).  A :class:`Linear` or :class:`Conv2d`
+computes in its weight's dtype and casts its input to it, as flax's Dense
+and Conv cast input, kernel and bias to their dtype; :func:`cast_compute`
+casts those weights once (the same numbers as flax's cast on every call).
+:class:`LayerNorm` and :class:`GroupNorm` keep f32 parameters, normalise in
+f32 and return the input's dtype, as flax's norms compute their
+statistics and affine in f32.  Elementwise steps run in the activation's
+dtype; positional parameters are cast to it where the JAX module casts
+them.  In fp32 every rule is the identity.
 """
 from __future__ import annotations
 
@@ -16,13 +28,38 @@ from torch import nn
 from ..ops import seq_attention
 
 
-def LayerNorm(dim: int) -> nn.LayerNorm:
-    """torch LayerNorm (eps 1e-5; the JAX package sets the same)."""
-    return nn.LayerNorm(dim, eps=1e-5)
+class Linear(nn.Linear):
+    """nn.Linear in its weight's dtype: the input is cast to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-5, the JAX package's) in f32 with f32 parameters,
+    returning the input's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the weights and biases of every Linear and Conv2d in ``module``
+    to ``dtype``, the compute dtype (norms, positional parameters and
+    codebooks keep theirs)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            m.to(dtype)
+    return module
 
 
 class Conv2d(nn.Conv2d):
-    """Convolution on NHWC tensors with torch-layout (OIHW) weights.
+    """Convolution on NHWC tensors with torch-layout (OIHW) weights, in its
+    weight's dtype (the input is cast to it).
 
     Padding follows flax's SAME for the odd kernels used here.  A 1x1
     stride-1 convolution runs as a matmul over the channel axis."""
@@ -34,6 +71,7 @@ class Conv2d(nn.Conv2d):
                          groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
         if self.kernel_size == (1, 1) and self.stride == (1, 1) \
                 and self.groups == 1:
             return F.linear(x, self.weight[:, :, 0, 0], self.bias)
@@ -42,24 +80,28 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm over the channel axis of an NHWC tensor."""
+    """GroupNorm over the channel axis of an NHWC tensor, in f32 with f32
+    parameters, returning the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
+                         self.weight, self.bias, self.eps)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 class MultiheadSelfAttention(nn.Module):
     """Packed-qkv self attention: through the sequence-attention kernel,
     or, with an additive ``attn_mask`` (the CLIP text tower's causal mask),
-    through plain einsums with f32 logits, as the JAX package does."""
+    through plain einsums with f32 logits, as the JAX package does (no
+    served path takes the masked branch)."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"{d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads
-        self.in_proj = nn.Linear(d_model, 3 * d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.in_proj = Linear(d_model, 3 * d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -84,8 +126,8 @@ class MLP(nn.Module):
 
     def __init__(self, d_model: int, hidden: int):
         super().__init__()
-        self.c_fc = nn.Linear(d_model, hidden)
-        self.c_proj = nn.Linear(hidden, d_model)
+        self.c_fc = Linear(d_model, hidden)
+        self.c_proj = Linear(hidden, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.c_proj(F.gelu(self.c_fc(x)))

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import window_attention_nhwc
-from .layers import LayerNorm
+from .layers import LayerNorm, Linear
 
 
 def _relative_index(window_size: int) -> np.ndarray:
@@ -60,7 +60,7 @@ class WindowAttention(nn.Module):
         self.relative = relative_pos_embedding
         inner = heads * head_dim
         ws = window_size
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.to_qkv = Linear(dim, inner * 3, bias=False)
         if relative_pos_embedding:
             self.pos_embedding = nn.Parameter(torch.randn(2 * ws - 1, 2 * ws - 1))
             self.register_buffer(
@@ -68,7 +68,7 @@ class WindowAttention(nn.Module):
                 persistent=False)
         else:
             self.pos_embedding = nn.Parameter(torch.randn(ws * ws, ws * ws))
-        self.to_out = nn.Linear(inner, dim)
+        self.to_out = Linear(inner, dim)
         self._masks: dict = {}
 
     def _shift_mask(self, nwh: int, nww: int, device) -> torch.Tensor:
@@ -92,7 +92,7 @@ class WindowAttention(nn.Module):
             bias = self.pos_embedding[idx[:, :, 0], idx[:, :, 1]]
         else:
             bias = self.pos_embedding
-        bias = bias.float()[None]
+        bias = bias.float()[None]      # f32 in every compute dtype
         if self.shifted:
             bias = bias + self._shift_mask(H // ws, W // ws, x.device)
         out = window_attention_nhwc(qkv, bias.contiguous(),
@@ -113,8 +113,8 @@ class SwinBlock(nn.Module):
         self.attention_block = WindowAttention(
             dim, heads, head_dim, window_size, shifted, relative_pos_embedding)
         self.norm_mlp = LayerNorm(dim)
-        self.mlp_fc1 = nn.Linear(dim, mlp_dim)
-        self.mlp_fc2 = nn.Linear(mlp_dim, dim)
+        self.mlp_fc1 = Linear(dim, mlp_dim)
+        self.mlp_fc2 = Linear(mlp_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attention_block(self.norm_attn(x))

@@ -59,8 +59,9 @@ class AttnBlock(nn.Module):
         q = self.q(h).reshape(B, H * W, C)
         k = self.k(h).reshape(B, H * W, C)
         v = self.v(h).reshape(B, H * W, C)
-        logits = torch.matmul(q, k.transpose(1, 2)) * (C ** -0.5)
-        probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        # f32 logits and softmax in every compute dtype
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (C ** -0.5)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
         h = torch.matmul(probs, v).reshape(B, H, W, C)
         return x + self.proj_out(h)
 

@@ -22,14 +22,26 @@ KERNEL_WRAPPERS = {
 }
 
 
+# the wrappers whose kernel has a bf16 entry beside the f32 one
+BF16_ENTRIES = ("seq_attention", "window_attention_nhwc", "window_attention")
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def bf16_launch_counts() -> dict:
+    """Launches of the bf16 entries since the last
+    :func:`reset_launch_counts` (included in :func:`launch_counts`)."""
+    return {name: KERNEL_WRAPPERS[name].launches_bf16 for name in BF16_ENTRIES}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for name in BF16_ENTRIES:
+        KERNEL_WRAPPERS[name].launches_bf16 = 0
 
 
 __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
@@ -39,4 +51,5 @@ __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
            "rans_decode_plane",
            "rans_decode_plane_plain", "rans_encode_plane",
            "rans_encode_plane_plain", "pack_substreams", "split_substreams",
-           "KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts"]
+           "KERNEL_WRAPPERS", "BF16_ENTRIES", "launch_counts",
+           "bf16_launch_counts", "reset_launch_counts"]

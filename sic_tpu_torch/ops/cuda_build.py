@@ -104,12 +104,15 @@ def stream_of(t: torch.Tensor) -> int:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``.  Wrappers launch from several
-    threads at once (``CodecRuntime.decode_only_many``), and ``+=`` on an
-    attribute is not atomic, so the add holds a lock."""
+def count_launch(wrapper, dtype: torch.dtype = torch.float32) -> None:
+    """Add one to ``wrapper.launches``, and to ``wrapper.launches_bf16``
+    for a launch of its bf16 entry.  Wrappers launch from several threads
+    at once (``CodecRuntime.decode_only_many``), and ``+=`` on an attribute
+    is not atomic, so the add holds a lock."""
     with _count_lock:
         wrapper.launches += 1
+        if dtype == torch.bfloat16:
+            wrapper.launches_bf16 += 1
 
 
 def check_launch(rc: int, name: str) -> None:
@@ -119,10 +122,65 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+def require_cuda(t: torch.Tensor, name: str, dtypes) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
+    (a dtype, or a tuple of those a kernel has an entry for)."""
+    if isinstance(dtypes, torch.dtype):
+        dtypes = (dtypes,)
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d) for d in dtypes)
+        raise ValueError(f"{name} must be {want}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def entry_symbol(base: str, dtype: torch.dtype) -> str:
+    """The C symbol of a kernel's entry for ``dtype``: ``base`` for f32,
+    ``base + "_bf16"`` for bf16 (one library holds both)."""
+    return base if dtype == torch.float32 else f"{base}_bf16"
+
+
+def _kernel_name(demangled: str) -> str:
+    """"void <unnamed>::k<float, (int)2>(CUtensorMap_st, float *)" ->
+    "k<float, 2>": the parameter list (from the parenthesis that closes
+    the name) and the scope and casts dropped."""
+    depth = 0
+    for i in range(len(demangled) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(demangled[i], 0)
+        if depth == 0 and demangled[i] == "(":
+            demangled = demangled[:i]
+            break
+    name = demangled.removeprefix("void ").split("::")[-1]
+    return name.replace("(int)", "")
+
+
+def sass_hgmma(name: str) -> dict:
+    """HGMMA (wgmma) instructions in each kernel function of library
+    ``name``'s SASS (``cuobjdump -sass``), by demangled function name:
+    ``{"hgmma": n, "bf16": m}``, m of them with bf16 operands.  A bf16
+    entry whose kernel compiled to no bf16 tensor-core instruction shows
+    as ``bf16: 0``."""
+    bin_dir = Path(nvcc_path()).parent
+    out = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {name}: {out.stderr.strip()}")
+    counts: dict = {}
+    fn = None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = {"hgmma": 0, "bf16": 0}
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn]["hgmma"] += 1
+            counts[fn]["bf16"] += "BF16" in ln
+    filt = bin_dir / "cu++filt"
+    if counts and filt.exists():
+        res = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True,
+                             text=True, timeout=60)
+        names = res.stdout.splitlines()
+        if res.returncode == 0 and len(names) == len(counts):
+            counts = {_kernel_name(n): c for n, c in zip(names, counts.values())}
+    return counts

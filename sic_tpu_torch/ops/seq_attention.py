@@ -1,10 +1,11 @@
 """Sequence self-attention over a packed qkv projection.
 
 CUDA kernel: ``csrc/seq_attention.cu`` (replaces the TPU kernel
-``sic_tpu/ops/seq_attention.py::_seq_attn_kernel``): fp32 attention on
-the tensor cores in split TF32 (``wgmma``), tiles loaded by TMA.  The ViT
-trunks (S = 289), the cross-attention blocks (S = 545) and the CLIP image
-tower (S = 50) run it in every layer.
+``sic_tpu/ops/seq_attention.py::_seq_attn_kernel``), on the tensor cores
+(``wgmma``) with tiles loaded by TMA: an f32 entry in split TF32 and a
+bf16 entry (bf16 products, f32 accumulation, logits and softmax; the bf16
+serving mode).  The ViT trunks (S = 289), the cross-attention blocks
+(S = 545) and the CLIP image tower (S = 50, f32) run it in every layer.
 :func:`seq_attention_plain` is the same function in plain PyTorch: it
 serves CPU tensors and is the kernel's oracle on the card.  On a CUDA tensor
 :func:`seq_attention` is a ``torch.autograd.Function``: the kernel forward,
@@ -19,12 +20,15 @@ import torch
 from . import cuda_build
 
 HEAD_DIM = 64
+# the dtypes the kernel has an entry for
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def seq_attention_plain(qkv: torch.Tensor, scale: float,
                         heads: int) -> torch.Tensor:
     """qkv (B, S, 3C) packed [q | k | v] -> (B, S, C) head-major; f32
-    logits and softmax (the JAX package's ``_seq_attn_reference``)."""
+    logits and softmax, probabilities rounded to qkv's type before the
+    product with v (the JAX package's ``_seq_attn_reference``)."""
     B, S, c3 = qkv.shape
     C = c3 // 3
     d = C // heads
@@ -41,7 +45,7 @@ def seq_attention_plain(qkv: torch.Tensor, scale: float,
 
 
 def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
-    cuda_build.require_cuda(qkv, "qkv", torch.float32)
+    cuda_build.require_cuda(qkv, "qkv", DTYPES)
     B, S, c3 = qkv.shape
     C = c3 // 3
     if c3 != 3 * C or C != heads * HEAD_DIM:
@@ -52,12 +56,10 @@ def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor
                          "be non-empty and start on a 16-byte boundary (its "
                          "tensor map)")
     out = torch.empty((B, S, C), device=qkv.device, dtype=qkv.dtype)
-    lib = _lib()
-    rc = lib.sic_seq_attention(qkv.data_ptr(), out.data_ptr(), B, S, C,
-                               heads, float(scale),
-                               cuda_build.stream_of(qkv))
+    rc = _entry(qkv.dtype)(qkv.data_ptr(), out.data_ptr(), B, S, C, heads,
+                           float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "seq_attention")
-    cuda_build.count_launch(seq_attention)
+    cuda_build.count_launch(seq_attention, qkv.dtype)
     return out
 
 
@@ -83,24 +85,27 @@ class _SeqAttention(torch.autograd.Function):
 
 
 def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
-    """qkv: (B, S, 3C) float32, channel layout [q heads*d | k | v]; returns
-    (B, S, C) in head-major channel order.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (head dim 64) or raises, and
-    its gradient recomputes through the plain version."""
+    """qkv: (B, S, 3C) float32 or bfloat16, channel layout [q heads*d | k |
+    v]; returns (B, S, C) of qkv's type in head-major channel order.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel's
+    entry for its type (head dim 64) or raises, and its gradient
+    recomputes through the plain version."""
     if qkv.device.type == "cpu":
         return seq_attention_plain(qkv, scale, heads)
     return _SeqAttention.apply(qkv, scale, heads)
 
 
 seq_attention.launches = 0
+seq_attention.launches_bf16 = 0
 
 
-def _lib():
+def _entry(dtype: torch.dtype):
+    """The C entry of the kernel for ``dtype``, its signature set."""
     lib = cuda_build.load("seq_attention")
-    fn = lib.sic_seq_attention
+    fn = getattr(lib, cuda_build.entry_symbol("sic_seq_attention", dtype))
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn

@@ -1,9 +1,10 @@
 """Window attention: NHWC over a packed qkv projection with its gradient,
 and over separate (G, s, d) q, k, v tensors.
 
-CUDA kernels, all split-TF32 ``wgmma`` on the tensor cores with tiles
-loaded by TMA (``csrc/attention_tc.cuh`` holds the forward body they
-share): ``csrc/window_attention.cu`` (the NHWC forward, replacing the TPU
+CUDA kernels, all ``wgmma`` on the tensor cores with tiles loaded by TMA
+(``csrc/attention_tc.cuh`` holds the forward bodies they share: split TF32
+for f32, and bf16 products with f32 accumulation for the forwards' bf16
+entries, the bf16 serving mode): ``csrc/window_attention.cu`` (the NHWC forward, replacing the TPU
 kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``),
 ``csrc/window_attention_bwd.cu`` (its backward, replacing
 ``_nhwc_bwd_kernel``) and ``csrc/window_attention_gsd.cu`` (the (G, s, d)
@@ -30,6 +31,8 @@ import torch
 from . import cuda_build
 
 HEAD_DIM = 64
+# the operand dtypes the forward kernels have an entry for (the bias is f32)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _window_size(bias: torch.Tensor) -> int:
@@ -76,8 +79,8 @@ def window_attention_nhwc_bwd_plain(qkv: torch.Tensor, bias: torch.Tensor,
         return torch.autograd.grad(out, (a, b), g)
 
 
-def _check_kernel_args(qkv, bias, heads, name):
-    cuda_build.require_cuda(qkv, "qkv", torch.float32)
+def _check_kernel_args(qkv, bias, heads, name, dtypes=(torch.float32,)):
+    cuda_build.require_cuda(qkv, "qkv", dtypes)
     cuda_build.require_cuda(bias, "bias", torch.float32)
     B, H, W, c3 = qkv.shape
     C = c3 // 3
@@ -95,7 +98,8 @@ FORWARD_WINDOWS = (8, 16, 32, 64)
 
 
 def _forward_kernel(qkv, bias, scale, heads):
-    B, H, W, C, ws = _check_kernel_args(qkv, bias, heads, "window_attention_nhwc")
+    B, H, W, C, ws = _check_kernel_args(qkv, bias, heads, "window_attention_nhwc",
+                                        DTYPES)
     if ws not in FORWARD_WINDOWS or B == 0 or bias.shape[0] == 0 \
             or bias.shape[1] != ws * ws or qkv.data_ptr() % 16 \
             or bias.data_ptr() % 16:
@@ -104,11 +108,12 @@ def _forward_kernel(qkv, bias, scale, heads):
                          f"and bias {tuple(bias.shape)} non-empty, both on "
                          "16-byte boundaries (their tensor maps)")
     out = torch.empty((B, H, W, C), device=qkv.device, dtype=qkv.dtype)
-    rc = _lib("window_attention", "sic_window_attention", 3).sic_window_attention(
+    rc = _entry("window_attention",
+                cuda_build.entry_symbol("sic_window_attention", qkv.dtype), 3)(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, heads,
         ws, bias.shape[0], float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "window_attention_nhwc")
-    cuda_build.count_launch(window_attention_nhwc)
+    cuda_build.count_launch(window_attention_nhwc, qkv.dtype)
     return out
 
 
@@ -131,18 +136,20 @@ class _WindowAttention(torch.autograd.Function):
 
 def window_attention_nhwc(qkv: torch.Tensor, bias: torch.Tensor,
                           scale: float, heads: int) -> torch.Tensor:
-    """qkv: (B, H, W, 3C) float32, channel layout [q heads*d | k | v];
-    bias: (nB, s, s) float32 additive logits bias (relative position plus
-    any -inf shift mask), nB dividing into the window count.  Returns
-    (B, H, W, C) head-major.  A CPU tensor takes the plain version; a CUDA
-    tensor launches the forward kernel (head dim 64) or raises, and its
-    gradient (to qkv and bias) launches the backward kernel."""
+    """qkv: (B, H, W, 3C) float32 or bfloat16, channel layout [q heads*d |
+    k | v]; bias: (nB, s, s) float32 additive logits bias (relative
+    position plus any -inf shift mask), nB dividing into the window count.
+    Returns (B, H, W, C) of qkv's type, head-major.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the forward kernel's entry for
+    its type (head dim 64) or raises, and its gradient (to qkv and bias)
+    launches the backward kernel (f32 only: a bf16 gradient raises)."""
     if qkv.device.type == "cpu":
         return window_attention_nhwc_plain(qkv, bias, scale, heads)
     return _WindowAttention.apply(qkv, bias, scale, heads)
 
 
 window_attention_nhwc.launches = 0
+window_attention_nhwc.launches_bf16 = 0
 
 
 def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
@@ -176,7 +183,7 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     # scratch: dS per (batch, window, head) and the per-row (lse, D) stats
     ds = torch.empty((B, nW, heads, s, s), device=qkv.device, dtype=torch.float32)
     stats = torch.empty((B, nW, heads, s, 2), device=qkv.device, dtype=torch.float32)
-    rc = _lib("window_attention_bwd", "sic_window_attention_bwd", 7).sic_window_attention_bwd(
+    rc = _entry("window_attention_bwd", "sic_window_attention_bwd", 7)(
         qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         dbias.data_ptr(), ds.data_ptr(), stats.data_ptr(), B, H, W, C, heads,
         ws, nB, float(scale), cuda_build.stream_of(qkv))
@@ -188,17 +195,16 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
 window_attention_nhwc_bwd.launches = 0
 
 
-def _lib(name: str, fn_name: str, n_pointers: int) -> ctypes.CDLL:
-    """The kernel library ``name`` with ``fn_name``'s signature set: its
-    first ``n_pointers`` arguments are pointers, then seven ints (B, H, W,
-    C, heads, ws, nB), the float scale and the stream."""
-    lib = cuda_build.load(name)
-    fn = getattr(lib, fn_name)
+def _entry(name: str, fn_name: str, n_pointers: int):
+    """The entry ``fn_name`` of kernel library ``name``, its signature set:
+    its first ``n_pointers`` arguments are pointers, then seven ints (B, H,
+    W, C, heads, ws, nB), the float scale and the stream."""
+    fn = getattr(cuda_build.load(name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 # -- (G, s, d) window attention ----------------------------------------------
@@ -243,9 +249,13 @@ def _gsd_kernel(q, k, v, bias, scale):
     where s % 4 != 0 (a 7x7 window: s = 49) the bias's last axis is padded
     with zeros to a multiple of 4, once per call; the padded columns lie
     past s, where the kernel masks every key, so they change nothing."""
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
-        cuda_build.require_cuda(t, name, torch.float32)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda_build.require_cuda(t, name, DTYPES)
+    cuda_build.require_cuda(bias, "bias", torch.float32)
     G, s, d = q.shape
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"window_attention kernel: q, k, v of one type, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d != HEAD_DIM or tuple(k.shape) != tuple(q.shape) \
             or tuple(v.shape) != tuple(q.shape) or bias.dim() != 3 \
             or tuple(bias.shape[1:]) != (s, s) or G == 0 or s == 0:
@@ -261,7 +271,7 @@ def _gsd_kernel(q, k, v, bias, scale):
         bias = torch.nn.functional.pad(bias, (0, row - s))
     out = torch.empty_like(q)
     lib = cuda_build.load("window_attention_gsd")
-    fn = lib.sic_window_attention_gsd
+    fn = getattr(lib, cuda_build.entry_symbol("sic_window_attention_gsd", q.dtype))
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -270,7 +280,7 @@ def _gsd_kernel(q, k, v, bias, scale):
             out.data_ptr(), G, s, d, bias.shape[0], row, float(scale),
             cuda_build.stream_of(q))
     cuda_build.check_launch(rc, "window_attention")
-    cuda_build.count_launch(window_attention)
+    cuda_build.count_launch(window_attention, q.dtype)
     return out
 
 
@@ -293,10 +303,11 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float) -> torch.Tensor:
     """q, k, v: (G, s, d) with G a multiple of ``bias.shape[0]``; bias:
     (nW, s, s) f32 additive logits bias (position bias plus any -inf shift
-    mask), window-head g taking ``bias[g % nW]``.  Returns (G, s, d).  A
-    CPU tensor takes the plain version under autograd; a CUDA tensor
-    launches the kernel (f32, head dim 64, contiguous) or raises, and its
-    gradient (to q, k, v and bias) is the plain f32 recompute."""
+    mask), window-head g taking ``bias[g % nW]``.  Returns (G, s, d) of
+    q's type.  A CPU tensor takes the plain version under autograd; a CUDA
+    tensor launches the kernel's entry for its type (f32 or bf16, head dim
+    64, contiguous) or raises, and its gradient (to q, k, v and bias) is
+    the plain f32 recompute."""
     G, nW = q.shape[0], bias.shape[0]
     if nW < 1 or G % nW:
         raise ValueError(f"window_attention: G {G} is not a multiple of the "
@@ -310,3 +321,4 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 window_attention.launches = 0
+window_attention.launches_bf16 = 0

@@ -2,7 +2,7 @@
 
     python -m sic_tpu_torch.service.app [--host 0.0.0.0] [--port 8000]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
-        [--device cuda]
+        [--device cuda] [--dtype auto|float32|bfloat16]
 
 Endpoints (reference: webapp.py:63-325):
 
@@ -18,11 +18,13 @@ Endpoints (reference: webapp.py:63-325):
 
 Codec responses carry the ``X-SIC-Stage`` / ``X-SIC-Elapsed-MS`` /
 ``X-SIC-Elapsed-S`` timing headers (webapp.py:41-48).  The models load once,
-in process, at first use, and run the port's fp32 runtime on ``device``
-(CUDA unless named); concurrent requests share batched device work through
-``service/batcher.py``.  The environment is read as the JAX service reads
-it: ``BASE_CONFIG`` (a reference-layout YAML, which gives the model in
-place of ``--spec``), ``CKPT_PATH``, ``CLIP_CKPT``, ``INDEX_DIR``,
+in process, at first use, and run the port's runtime on ``device`` (CUDA
+unless named) in the compute dtype of ``--dtype`` or ``SIC_DTYPE`` (auto:
+bf16 on CUDA, fp32 on the CPU, as the JAX service runs bf16 on an
+accelerator; CLIP stays fp32); concurrent requests share batched device
+work through ``service/batcher.py``.  The environment is read as the JAX
+service reads it: ``BASE_CONFIG`` (a reference-layout YAML, which gives the
+model in place of ``--spec``), ``CKPT_PATH``, ``CLIP_CKPT``, ``INDEX_DIR``,
 ``MEDIA_ROOT`` and ``PREVIEW_CACHE``.  Built on the stdlib ``http.server``
 (threaded).
 """
@@ -91,11 +93,13 @@ class ServiceState:
     reference-layout YAML whose spec the service runs instead; naming both
     is an error, and with neither the spec is the flagship.  ``device``:
     where the models and the index searches run (CUDA unless named).
+    ``dtype`` (or ``SIC_DTYPE``): the codec's compute dtype, ``auto``
+    (bf16 on CUDA, fp32 on the CPU), ``float32`` or ``bfloat16``.
     Paths left as None come from the environment, as in the JAX service."""
 
     def __init__(self, spec=None, ckpt_path=None, index_dir=None,
                  media_root=None, preview_cache=None, clip_ckpt=None,
-                 static_dir=None, device=None, base_config=None):
+                 static_dir=None, device=None, base_config=None, dtype=None):
         self.base_config = base_config or os.getenv("BASE_CONFIG") or None
         if self.base_config:
             if spec is not None:
@@ -108,6 +112,7 @@ class ServiceState:
             spec = getattr(config, f"{spec or 'flagship'}_spec")()
         self.spec = spec
         self.device = device
+        self.dtype = dtype or os.getenv("SIC_DTYPE") or "auto"
         self.ckpt_path = ckpt_path or os.getenv("CKPT_PATH") or None
         self.clip_ckpt = clip_ckpt or os.getenv("CLIP_CKPT") or None
         self.index_dir = Path(index_dir or os.getenv("INDEX_DIR", "./IO/faiss")).resolve()
@@ -130,7 +135,7 @@ class ServiceState:
             if self._rt is None:
                 from ..cli._common import load_runtime
                 self._rt = load_runtime(self.ckpt_path, self.spec,
-                                        device=self.device)
+                                        device=self.device, dtype=self.dtype)
             return self._rt
 
     @property
@@ -515,9 +520,13 @@ def main(argv=None):
                     default=None, help="model preset (default flagship)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--dtype", choices=["auto", "float32", "bfloat16"],
+                    default=None, help="codec compute dtype (or SIC_DTYPE; "
+                    "default auto: bfloat16 on CUDA, float32 on the CPU)")
     args = ap.parse_args(argv)
     srv = make_server(ServiceState(args.spec, device=args.device,
-                                   base_config=args.base_config),
+                                   base_config=args.base_config,
+                                   dtype=args.dtype),
                       port=args.port, host=args.host)
     print(f"[sic_tpu_torch] serving on http://{args.host}:{args.port}")
     srv.serve_forever()

@@ -6,8 +6,10 @@ have no CPU mode).  The file imports no JAX, so on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Attention kernels agree with their plain versions within 1e-4 in fp32
-(summation order only); the rANS kernels agree with the native coder and
-with their plain versions exactly.
+(summation order only); their bf16 entries err against an f64 reference
+no more than 1.5 times the plain bf16 version does; the rANS kernels agree
+with the native coder and with their plain versions exactly.  The runtime
+tests that check fp32 behaviour ask for fp32 (the card's default is bf16).
 """
 from pathlib import Path
 
@@ -525,7 +527,8 @@ def test_golden_stream_on_the_card(cuda):
     from sic_tpu_torch.cli._common import load_runtime
     from sic_tpu_torch.config import tiny_spec
     from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
-    rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda")
+    rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
+                      dtype="float32")
     rt.device_entropy = "device"
     enc, header = unpack_c2df(GOLDEN / "golden.c2df")
     enc = sanitize_enc_result_types(enc)
@@ -708,7 +711,7 @@ def test_golden_input_encodes_on_the_card(cuda):
     sys.path.insert(0, str(GOLDEN.parents[1]))
     from fixtures.golden.generate import golden_input
     rt = load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
-                      stream_part=1)
+                      stream_part=1, dtype="float32")
     encs, probes = {}, {}
     for path in ("host", "device"):
         rt.device_entropy = path
@@ -725,6 +728,7 @@ def test_golden_input_encodes_on_the_card(cuda):
 def _tiny_runtime(**kw):
     from sic_tpu_torch.cli._common import load_runtime
     from sic_tpu_torch.config import tiny_spec
+    kw.setdefault("dtype", "float32")
     return load_runtime(str(GOLDEN / "params.npz"), tiny_spec(), device="cuda",
                         stream_part=4, **kw)
 
@@ -804,10 +808,145 @@ def test_base_config_clis_on_the_card(cuda, tmp_path):
     (tmp_path / "in").mkdir()
     shutil.copy(root / "artifacts_r05" / "heldout" / "val1.png", tmp_path / "in")
     common = ["--base_config", str(root / "configs" / "config_small_r4.yaml"),
-              "--device", "cuda"]
+              "--device", "cuda", "--dtype", "float32"]
     assert compress_main(["--dataset_dir", str(tmp_path / "in"), "--save_dir",
                           str(tmp_path / "c"), *common])["images"] == 1
     assert decompress_main(["--dataset_dir", str(tmp_path / "c" / "bitstreams"),
                             "--save_dir", str(tmp_path / "d"), *common]) == 1
     from PIL import Image
     assert np.asarray(Image.open(tmp_path / "d" / "val1.png")).shape == (256, 256, 3)
+
+
+# -- bf16 entries (the bf16 serving mode) -------------------------------------
+
+# an entry's error against the f64 function, as a multiple of the plain
+# bf16 version's error against the same reference
+BF16_F64_RATIO = 1.5
+
+
+def _bf16_within(out, plain, ref):
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    err = (out.double() - ref).abs().max().item()
+    plain_err = (plain.double() - ref).abs().max().item()
+    assert err <= BF16_F64_RATIO * plain_err, (err, plain_err)
+
+
+def test_bf16_entries_compile_to_bf16_tensor_core_instructions(cuda):
+    """Every kernel function of the three forward libraries holds HGMMA,
+    and those of the bf16 entries hold bf16 HGMMA only (cuobjdump -sass)."""
+    from sic_tpu_torch.ops import cuda_build
+    names = ("seq_attention", "window_attention", "window_attention_gsd")
+    cuda_build.build(names)
+    for name in names:
+        counts = cuda_build.sass_hgmma(name)
+        assert len(counts) == 4, counts     # f32 and bf16, one and two warpgroups
+        for fn, c in counts.items():
+            assert c["hgmma"] > 0, (name, fn)
+            if "bfloat16" in fn:
+                assert c["bf16"] == c["hgmma"], (name, fn, c)
+            else:
+                assert c["bf16"] == 0, (name, fn, c)
+
+
+@pytest.mark.parametrize("B,S,C,heads", [(4, 289, 1024, 16), (4, 545, 768, 12),
+                                         (2, 50, 768, 12), (3, 17, 128, 2),
+                                         (2, 1, 128, 2), (3, 65, 128, 2)])
+def test_seq_attention_bf16_kernel(cuda, B, S, C, heads):
+    qkv = _randn((B, S, 3 * C), S + 1, cuda).to(torch.bfloat16)
+    before = ops.bf16_launch_counts()["seq_attention"]
+    out = ops.seq_attention(qkv, 0.125, heads)
+    assert ops.bf16_launch_counts()["seq_attention"] == before + 1
+    _bf16_within(out, ops.seq_attention_plain(qkv, 0.125, heads),
+                 _seq_attention_f64(qkv, 0.125, heads))
+    assert torch.equal(out, ops.seq_attention(qkv, 0.125, heads))
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("C,heads", [(768, 12), (1024, 16)])
+def test_window_attention_bf16_kernel(cuda, shifted, C, heads):
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    qkv = _randn((2, 32, 48, 3 * C), C + 1, cuda).to(torch.bfloat16)
+    bias = _randn((1, 256, 256), 2, cuda)
+    if shifted:
+        bias = (bias + torch.from_numpy(_full_shift_mask(2, 3, 16)).to(cuda)).contiguous()
+    out = ops.window_attention_nhwc(qkv, bias, 0.125, heads)
+    _bf16_within(out, ops.window_attention_nhwc_plain(qkv, bias, 0.125, heads),
+                 _window_attention_f64(qkv, bias, 0.125, heads))
+    assert torch.equal(out, ops.window_attention_nhwc(qkv, bias, 0.125, heads))
+
+
+@pytest.mark.parametrize("G,nW,s,masked", [(32, 2, 256, False), (48, 4, 256, True),
+                                           (12, 3, 49, False), (8, 2, 100, False)])
+def test_gsd_window_attention_bf16_kernel(cuda, G, nW, s, masked):
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    q, k, v = (_randn((G, s, 64), i, cuda).to(torch.bfloat16) for i in (3, 4, 5))
+    bias = _randn((nW, s, s), 6, cuda)
+    if masked:
+        bias = (bias + torch.from_numpy(_full_shift_mask(2, 2, 16)).to(cuda)).contiguous()
+    out = ops.window_attention(q, k, v, bias, 0.125)
+    _bf16_within(out, ops.window_attention_plain(q, k, v, bias, 0.125),
+                 _gsd_f64(q, k, v, bias, 0.125))
+    assert torch.equal(out, ops.window_attention(q, k, v, bias, 0.125))
+
+
+def test_attention_kernels_refuse_other_dtypes(cuda):
+    """No fallback: a CUDA tensor of a dtype no entry takes (float16), or a
+    bf16 bias, raises in each wrapper, and nothing launches."""
+    before = ops.launch_counts()
+    h = torch.float16
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        ops.seq_attention(_randn((2, 40, 3 * 128), 1, cuda).to(h), 0.125, 2)
+    bias = _randn((1, 256, 256), 3, cuda)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        ops.window_attention_nhwc(_randn((1, 16, 16, 3 * 128), 2, cuda).to(h),
+                                  bias, 0.125, 2)
+    q = _randn((8, 256, 64), 3, cuda)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        ops.window_attention(q.to(h), q.to(h), q.to(h), bias, 0.125)
+    with pytest.raises(ValueError, match="bias must be torch.float32"):
+        qb = q.to(torch.bfloat16)
+        ops.window_attention(qb, qb, qb, bias.to(torch.bfloat16), 0.125)
+    assert ops.launch_counts() == before
+
+
+def test_bf16_runtime_on_the_card(cuda):
+    """load_runtime's default on CUDA is bf16.  The golden stream decodes
+    to the fp32 runtime's h exactly and to pixels within the bound derived
+    from the JAX package's own bf16-vs-fp32 gap (fixtures/golden_bf16.py);
+    golden_input() encoded in bf16 decodes to its encoder's y_hat exactly
+    in the bf16 and the fp32 runtime."""
+    import sys
+    from sic_tpu_torch.cli._common import load_runtime
+    from sic_tpu_torch.config import tiny_spec
+    from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
+    sys.path.insert(0, str(GOLDEN.parents[1]))
+    from fixtures.golden.generate import golden_input
+    from fixtures.golden_bf16 import GAP_MULTIPLE, JAX_GAP_MAX, JAX_GAP_MEAN
+    params = str(GOLDEN / "params.npz")
+    rt = load_runtime(params, tiny_spec(), device="cuda", stream_part=1)
+    rt32 = load_runtime(params, tiny_spec(), device="cuda", stream_part=1,
+                        dtype="float32")
+    try:
+        assert rt.dtype == torch.bfloat16 and rt32.dtype == torch.float32
+        enc, header = unpack_c2df(GOLDEN / "golden.c2df")
+        enc = dict(sanitize_enc_result_types(enc), z_coder=header["z_coder"],
+                   coding_batch=header["coding_batch"])
+        before = ops.bf16_launch_counts()
+        p, p32 = {}, {}
+        x, x32 = rt.decode_only(**enc, probe=p), rt32.decode_only(**enc, probe=p32)
+        after = ops.bf16_launch_counts()
+        assert after["seq_attention"] > before["seq_attention"]
+        assert after["window_attention_nhwc"] > before["window_attention_nhwc"]
+        assert torch.equal(p["h_hat"], p32["h_hat"])
+        diff = (x - x32).abs()
+        assert diff.max().item() <= GAP_MULTIPLE * JAX_GAP_MAX
+        assert diff.mean().item() <= GAP_MULTIPLE * JAX_GAP_MEAN
+        probe = {}
+        e = rt.encode_only(golden_input()[None], probe=probe)
+        for r in (rt, rt32):
+            out = {}
+            r.decode_only(**e, coding_batch=8, probe=out)
+            assert torch.equal(out["h_hat"], probe["y_hat"])
+    finally:
+        rt.close()
+        rt32.close()
