@@ -2,7 +2,7 @@
 """Chip check of the PyTorch port on one CUDA card: encode, decode, the
 (G, s, d) window-attention op, the HTTP service with search, the evaluate
 CLI, the concurrent runtime entry points, reference-format files and YAML
-configs, bf16 serving, and training.
+configs, bf16 serving, training, and bf16 training.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -14,7 +14,8 @@ Phases, each printing one JSON line with the card's name and power limit:
               attention libraries (kernels 1, 2, 5 and 6; split TF32, and
               the bf16 entries of 1, 2 and 6), which must be above 0 in
               every one but kernel 5's dbias pass, bf16 HGMMA only in the
-              bf16 entries and none in the f32 ones; a dependent-chain probe
+              bf16 entries (kernels 1, 2, 5 and 6) and none
+              in the f32 ones; a dependent-chain probe
               (csrc/chain_probe.cu) reads the least latency of one step of
               each rANS chain in SM cycles, and nvidia-smi the SM's highest
               clock, for the rANS rows' chain bound;
@@ -39,6 +40,10 @@ Phases, each printing one JSON line with the card's name and power limit:
               shapes, each within 1.5x the plain bf16 version's error
               against f64, SDPA in bf16 as their yardstick, their bound on
               the bf16 tensor cores and in bytes at 2 bytes an element;
+              kernel 5's bf16 entry at the two training shapes, dqkv within
+              1.5x the plain bf16 version's error against f64, dbias within
+              BWD_TOL of the plain version's, SDPA's bf16 autograd backward
+              as its yardstick;
               each rANS row's bytes bound and chain bound (the longest
               substream's coded symbols times the probe's step), and its
               error against an f64 reference; every attention kernel
@@ -60,7 +65,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               256x256), every h_hat equal to the encoder's y_hat; the
               pixel decoder and the encoder at 4 and 8 x 256x256 run
               batched and one stream at a time, timed A B B A, and the
-              outputs of the two compared (batch invariance);
+              outputs of the two compared (batch invariance); one
+              decode_only and one encode_only with timer=StageTimer(),
+              recording the JAX runtime's stage names;
 6. op       - the (G, s, d) window-attention op, forward and gradient, at
               kernel_check's geometry and on one flagship Swin layer's real
               qkv (FeatMerge's shifted feat_in layer on the 512x512
@@ -116,8 +123,20 @@ Phases, each printing one JSON line with the card's name and power limit:
               pix) for one epoch, its `last` checkpoint and
               deploy_params.npz, and one image compressed and decompressed
               with those params, h_hat equal to the encoder's y_hat; step
-              times, peak memory and one profiled pix step;
-11. cpu     - the first 256x256 request decoded again on the CPU (plain
+              times, peak memory and one profiled pix step (the CLI with
+              its CUDA defaults: bf16 Adam moments and frozen storage);
+11. train_bf16 - the same Trainer run with create_train_state(dtype,
+              mu_dtype, frozen_dtype all bf16): every loss finite, frozen
+              leaves bf16 and bit-unchanged, trainable leaves f32 and
+              moved, the VQGAN decoder side unchanged after the feat
+              stages, Adam's mu bf16, bf16 launches of kernels 1, 2 and 5;
+              step medians and peak memory beside phase train's; one pix
+              step with remat against the same step without from one
+              snapshot and noise (equal, or no farther apart than two runs
+              without), each one's peak memory; the train CLI's CUDA
+              defaults on tests/fixtures/config_tiny.yaml for one epoch
+              with --log_dir (an event file and scalars.jsonl);
+12. cpu     - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
               one 256x256 image encoded on the CPU, its differences from
               the card's encode reported; and one tiny-spec feat step and
@@ -130,9 +149,10 @@ Phases, each printing one JSON line with the card's name and power limit:
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
 serving, phase 8 for the surface, phase 9 for bf16 serving, phase 10 for
-training) and read just after, by wrapper and by bf16 entry; every kernel
-of the path must have launched, and the (G, s, d) kernel on no model path.
-Every phase but 9 runs fp32 and asks for it.  Then a ``{"kernels":
+training, phase 11 for bf16 training) and read just after, by wrapper and
+by bf16 entry; every kernel of the path must have launched, and the
+(G, s, d) kernel on no model path.  Every phase but 9 and 11 runs fp32
+and asks for it (the train CLI's moments and frozen storage aside).  Then a ``{"kernels":
 [...]}`` line (the bf16 entries as rows of their own), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -302,9 +322,10 @@ class Smoke:
         names = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                # "void (anonymous namespace)::bwd_stats_kernel<2>(...)" -> the name
+                # "void (anonymous namespace)::bwd_stats_kernel<float, 2>(...)"
+                # -> "bwd_stats_kernel<float, 2>"
                 key = e.name.replace("(anonymous namespace)::", "").split("(")[0]
-                key = key.split(" ")[-1].split("::")[-1][:60]
+                key = key.removeprefix("void ").split("::")[-1][:60]
                 names[key] = names.get(key, 0.0) + (e.time_range.end - e.time_range.start)
         total = sum(names.values()) / 1e3 / iters if names else "not measured"
         if not by_kernel:
@@ -363,11 +384,17 @@ class Smoke:
         hgmma = {n: cuda_build.sass_hgmma(n) for n in (
             "seq_attention", "window_attention", "window_attention_bwd",
             "window_attention_gsd")}
+
+        def bf16_fn(f):   # a bf16 entry's function: templated on bf16, or named so
+            return "bfloat16" in f or "_bf16" in f
+
         bad = {f"{n}: {f}": c for n, fns in hgmma.items() for f, c in fns.items()
                if (c["hgmma"] == 0 and f != "bwd_dbias_kernel")
-               or c["bf16"] != ("bfloat16" in f) * c["hgmma"]}
-        n_bf16 = sum("bfloat16" in f for fns in hgmma.values() for f in fns)
-        if bad or n_bf16 != 6:
+               or c["bf16"] != bf16_fn(f) * c["hgmma"]}
+        n_bf16 = sum(bf16_fn(f) for fns in hgmma.values() for f in fns)
+        # kernels 1, 2, 6: two warpgroup counts each; kernel 5: its stats
+        # pass (two counts), dk-dv and dq passes
+        if bad or n_bf16 != 10:
             raise AssertionError(f"HGMMA by kernel function: {hgmma}")
         self.chain = self.chain_probe()
         return {"built": sorted(reports), "build_s": round(time.perf_counter() - t0, 3),
@@ -509,6 +536,8 @@ class Smoke:
         self.kernels["window_attention_nhwc"] = out["window_attention_c768_nb4"]
         out["window_attention_bwd"] = bwd = self._window_bwd_checks(g)
         self.kernels["window_attention_nhwc_bwd"] = bwd["256px_c768_nb1"]
+        out["window_attention_bwd_bf16"] = bwd16 = self._window_bwd_bf16_checks(g)
+        self.kernels["window_attention_nhwc_bwd_bf16"] = bwd16["256px_c768_nb1"]
         out["window_attention_gsd"] = self.kernels["window_attention"] = \
             self._gsd_check(*self._gsd_bench_inputs(g), 64 ** -0.5)
 
@@ -733,6 +762,93 @@ class Smoke:
             rec["tc_bound_ms"] = self.tc_bound(10 * B * nW * heads * s * s * d)
             if not (finite and err_q <= BWD_TOL and err_b <= BWD_TOL and deterministic):
                 raise AssertionError(f"window_attention_bwd {tag}: {rec}")
+            out[tag] = rec
+        return out
+
+    def _window_bwd_bf16_checks(self, g):
+        """Kernel 5's bf16 entry at the two training shapes (the 256-px
+        detail branch, nB 1; the 512-px maps with the shifted layers' -inf
+        masks, nB 4), batch 2: dqkv's error against f64 within
+        BF16_F64_RATIO of the plain bf16 version's (f32 inside, rounded
+        once, as the TPU kernel computes), dbias (f32) within BWD_TOL of
+        the plain version's, two launches bit-equal; eager and device times
+        beside the plain version's and SDPA's bf16 autograd backward (the
+        sum of its kernels in a profiler trace); the bound on the bf16
+        tensor cores against 2 bytes an element of qkv, g and dqkv."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.models.swin import _full_shift_mask
+        dev, bf = torch.device("cuda"), torch.bfloat16
+        ws, s, scale = 16, 256, 64 ** -0.5
+        out = {}
+        for tag, (B, H, W, C, shifted) in {"256px_c768_nb1": (2, 16, 16, 768, False),
+                                           "512px_c768_nb4": (2, 32, 32, 768, True)}.items():
+            heads, d = C // 64, 64
+            nwh, nww = H // ws, W // ws
+            nW = nwh * nww
+            qkv = torch.randn((B, H, W, 3 * C), device=dev, generator=g).to(bf)
+            gout = torch.randn((B, H, W, C), device=dev, generator=g).to(bf)
+            bias = torch.randn((1, s, s), device=dev, generator=g)
+            if shifted:
+                bias = (bias + torch.from_numpy(_full_shift_mask(nwh, nww, ws))
+                        .to(dev)).contiguous()
+            nB = bias.shape[0]
+
+            def kernel():
+                return ops.window_attention_nhwc_bwd(qkv, bias, gout, scale, heads)
+
+            def plain():
+                return ops.window_attention_nhwc_bwd_plain(qkv, bias, gout, scale, heads)
+
+            dq, db = kernel()
+            pq, pb = plain()
+            again = kernel()
+            deterministic = torch.equal(dq, again[0]) and torch.equal(db, again[1])
+            fq, fb = self._window_bwd_f64(qkv, bias, gout, scale, heads)
+            f64 = (dq.double() - fq).abs().max().item()
+            plain_f64 = (pq.double() - fq).abs().max().item()
+            rec = {"shape": [B, H, W, 3 * C], "dtype": "bfloat16", "heads": heads,
+                   "nB": nB, "shift_masks": shifted,
+                   "max_abs_err": (dq.float() - pq.float()).abs().max().item(),
+                   "f64_max_abs_err": f64, "plain_f64_max_abs_err": plain_f64,
+                   "f64_err_ratio": f64 / plain_f64 if plain_f64 else None,
+                   "dbias_rel_err": self._rel(db, pb.double()),
+                   "f64_dbias_rel_err": self._rel(db, fb),
+                   "plain_f64_dbias_rel_err": self._rel(pb, fb),
+                   "finite": bool(torch.isfinite(dq.float()).all() and torch.isfinite(db).all()),
+                   "deterministic": deterministic}
+            del fq, fb, again
+            t = qkv.reshape(B, nwh, ws, nww, ws, 3, heads, d).permute(
+                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B * nW, heads, s, d)
+            q, k, v = (t[i].contiguous().requires_grad_(True) for i in range(3))
+            leaf = bias.to(bf).requires_grad_(True)
+            win = torch.arange(B * nW, device=dev) % nW % nB
+            lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=leaf[win][:, None],
+                                                     scale=scale)
+            lib_g = torch.randn_like(lib_out)
+
+            def library():
+                return torch.autograd.grad(lib_out, (q, k, v, leaf), lib_g,
+                                           retain_graph=True)
+
+            rec.update({"ms": self.time_ms(kernel, iters=10),
+                        "plain_ms": self.time_ms(plain, iters=10),
+                        "library_ms": self.time_ms(library, iters=10),
+                        "device_ms": self.device_ms(kernel), "device_method": "cuda_graph",
+                        "library_device_ms": self.profiled_device_ms(library),
+                        "library_device_method": "profiler"})
+            rec["profiler_device_ms"], rec["passes_device_ms"] = \
+                self.profiled_device_ms(kernel, by_kernel=True)
+            flops = 10 * B * nW * heads * s * s * d
+            rec["bound_ms"], rec["bound_by"] = self.bf16_bound(
+                flops, B * H * W * (3 * C + C + 3 * C) * 2 + 2 * nB * s * s * 4)
+            rec["tc_bound_ms"] = flops / BF16_TFLOPS * 1e3
+            if not (dq.dtype == bf and rec["finite"] and deterministic
+                    and f64 <= BF16_F64_RATIO * plain_f64
+                    and rec["dbias_rel_err"] <= BWD_TOL):
+                raise AssertionError(f"window_attention_bwd bf16 {tag}: {rec}")
             out[tag] = rec
         return out
 
@@ -1413,18 +1529,41 @@ class Smoke:
         for i, stem in enumerate(group):
             png = np.asarray(Image.open(dst / f"{stem}.png")).astype(np.int32)
             cli_diff[stem] = int(np.abs(png - u8["group"][i].cpu().numpy()).max())
+        stages = self._timer_stages(requests["a_512x512"])
         rec = {"spec": "flagship", "dtype": "float32", "files": n_cli,
                "stream_bytes": {s: len(e["h_bit_stream"]) for s, e in requests.items()},
                "h_paths": paths, "h_hat_bit_exact": exact,
                "request_ms": ms, "cli_s": round(cli_s, 3), "peak_mem_gb": peak_gb,
                "cli_vs_runtime_max_u8_diff": cli_diff,
-               "launches": counts, **timing}
+               "timer_stage_ms": stages, "launches": counts, **timing}
         need = ("seq_attention", "window_attention_nhwc", "rans_decode_plane")
         if n_cli != 6 or not all(exact.values()) \
                 or min(counts[k] for k in need) < 1 \
-                or paths["a_512x512"] != "device" or max(cli_diff.values()) > 1:
+                or paths["a_512x512"] != "device" or max(cli_diff.values()) > 1 \
+                or set(stages["decode_only"]) != {"z_rans", "h_rans", "decode_device"} \
+                or set(stages["encode_only"]) != {"encode_device", "fetch", "h_rans",
+                                                  "z_rans"}:
             raise AssertionError(f"flagship decode check failed: {rec}")
         return rec
+
+    def _timer_stages(self, request):
+        """One decode_only and one encode_only of the 512x512 request with
+        ``timer=StageTimer()``: the JAX runtime's stage names, and each
+        stage's ms (host clock; a stage that ends with work queued on the
+        card counts its enqueue)."""
+        torch = self.torch
+        from sic_tpu_torch.data import load_image
+        from sic_tpu_torch.utils.profiling import StageTimer
+        rt, out = self.rt, {}
+        timer = StageTimer()
+        rt.decode_only(**request, timer=timer, output="u8")
+        torch.cuda.synchronize()
+        out["decode_only"] = dict(timer.stages)
+        timer = StageTimer()
+        rt.encode_only(load_image(WORK / "encode_in" / "a_512x512.png")[None], timer=timer)
+        torch.cuda.synchronize()
+        out["encode_only"] = dict(timer.stages)
+        return out
 
     def _flagship_timing(self, requests, group, decode_single, decode_group,
                          reps=5):
@@ -2478,38 +2617,32 @@ class Smoke:
                     lambda: rt.decode_only(**requests["a_512x512"], output="u8"))}
 
     # -- phase 9 ----------------------------------------------------------------
-    def train(self):
-        """(a) the seeded flagship through create_train_state and Trainer
-        at 256 px, batch 2: one epoch (four steps, then an eval step) of
-        each stage; (b) the train CLI at the 512-px preset for one epoch,
-        then one image compressed and decompressed with its params."""
+    def _trainer_run(self, **state_kw):
+        """The seeded flagship through create_train_state(**state_kw) and
+        Trainer at 256 px, batch 2: one epoch (four steps, then an eval
+        step) of each stage.  Returns (record, model, state, steps, the
+        untimed pix step, train_ds); the caller reads the launch counts."""
         import dataclasses
-        import gc
         import statistics
         import warnings
         torch = self.torch
 
-        from sic_tpu_torch import ops
         from sic_tpu_torch.config import flagship_spec, qp_strategy
         from sic_tpu_torch.data import ImageDataset
         from sic_tpu_torch.train import Trainer, create_train_state
         from sic_tpu_torch.train.state import is_vqgan_decoder_side, named_codec_params
-        spec = flagship_spec()
         base = qp_strategy(0, 256)
         strategy = dataclasses.replace(base, stages=tuple(
             dataclasses.replace(st, epoch_num=1) for st in base.stages))
         paths = [HELDOUT / f"val{i}.png" for i in range(8)]
         train_ds = ImageDataset(paths, 256, train=True)
         val_ds = ImageDataset(paths[:2], 256, train=False)
-        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
-
-        # -- the training main path: counts from 0, read after (a) and (b) ---
-        ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with warnings.catch_warnings():   # uncalibrated LPIPS: no weights here
             warnings.simplefilter("ignore")
-            model, state, steps = create_train_state(spec, strategy, SEED, device="cuda")
+            model, state, steps = create_train_state(flagship_spec(), strategy, SEED,
+                                                     device="cuda", **state_kw)
         init_s = time.perf_counter() - t0
         pix_step = steps.pix_step
         step_ms = {}
@@ -2532,6 +2665,8 @@ class Smoke:
         frozen0 = {k: p.detach().clone() for k, p in named if not p.requires_grad}
         train0 = {k: p.detach().clone() for k, p in state.trainable}
         disc0 = [p.detach().clone() for p in state.disc.parameters()]
+        dtypes = {"frozen": sorted({str(p.dtype) for p in frozen0.values()}),
+                  "trainable": sorted({str(p.dtype) for p in train0.values()})}
 
         def moved(keys):
             return sum(not torch.equal(dict(state.trainable)[k], train0[k]) for k in keys)
@@ -2548,40 +2683,166 @@ class Smoke:
         after_pix = {"decoder_side_moved": moved(decoder_side),
                      "other_trainable_moved": moved(rest)}
         frozen_equal = all(torch.equal(p, frozen0[k]) for k, p in named if k in frozen0)
-        n_frozen = len(frozen0)
         disc_moved = sum(not torch.equal(a, b) for a, b in
                          zip(state.disc.parameters(), disc0))
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         numbers = [v for d in logs for v in d.values() if isinstance(v, float)]
         finite = all(v == v and abs(v) != float("inf") for v in numbers)
         stages_run = sorted({d["stage"] for d in logs if "stage" in d and "epoch" in d})
-        x = torch.as_tensor(next(train_ds.batches(2, epoch=0)), device="cuda")
-        profile = self._profile(lambda: pix_step(state, x))
-        del model, state, steps, trainer, frozen0, train0, disc0, named
-        gc.collect()
-        torch.cuda.empty_cache()
-        cli = self._train_cli()
-        counts = self.read_counts("train")
-        # ----------------------------------------------------------------------
-        rec = {"spec": "flagship", "dtype": "float32", "init_s": round(init_s, 3),
+        rec = {"spec": "flagship", "init_s": round(init_s, 3),
                "stages_run": stages_run, "steps": {k: len(v) for k, v in step_ms.items()},
                "step_ms_median": {k: statistics.median(v) for k, v in step_ms.items()},
                "step_ms": step_ms, "losses_finite": finite, "log_lines": len(logs),
-               "last_logs": logs[-2:], "frozen_leaves": n_frozen,
-               "frozen_bit_unchanged": frozen_equal,
+               "last_logs": logs[-2:], "frozen_leaves": len(frozen0),
+               "frozen_bit_unchanged": frozen_equal, "leaf_dtypes": dtypes,
                "trainable_leaves": {"decoder_side": len(decoder_side), "other": len(rest)},
                "after_feat_stages": after_feat, "after_pix": after_pix,
-               "disc_leaves_moved": disc_moved, "peak_mem_gb": peak_gb,
-               "profile_pix_step": profile, "cli_512px": cli, "launches": counts}
+               "disc_leaves_moved": disc_moved,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        rec["ok"] = (finite and frozen_equal and stages_run == ["feat", "feat_wo_bpp", "pix"]
+                     and after_feat["decoder_side_moved"] == 0
+                     and after_feat["other_trainable_moved"] >= 0.9 * len(rest)
+                     and after_pix["decoder_side_moved"] >= 0.9 * len(decoder_side)
+                     and disc_moved > 0)
+        return rec, model, state, steps, pix_step, train_ds
+
+    def train(self):
+        """(a) the seeded flagship through create_train_state and Trainer
+        at 256 px, batch 2: one epoch (four steps, then an eval step) of
+        each stage; (b) the train CLI at the 512-px preset for one epoch,
+        then one image compressed and decompressed with its params."""
+        import gc
+        torch = self.torch
+
+        from sic_tpu_torch import ops
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+
+        # -- the training main path: counts from 0, read after (a) and (b) ---
+        ops.reset_launch_counts()
+        rec, model, state, steps, pix_step, train_ds = self._trainer_run()
+        x = torch.as_tensor(next(train_ds.batches(2, epoch=0)), device="cuda")
+        rec["profile_pix_step"] = self._profile(lambda: pix_step(state, x))
+        del model, state, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["cli_512px"] = cli = self._train_cli()
+        rec["launches"] = counts = self.read_counts("train")
+        # ----------------------------------------------------------------------
+        rec["dtype"] = "float32"
         need = ("seq_attention", "window_attention_nhwc", "window_attention_nhwc_bwd")
-        ok = (finite and frozen_equal and stages_run == ["feat", "feat_wo_bpp", "pix"]
-              and after_feat["decoder_side_moved"] == 0
-              and after_feat["other_trainable_moved"] >= 0.9 * len(rest)
-              and after_pix["decoder_side_moved"] >= 0.9 * len(decoder_side)
-              and disc_moved > 0 and min(counts[k] for k in need) >= 1
-              and cli["ok"])
-        if not ok:
+        if not (rec["ok"] and min(counts[k] for k in need) >= 1 and cli["ok"]):
             raise AssertionError(f"training check failed: {rec}")
+        self.train_fp32 = {"step_ms_median": rec["step_ms_median"],
+                           "peak_mem_gb": rec["peak_mem_gb"]}
+        return rec
+
+    def train_bf16(self):
+        """Training as the JAX package trains on an accelerator, with bf16
+        compute: phase train's Trainer run with create_train_state(dtype,
+        mu_dtype, frozen_dtype all bf16); one pix step with remat against
+        the same step without, from one snapshot of the state with the same
+        noise; then the train CLI with its CUDA defaults (bf16 moments and
+        frozen storage) on tests/fixtures/config_tiny.yaml with --log_dir."""
+        import gc
+        torch = self.torch
+        bf = torch.bfloat16
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.train import MomentDtypeAdam
+
+        # -- the bf16 training main path: counts from 0, read after the CLI ---
+        ops.reset_launch_counts()
+        rec, model, state, steps, pix_step, train_ds = self._trainer_run(
+            dtype=bf, mu_dtype=bf, frozen_dtype=bf)
+        mu_bf16 = isinstance(state.opt_ae, MomentDtypeAdam) and all(
+            st["exp_avg"].dtype == bf for st in state.opt_ae.state.values())
+        rec["remat"] = remat = self._remat_check(model, state, pix_step, train_ds)
+        del model, state, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["cli_config_tiny"] = cli = self._train_cli_log_dir()
+        rec["launches"] = self.read_counts("train_bf16")
+        rec["bf16_launches"] = bf16_counts = self.bf16_counts["train_bf16"]
+        # ----------------------------------------------------------------------
+        rec.update(dtype="bfloat16", mu_dtype="bfloat16", frozen_dtype="bfloat16",
+                   adam_mu_bf16=mu_bf16,
+                   fp32_beside=getattr(self, "train_fp32", "phase train did not pass"))
+        need = ("seq_attention", "window_attention_nhwc", "window_attention_nhwc_bwd")
+        ok = (rec["ok"] and mu_bf16
+              and rec["leaf_dtypes"] == {"frozen": ["torch.bfloat16"],
+                                         "trainable": ["torch.float32"]}
+              and min(bf16_counts[k] for k in need) >= 1
+              and remat["ok"] and cli["ok"])
+        if not ok:
+            raise AssertionError(f"bf16 training check failed: {rec}")
+        return rec
+
+    def _remat_check(self, model, state, pix_step, train_ds):
+        """One pix step with remat against the same step without, each from
+        one snapshot of the state, on one batch and one noise draw: losses
+        and every trainable gradient.  Equal bit for bit, or, where the step
+        itself is not repeatable on the card, no farther apart than two
+        runs without remat; peak memory of each."""
+        import copy
+        torch = self.torch
+        hc = model.hybrid_codec
+        x = torch.as_tensor(next(train_ds.batches(2, epoch=0)), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        noise = torch.rand((2, 8, 8, model.spec.quant_dim), device="cuda",
+                           generator=gen) - 0.5
+        snap = copy.deepcopy(state.state_dict())
+        runs = {}
+        for tag, flag in (("plain", False), ("remat", True), ("plain_again", False)):
+            state.load_state_dict(snap)
+            hc.encoder.remat = hc.decoder.remat = flag
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            logs = pix_step(state, x, noise=noise)
+            torch.cuda.synchronize()
+            # the step's own peak, above what was resident when it began
+            # (the state, the snapshot, earlier runs' gradients)
+            runs[tag] = {"ms": (time.perf_counter() - t) * 1e3,
+                         "step_peak_gb": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                         "logs": logs,
+                         "grads": [p.grad.clone() for _, p in state.trainable]}
+        hc.encoder.remat = hc.decoder.remat = False
+        del snap
+
+        def diff(a, b):
+            la = max(abs(float(a["logs"][k]) - float(b["logs"][k])) for k in a["logs"])
+            ga = max((u - v).abs().max().item() for u, v in zip(a["grads"], b["grads"]))
+            return la, ga
+
+        remat_diff = diff(runs["remat"], runs["plain"])
+        repeat_diff = diff(runs["plain_again"], runs["plain"])
+        out = {k: {f: v for f, v in r.items() if f in ("ms", "step_peak_gb")}
+               for k, r in runs.items()}
+        out.update(remat_vs_plain_max_abs={"logs": remat_diff[0], "grads": remat_diff[1]},
+                   plain_vs_plain_max_abs={"logs": repeat_diff[0], "grads": repeat_diff[1]},
+                   bit_equal=remat_diff == (0.0, 0.0))
+        out["ok"] = remat_diff[0] <= repeat_diff[0] and remat_diff[1] <= repeat_diff[1]
+        del runs
+        return out
+
+    def _train_cli_log_dir(self):
+        """The train CLI on CUDA with its defaults (bf16 Adam moments and
+        frozen storage, the JAX CLI's accelerator rule) for one epoch of
+        tests/fixtures/config_tiny.yaml, with --log_dir: an event file and
+        scalars.jsonl."""
+        from sic_tpu_torch.cli.train import main as train_main
+        log_dir = TRAIN_WORK / "bf16_logs"
+        out = train_main(["--base_config", str(ROOT / "tests" / "fixtures" / "config_tiny.yaml"),
+                          "--epochs", "1", "--batch_size", "2", "--train_dir", str(HELDOUT),
+                          "--ckpt_dir", str(TRAIN_WORK / "bf16_ckpt"), "--log_dir",
+                          str(log_dir), "--perceptual", "msssim", "--device", "cuda"])
+        events = sorted(p.name for p in log_dir.glob("events.out.tfevents.*"))
+        jsonl = log_dir / "scalars.jsonl"
+        lines = jsonl.read_text().splitlines() if jsonl.exists() else []
+        rec = {"result": out, "event_files": events, "scalars_jsonl_lines": len(lines)}
+        rec["ok"] = (out["global_step"] == 4 and out["mu_dtype"] == "torch.bfloat16"
+                     and out["frozen_dtype"] == "torch.bfloat16" and len(events) == 1
+                     and len(lines) > 0)
         return rec
 
     def _train_cli(self):
@@ -2862,6 +3123,7 @@ def main() -> int:
         smoke.phase("surface", smoke.surface)
         smoke.phase("bf16", smoke.bf16)
         smoke.phase("train", smoke.train)
+        smoke.phase("train_bf16", smoke.train_bf16)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)
     if getattr(smoke, "rt", None) is not None:

@@ -3,6 +3,7 @@ progress and PNG output."""
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from typing import Optional
@@ -56,7 +57,7 @@ def cli_config(parser, args):
 
 
 def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = None,
-                 device=None, stream_part: int = 4,
+                 device=None, stream_part: Optional[int] = None,
                  base_config: Optional[str] = None,
                  z_format: str = "rans", dtype=None) -> CodecRuntime:
     """A CodecRuntime on ``device`` (CUDA unless named), of ``spec`` or of
@@ -66,8 +67,10 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
     follows the JAX package's ``load_runtime``: bf16 on an accelerator
     (here CUDA), fp32 on the CPU; ``"float32"`` / ``"bfloat16"`` (or the
     torch dtypes) pick one.  The coding chain is fp32 in both.
-    ``stream_part``: rANS substreams per stream this runtime writes;
-    decoding reads the count from each stream.  ``z_format``: the semantic
+    ``stream_part``: rANS substreams per stream this runtime writes (None:
+    the ``SIC_STREAM_PART`` environment variable, else 4, as the JAX
+    package's ``load_runtime``); decoding reads the count from each
+    stream.  ``z_format``: the semantic
     stream's format it writes.  Without ``ckpt_path`` it warns and uses the
     seeded initialisation, as the JAX CLI does."""
     if spec is not None and base_config:
@@ -78,8 +81,27 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
         print("[WARN] no --ckpt_path given; running with random weights",
               file=sys.stderr)
     model = build_model(spec, dev, ckpt_path)
+    if stream_part is None:
+        stream_part = int(os.environ.get("SIC_STREAM_PART", "4"))
     return CodecRuntime(spec, model, stream_part=stream_part, z_format=z_format,
                         dtype=resolve_dtype(dtype, dev))
+
+
+def add_device_args(parser) -> None:
+    """``--device`` and the reference's ``--gpu_idx``."""
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; 'cpu' to run there)")
+    parser.add_argument("--gpu_idx", type=int, default=None,
+                        help="the card to run on, cuda:N (the reference's "
+                             "flag); --device wins when both are given")
+
+
+def cli_device(args):
+    """The device of ``add_device_args``' flags: ``--device``, else
+    ``cuda:<gpu_idx>``, else None (CUDA)."""
+    if args.device is not None or args.gpu_idx is None:
+        return args.device
+    return f"cuda:{args.gpu_idx}"
 
 
 def add_dtype_arg(parser) -> None:

@@ -3,8 +3,8 @@
     python -m sic_tpu_torch.cli.compress --dataset_dir DIR --save_dir OUT
         [--ckpt_path params.npz] [--clip_ckpt open_clip.pt]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
-        [--device cuda] [--dtype auto|float32|bfloat16] [--batch_size 8]
-        [--stream_part 4]
+        [--device cuda | --gpu_idx N] [--dtype auto|float32|bfloat16]
+        [--batch_size 8] [--stream_part 4] [--bpe_path merges.txt.gz]
 
 Same output layout as the reference's compress script (reference:
 src/compress.py:203-333): per image pad to 256 (replicate),
@@ -26,8 +26,8 @@ from ..container import pack_c2df
 from ..data import list_images, load_image, shard_list
 from ..models import get_padding_size, pad_replicate
 from ..retrieval import VectorIndex
-from ._common import (add_dtype_arg, cli_config, init_func, load_clip_codec,
-                      load_runtime, progress)
+from ._common import (add_device_args, add_dtype_arg, cli_config, cli_device,
+                      init_func, load_clip_codec, load_runtime, progress)
 
 
 def c2df_header(rt, clip_meta: dict, hw, pads) -> dict:
@@ -134,26 +134,29 @@ def main(argv=None):
                         "package's parameter tree")
     parser.add_argument("--clip_ckpt", default=None,
                         help="open_clip torch checkpoint for CLIP weights")
+    parser.add_argument("--bpe_path", default=None,
+                        help="the CLIP tokenizer's BPE merges file")
     parser.add_argument("--batch_size", type=int, default=8,
                         help="device batch per padded-shape bucket")
-    parser.add_argument("--stream_part", type=int, default=4,
-                        help="rANS substreams per h stream")
+    parser.add_argument("--stream_part", type=int, default=None,
+                        help="rANS substreams per h stream (default: "
+                             "SIC_STREAM_PART, else 4)")
     parser.add_argument("--base_config", help="reference-layout YAML config "
                         "(configs/*.yaml); excludes --spec")
     parser.add_argument("--spec", choices=["flagship", "small", "tiny"],
                         default=None, help="model preset (default flagship)")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda; 'cpu' to run there)")
+    add_device_args(parser)
     add_dtype_arg(parser)
     args = parser.parse_args(argv)
 
     init_func()
     t0 = time.time()
     spec = cli_config(parser, args).spec
-    rt = load_runtime(args.ckpt_path, spec, device=args.device,
+    device = cli_device(args)
+    rt = load_runtime(args.ckpt_path, spec, device=device,
                       stream_part=args.stream_part, dtype=args.dtype)
     try:
-        clip_codec = load_clip_codec(args.clip_ckpt, device=args.device)
+        clip_codec = load_clip_codec(args.clip_ckpt, args.bpe_path, device)
         n = compress_dir(rt, clip_codec, args.dataset_dir, args.save_dir,
                          tile_px=spec.tile_px, batch_size=args.batch_size)
     finally:

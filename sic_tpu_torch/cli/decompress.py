@@ -3,7 +3,8 @@
     python -m sic_tpu_torch.cli.decompress --dataset_dir DIR --save_dir OUT
         [--ckpt_path params.npz]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
-        [--device cuda] [--dtype auto|float32|bfloat16] [--batch_size 8]
+        [--device cuda | --gpu_idx N] [--dtype auto|float32|bfloat16]
+        [--batch_size 8] [--stream_part N (ignored: streams carry theirs)]
 
 (reference: src/decompress.py:79-140 — unpack, decode_only, negative-pad
 crop, save.)  Same-shaped files are decoded in device-batched groups of up
@@ -19,7 +20,8 @@ import time
 from pathlib import Path
 
 from ..container import sanitize_enc_result_types, unpack_c2df
-from ._common import add_dtype_arg, cli_config, load_runtime, save_png
+from ._common import (add_device_args, add_dtype_arg, cli_config, cli_device,
+                      load_runtime, save_png)
 
 
 def _crop_and_save(save_dir, stem, img, header):
@@ -76,16 +78,20 @@ def main(argv=None):
                         "(configs/*.yaml); excludes --spec")
     parser.add_argument("--spec", choices=["flagship", "small", "tiny"],
                         default=None, help="model preset (default flagship)")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda; 'cpu' to run there)")
+    add_device_args(parser)
     parser.add_argument("--batch_size", type=int, default=8,
                         help="files of one geometry decoded together")
+    parser.add_argument("--stream_part", type=int, default=None,
+                        help="accepted as the reference's flag; decoding "
+                             "ignores it: each stream carries its own part "
+                             "count")
     add_dtype_arg(parser)
     args = parser.parse_args(argv)
 
     t0 = time.time()
     spec = cli_config(parser, args).spec
-    rt = load_runtime(args.ckpt_path, spec, device=args.device, dtype=args.dtype)
+    rt = load_runtime(args.ckpt_path, spec, device=cli_device(args),
+                      stream_part=args.stream_part, dtype=args.dtype)
     try:
         n = decompress_dir(rt, args.dataset_dir, args.save_dir,
                            batch_size=args.batch_size)

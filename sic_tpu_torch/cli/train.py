@@ -6,16 +6,22 @@
         [--ckpt_dir ./ckpts] [--resume CKPT] [--reset_schedule]
         [--perceptual lpips|msssim|none] [--lpips_lin vgg.pth]
         [--lpips_vgg vgg16.pth] [--tiny] [--insert_pos ...] [--seed 0]
-        [--device cuda]
+        [--device cuda] [--log_dir LOGS] [--f32_frozen] [--no_donate]
 
 Drives ``feat_wo_bpp`` -> ``feat`` -> ``pix`` from a reference-layout YAML
-(its spec, training strategy, loss configs and ``tune_titok``) or a QP
-preset (the 512-px presets start in ``pix``) with the validation-bpp lambda
-controller, writes
+(its spec, training strategy, loss configs, ``tune_titok`` and
+``save_mem``, which recomputes the trunk and cross blocks in the backward)
+or a QP preset (the 512-px presets start in ``pix``) with the
+validation-bpp lambda controller, writes
 ``torch.save`` checkpoints into ``--ckpt_dir`` at every stage change and at
 the end (``last``), and finally ``deploy_params.npz``: the codec's
-parameters in the flat ``params/...`` layout that the compress and
+parameters in the flat ``params/...`` layout (f32) that the compress and
 decompress CLIs read with ``--ckpt_path``.
+
+On CUDA it trains as the JAX CLI trains on an accelerator: Adam's first
+moments and the frozen backbones stored in bf16 (``--f32_frozen`` keeps
+the backbones in f32); on the CPU both stay f32.  The codec computes in
+f32 in both, as the JAX CLI's does.
 """
 from __future__ import annotations
 
@@ -26,12 +32,22 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 
-_NOT_YET = ("Not offered yet (ROADMAP queue 1 item 7): --log_dir "
-            "(TensorBoard), rematerialisation (a YAML's save_mem: True is "
-            "refused), --no_donate and --f32_frozen; and (item 10) "
-            "--world_size/--rank/--coordinator, --tp/--tile/--fsdp/--pp: "
-            "this trains in one process on one device, in fp32.")
+_NOT_YET = ("Not offered yet (ROADMAP queue 1 item 10): --world_size/--rank/"
+            "--coordinator, --tp/--tile/--fsdp/--pp: this trains in one "
+            "process on one device.")
+
+
+def accelerator_dtypes(device, f32_frozen: bool = False):
+    """(mu_dtype, frozen_dtype) of the JAX CLI's rule (``on_tpu =
+    platform != "cpu"``): bf16 Adam moments and bf16 frozen storage on an
+    accelerator (here CUDA), unless ``f32_frozen`` for the latter; None
+    (f32) for both on the CPU."""
+    on_accel = torch.device(device if device is not None else "cuda").type != "cpu"
+    mu = torch.bfloat16 if on_accel else None
+    frozen = None if (f32_frozen or not on_accel) else torch.bfloat16
+    return mu, frozen
 
 
 def main(argv=None):
@@ -49,6 +65,9 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=2)
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--ckpt_dir", default="./ckpts")
+    ap.add_argument("--log_dir", default=None,
+                    help="write TensorBoard event files and scalars.jsonl "
+                         "here (reference: Lightning's TB logger)")
     ap.add_argument("--resume", default=None,
                     help="training checkpoint to resume, or a params .npz "
                          "(deploy_params.npz) for a params-only warm start")
@@ -66,6 +85,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--no_donate", action="store_true",
+                    help="accepted as the JAX CLI's flag; PyTorch updates "
+                         "the state in place, with or without it")
+    ap.add_argument("--f32_frozen", action="store_true",
+                    help="keep the frozen backbones in f32 (default bf16 "
+                         "on CUDA)")
     args = ap.parse_args(argv)
 
     from ..config import flagship_spec, load_config, qp_strategy, tiny_spec
@@ -88,9 +113,6 @@ def main(argv=None):
         spec = tiny_spec() if args.tiny else flagship_spec()
         strategy = qp_strategy(args.qp or 0, args.train_px)
         feat_cfg, img_cfg, tune_titok = FeatLossCfg(), ImgLossCfg(), False
-    if spec.remat:
-        ap.error("the config asks for rematerialisation (save_mem: True), "
-                 "which the port does not offer yet (ROADMAP queue 1 item 7)")
     if args.insert_pos is not None:
         spec = dataclasses.replace(spec, insert_pos_enc=tuple(args.insert_pos),
                                    insert_pos_dec=tuple(args.insert_pos))
@@ -112,10 +134,12 @@ def main(argv=None):
     elif args.val_dir:
         val_ds = ImageDataset.from_dir(args.val_dir, args.train_px, False)
 
+    mu_dtype, frozen_dtype = accelerator_dtypes(args.device, args.f32_frozen)
     model, state, steps = create_train_state(
         spec, strategy, args.seed, feat_cfg=feat_cfg, img_cfg=img_cfg,
         device=args.device, lpips_lin=args.lpips_lin, lpips_vgg=args.lpips_vgg,
-        tune_titok=tune_titok)
+        tune_titok=tune_titok, mu_dtype=mu_dtype, frozen_dtype=frozen_dtype,
+        donate=not args.no_donate)
     if args.resume:
         if str(args.resume).endswith(".npz"):
             # params-only warm start: optimizer and schedule start fresh
@@ -130,9 +154,17 @@ def main(argv=None):
         if args.reset_schedule:
             reset_schedule(state, strategy)
 
+    writer = None
+    if args.log_dir:
+        from ..utils.tb_writer import MetricsWriter
+        writer = MetricsWriter(args.log_dir)
+        tb_log = writer.as_log_fn()
+
     def log_fn(d):
         print(json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                           for k, v in d.items()}), file=sys.stderr, flush=True)
+        if writer is not None:
+            tb_log(d)
 
     trainer = Trainer(model, state, steps, strategy, ckpt_dir=args.ckpt_dir,
                       log_fn=log_fn)
@@ -143,14 +175,20 @@ def main(argv=None):
     def val_data():
         return val_ds.batches(args.batch_size, shuffle=False)
 
-    trainer.fit(train_data, val_data if val_ds else None, epochs=args.epochs)
+    try:
+        trainer.fit(train_data, val_data if val_ds else None, epochs=args.epochs)
+    finally:
+        if writer is not None:
+            writer.close()
     deploy = Path(args.ckpt_dir) / "deploy_params.npz"
     np.savez(deploy, **export_flax_params(model))
     print(f"[train] deployment params -> {deploy}", file=sys.stderr)
     print(f"[OK] training done; checkpoints in {args.ckpt_dir}", file=sys.stderr)
     return {"ckpt_dir": str(args.ckpt_dir), "deploy_params": str(deploy),
             "global_step": state.global_step,
-            "epoch_for_strategy": state.epoch_for_strategy}
+            "epoch_for_strategy": state.epoch_for_strategy,
+            "mu_dtype": str(mu_dtype), "frozen_dtype": str(frozen_dtype),
+            "remat": spec.remat}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 // (kernel 6) attention, and the row statistics of the NHWC backward
 // (kernel 5's first pass).  Two bodies over one plan: fp32 attention in
 // split TF32 (3xTF32, `attend_tf32`) and bf16 attention with f32
-// accumulation (`attend_bf16`, kernels 1, 2 and 6 only); tiles loaded by
+// accumulation (`attend_bf16`: the bf16 entries of kernels 1, 2 and 6,
+// and of kernel 5's first pass); tiles loaded by
 // TMA into a shared-memory ring, online softmax in f32 on the wgmma
 // accumulator fragments, the softmax steps and the epilogue shared.
 //
@@ -304,6 +305,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two floats -> their bf16 pair (hi, as pack_bf16) and the bf16 pair of
+// what hi leaves (lo): hi + lo holds each float to about 2^-17 of itself
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
 // Shared-memory plan of the bf16 body: a 64-row tile of one head is 64 x
 // 64 bf16, one 8 KB box (a head row is one 128-byte swizzle row).  Per ring
 // stage: k, v (8 KB each) and, with a bias, its f32 tile (16 KB a
@@ -416,6 +426,39 @@ __device__ __forceinline__ void write_rows(const Geo& geo, const float (&o)[32],
         store_pair(orow + 8 * j + 2 * t, o[4 * j + 2 * row] * inv,
                    o[4 * j + 2 * row + 1] * inv);
     }
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// the backward's row statistics instead of output rows: lse = m + log l
+// and D = g . O / l for rows r0 and r0 + 8, the four lanes of a row summing
+// their 16 columns (g in f32 or bf16, the dot in f32)
+template <class Geo>
+__device__ __forceinline__ void write_stats_rows(const Geo& geo, const float (&o)[32],
+                                                 const float (&m)[2],
+                                                 const float (&l)[2], int q0,
+                                                 int r0, int t, int n) {
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int qi = q0 + r0 + 8 * row;
+    const auto* grow = geo.g_row(qi < n ? qi : 0);
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 gv = load_pair(grow + 8 * j + 2 * t);
+      dot = fmaf(gv.x, o[4 * j + 2 * row], dot);
+      dot = fmaf(gv.y, o[4 * j + 2 * row + 1], dot);
+    }
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    if (t == 0 && qi < n)
+      geo.write_stats(qi, m[row] + logf(l[row]), dot / l[row]);
   }
 }
 
@@ -626,24 +669,7 @@ __device__ __forceinline__ void attend_tf32(const Geo& geo, int n, float scale,
   }
 
   if constexpr (WritesStats<Geo>::value) {
-    // the backward's row statistics: lse and D = g . O, the four lanes of
-    // a row summing their 16 columns
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      const int qi = q0 + r0 + 8 * row;
-      const float* grow = geo.g_row(qi < n ? qi : 0);
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 gv = *reinterpret_cast<const float2*>(grow + 8 * j + 2 * t);
-        dot = fmaf(gv.x, o[4 * j + 2 * row], dot);
-        dot = fmaf(gv.y, o[4 * j + 2 * row + 1], dot);
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      if (t == 0 && qi < n)
-        geo.write_stats(qi, m[row] + logf(l[row]), dot / l[row]);
-    }
+    write_stats_rows(geo, o, m, l, q0, r0, t, n);
   } else {
     write_rows(geo, o, l, q0, r0, t, n);
   }
@@ -661,10 +687,16 @@ __device__ __forceinline__ void attend_tf32(const Geo& geo, int n, float scale,
 // nothing is staged.  Each key tile's P v goes to a fresh accumulator and
 // O = alpha O + P v is an f32 FMA, as in the split-TF32 body; O / l is
 // rounded once to bf16.
+//
+// With a stats Geo (kernel 5's first pass on bf16 operands) the
+// probabilities go to O = P v split as bf16 hi + lo (two k16 wgmma a step,
+// lo first), so that O, and the row statistic D = g . O taken from it, is
+// near f32 as the TPU kernel's f32 inside is; the output's bf16 rounding
+// is not there to hide a rounded P.
 template <int NWG, bool kBias, class Geo>
 __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
                                             int q0, uint8_t* smem_raw) {
-  static_assert(!WritesStats<Geo>::value, "the bf16 body writes output rows");
+  constexpr bool kStats = WritesStats<Geo>::value;
   using P = Plan16<NWG, kBias>;
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
@@ -757,7 +789,7 @@ __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
                          tmax);
     softmax_rescale(tmax, m, alpha, m_use);
     float psum[2] = {0.f, 0.f};
-    uint32_t pf[16];
+    uint32_t pf[16], plo[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float p[4];
@@ -768,8 +800,13 @@ __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
       }
       // chunk j = 2kk + h: registers 4kk + 2h (row r0) and 4kk + 2h + 1
       // (row r0 + 8), keys 8j + 2t and 8j + 2t + 1
-      pf[2 * j] = pack_bf16(p[0], p[1]);
-      pf[2 * j + 1] = pack_bf16(p[2], p[3]);
+      if constexpr (kStats) {
+        split_bf16(p[0], p[1], pf[2 * j], plo[2 * j]);
+        split_bf16(p[2], p[3], pf[2 * j + 1], plo[2 * j + 1]);
+      } else {
+        pf[2 * j] = pack_bf16(p[0], p[1]);
+        pf[2 * j + 1] = pack_bf16(p[2], p[3]);
+      }
     }
     update_sums(psum, alpha, l);
 
@@ -781,16 +818,25 @@ __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
     for (int e = 0; e < 32; ++e) pv[e] = 0.f;
     fence_regs(pv);
     fence_regs(pf);
+    if constexpr (kStats) fence_regs(plo);
     wgmma_fence();
+    if constexpr (kStats) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_bf16<1>(pv, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
+                                plo[4 * kk + 3], desc_sw128(v_a + 2048 * kk),
+                                kk != 0);
+    }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_m64n64k16_bf16<1>(pv, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
                               pf[4 * kk + 3], desc_sw128(v_a + 2048 * kk),
-                              kk != 0);
+                              kStats || kk != 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(pv);
     fence_regs(pf);
+    if constexpr (kStats) fence_regs(plo);
 #pragma unroll
     for (int e = 0; e < 32; ++e) o[e] = fmaf(o[e], alpha[(e >> 1) & 1], pv[e]);
     __syncthreads();  // every warpgroup is done with this stage
@@ -799,7 +845,11 @@ __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
       issue_tile(i + kStages, st);
     }
   }
-  write_rows(geo, o, l, q0, r0, t, n);
+  if constexpr (kStats) {
+    write_stats_rows(geo, o, m, l, q0, r0, t, n);
+  } else {
+    write_rows(geo, o, l, q0, r0, t, n);
+  }
 }
 
 // T is the operand type: float runs the split-TF32 body, __nv_bfloat16

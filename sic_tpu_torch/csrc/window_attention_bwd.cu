@@ -73,6 +73,25 @@
 // the row stats as (B, nW, heads, s) float2; the dS scratch (4 s^2 bytes
 // per window and head) is device-memory traffic the TPU kernel did not
 // have, and buys a deterministic dq and dbias without atomics.
+//
+// The bf16 entry (sic_window_attention_bwd_bf16; every Swin layer's
+// gradient when training computes in bf16): bf16 qkv, g and dqkv, f32
+// bias, dbias and scratch, the same four passes and grids.  The TPU
+// kernel upcasts qkv and g and computes in f32 inside, so the only
+// rounding it adds is dqkv's to bf16.  Here S = q k^T and dP = g v^T take
+// their bf16 operands exactly (one k16 wgmma a step, f32 accumulation);
+// the error would enter where the f32 intermediates P and dS meet the
+// tensor cores, in dv = P^T g, dk = dS^T q and dq = dS k, and in O of the
+// first pass (D = g . O): there each goes in as bf16 hi + lo, two wgmma
+// a step, which leaves it about 2^-17 of itself, below dqkv's own
+// rounding (2^-9).  Each tile's product still goes to a fresh
+// accumulator added in f32.  v, g, q and k are read MN-major as TMA lands
+// them (the transpose bit of 16-bit wgmma), so the bf16 passes stage no
+// transposes: pass 2 holds k, v, P^T and a two-stage ring of (q, g, bias)
+// in 97 KB, pass 3 a two-stage ring of (dS, k) in 48 KB.  dqkv is rounded
+// once to bf16; dbias (pass 4, shared) is f32 as in the f32 entry.  Its
+// bound: the same 10 s^2 d flops a window and head over 989 TFLOP/s, at
+// 2 bytes an element of qkv, g and dqkv.
 #include "attention_tc.cuh"
 
 namespace {
@@ -85,12 +104,14 @@ constexpr int kRows = 64;  // keys (pass 2) or queries (pass 3) of a block
 
 // -- pass 1 -------------------------------------------------------------------
 
-struct StatsGeo : sic_tc::WindowGeo {
+// T: the type of qkv and g (f32 or bf16); the statistics are f32
+template <typename T>
+struct StatsGeo : sic_tc::WindowGeoT<T> {
   static constexpr bool kStats = true;
-  const float* g;
+  const T* g;
   float2* stats;  // the rows of this (b, window, head)
-  __device__ __forceinline__ const float* g_row(int t) const {
-    return g + pix(t) * C + head * kHeadDim;
+  __device__ __forceinline__ const T* g_row(int t) const {
+    return g + this->pix(t) * this->C + this->head * kHeadDim;
   }
   __device__ __forceinline__ void write_stats(int t, float lse,
                                               float d) const {
@@ -99,11 +120,11 @@ struct StatsGeo : sic_tc::WindowGeo {
 };
 
 // grid: x = head * ntiles + query tile, y = window, z = batch
-template <int NWG>
+template <typename T, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
     bwd_stats_kernel(const __grid_constant__ CUtensorMap map,
                      const __grid_constant__ CUtensorMap bias_map,
-                     const float* __restrict__ g, float2* __restrict__ stats,
+                     const T* __restrict__ g, float2* __restrict__ stats,
                      int H, int W, int C, int ws, int nB, float scale) {
   extern __shared__ uint8_t smem[];
   const int s = ws * ws;
@@ -113,12 +134,12 @@ __global__ void __launch_bounds__(NWG * 128, 1)
   const int head = blockIdx.x / ntiles;
   const int64_t slab =
       ((int64_t)blockIdx.z * gridDim.y + win) * (gridDim.x / ntiles) + head;
-  const StatsGeo geo{{&map, &bias_map, nullptr, H, W, C, ws, head,
-                      (int)blockIdx.z, (win % nww) * ws, (win / nww) * ws,
-                      win % nB},
-                     g,
-                     stats + slab * s};
-  sic_tc::attend<float, NWG, true>(
+  const StatsGeo<T> geo{{&map, &bias_map, nullptr, H, W, C, ws, head,
+                         (int)blockIdx.z, (win % nww) * ws, (win / nww) * ws,
+                         win % nB},
+                        g,
+                        stats + slab * s};
+  sic_tc::attend<T, NWG, true>(
       geo, s, scale, ((int)blockIdx.x % ntiles) * NWG * sic_tc::kWgRows, smem);
 }
 
@@ -520,6 +541,365 @@ __global__ void __launch_bounds__(128, 2)
   }
 }
 
+// -- bf16 passes 2 and 3 -------------------------------------------------------
+//
+// The bf16 entry's passes on the bf16 tensor cores (k16 wgmma, f32
+// accumulation).  A 64-token tile of one head is one 8-KB box of 64 rows
+// of 64 bf16 (one 128-byte swizzle row each).  S^T = k q^T and dP^T =
+// v g^T take bf16 operands exactly: k or v as register A fragments, q or
+// g as K-major B tiles as they land.  dv += P^T g, dk += dS^T q and dq +=
+// dS k take the f32 P and dS as bf16 hi + lo (two k16 wgmma a step, lo
+// first), g, q and k as MN-major B tiles as they land (the transpose
+// bit), so nothing is staged or transposed.  scale multiplies the logits,
+// dk and dq in f32.
+
+// acc += x . b over K = 64: x an accumulator fragment (rows of the
+// warpgroup's 64, columns the K index) split into register A fragments
+// of bf16 hi and lo (for 16-bit types the accumulator's slots of columns
+// 16kk.. are the A fragment of step kk), b a (64 K rows, 64 bf16) MN-major
+// tile at shared address b_a.  The tile's product goes to a fresh
+// accumulator, added into acc with f32 adds.
+__device__ __forceinline__ void mma16_rs_add(float (&acc)[32],
+                                             const float (&x)[32],
+                                             uint32_t b_a) {
+  uint32_t hi[16], lo[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int row = 0; row < 2; ++row)
+      sic_tc::split_bf16(x[4 * j + 2 * row], x[4 * j + 2 * row + 1],
+                         hi[2 * j + row], lo[2 * j + row]);
+  }
+  float tile[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) tile[e] = 0.f;
+  sic_tc::fence_regs(tile);
+  sic_tc::fence_regs(hi);
+  sic_tc::fence_regs(lo);
+  sic_tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sic_tc::wgmma_m64n64k16_bf16<1>(tile, lo[4 * kk], lo[4 * kk + 1],
+                                    lo[4 * kk + 2], lo[4 * kk + 3],
+                                    sic_tc::desc_sw128(b_a + 2048 * kk), kk != 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sic_tc::wgmma_m64n64k16_bf16<1>(tile, hi[4 * kk], hi[4 * kk + 1],
+                                    hi[4 * kk + 2], hi[4 * kk + 3],
+                                    sic_tc::desc_sw128(b_a + 2048 * kk), 1);
+  sic_tc::wgmma_commit();
+  sic_tc::wgmma_wait_all();
+  sic_tc::fence_regs(tile);
+  sic_tc::fence_regs(hi);
+  sic_tc::fence_regs(lo);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] += tile[e];
+}
+
+// The pass-2 block: k and v (8 KB each), P^T passed between the
+// warpgroups (f32, 16 KB), then a two-stage ring of (q, g, bias) tiles
+// (8 + 8 + 16 KB), then three mbarriers (k and v, the ring's two).
+constexpr int kB16K = 0;
+constexpr int kB16V = kBoxBytes;
+constexpr int kB16Px = 2 * kBoxBytes;
+constexpr int kB16Ring = kB16Px + kTileBytes;
+constexpr int kB16Q = 0;  // within a stage
+constexpr int kB16G = kBoxBytes;
+constexpr int kB16Bias = 2 * kBoxBytes;
+constexpr int kB16Stage = 2 * kBoxBytes + kTileBytes;
+constexpr int kB16Bar = kB16Ring + 2 * kB16Stage;
+constexpr int kDkdv16Bytes = kB16Bar + 64 + 1024;
+
+// grid: x = head * nk + key tile, y = window, z = batch; 256 threads.
+// Warpgroup 0 takes S^T, P^T and dv, warpgroup 1 dP^T, dS^T and dk, as in
+// the f32 pass; each picks its operands by address, so no wgmma sits in a
+// branch.
+__global__ void __launch_bounds__(256, 1)
+    bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap map,
+                         const __grid_constant__ CUtensorMap g_map,
+                         const __grid_constant__ CUtensorMap bias_map,
+                         const float2* __restrict__ stats,
+                         float* __restrict__ ds,
+                         __nv_bfloat16* __restrict__ dqkv, int H, int W,
+                         int C, int ws, int nB, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sic_tc::align1024(smem_raw);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + kB16Bar);
+  uint64_t* full = kvbar + 1;
+  float4* px = reinterpret_cast<float4*>(smem + kB16Px);  // [8][128] float4
+
+  const int s = ws * ws;
+  const int n = s / kRows;
+  const int head = blockIdx.x / n;
+  const int k0 = (blockIdx.x % n) * kRows;
+  const int win = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nww = W / ws;
+  const int x0 = (win % nww) * ws, y0 = (win / nww) * ws;
+  const int64_t slab =
+      ((int64_t)b * gridDim.y + win) * (gridDim.x / n) + head;
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wtid = tid & 127;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int r0 = (wtid >> 5) * 16 + gq;  // keys r0 and r0 + 8 of the tile
+
+  auto stage = [&](int st) { return smem + kB16Ring + st * kB16Stage; };
+  auto issue = [&](int it, int st) {
+    uint8_t* sp = stage(st);
+    const int i0 = it * kRows;
+    sic_tc::mbar_expect_tx(&full[st], kB16Stage);
+    sic_tc::tma_load_4d(sp + kB16Q, &map, &full[st], head * kHeadDim, x0,
+                        y0 + i0 / ws, b);
+    sic_tc::tma_load_4d(sp + kB16G, &g_map, &full[st], head * kHeadDim, x0,
+                        y0 + i0 / ws, b);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sic_tc::tma_load_3d(sp + kB16Bias + h * kBoxBytes, &bias_map, &full[st],
+                          k0 + h * 32, i0, win % nB);
+  };
+
+  sic_tc::init_bars(kvbar, 3);
+  if (tid == 0) {
+    sic_tc::mbar_expect_tx(kvbar, 2 * kBoxBytes);
+    sic_tc::tma_load_4d(smem + kB16K, &map, kvbar, C + head * kHeadDim, x0,
+                        y0 + k0 / ws, b);
+    sic_tc::tma_load_4d(smem + kB16V, &map, kvbar, 2 * C + head * kHeadDim, x0,
+                        y0 + k0 / ws, b);
+    for (int i = 0; i < 2 && i < n; ++i) issue(i, i);
+  }
+  // k (warpgroup 0) or v (1) as A fragments: step kk, registers (r0,
+  // 16kk+2t..), (r0+8, 16kk+2t..), (r0, 16kk+8+2t..), (r0+8, 16kk+8+2t..)
+  uint32_t af[16];
+  sic_tc::mbar_wait(kvbar, 0);
+  {
+    const uint8_t* src = smem + (wg == 0 ? kB16K : kB16V);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + ((e & 1) ? 8 : 0);
+        const int c = 16 * kk + 2 * t + ((e & 2) ? 8 : 0);
+        af[4 * kk + e] =
+            *reinterpret_cast<const uint32_t*>(src + sic_tc::swz16(r, c));
+      }
+    }
+  }
+
+  float acc[32];  // dv (warpgroup 0) or dk (warpgroup 1, before scale)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  const float* srow0 = reinterpret_cast<const float*>(stats + slab * s);
+  float* ds_slab = ds + slab * s * s;
+  const float NEG_INF = -INFINITY;
+
+  for (int it = 0; it < n; ++it) {
+    const int i0 = it * kRows;
+    const int st = it & 1;
+    uint8_t* sp = stage(st);
+    // this tile's lse (warpgroup 0) or D (warpgroup 1) of queries
+    // 8j + 2t and 8j + 2t + 1
+    float stv[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 v4 = *reinterpret_cast<const float4*>(
+          srow0 + 2 * (i0 + 8 * j + 2 * t));
+      stv[2 * j] = wg == 0 ? v4.x : v4.y;
+      stv[2 * j + 1] = wg == 0 ? v4.z : v4.w;
+    }
+    sic_tc::mbar_wait(&full[st], (it >> 1) & 1);
+
+    // S^T = k q^T or dP^T = v g^T: rows keys, columns queries
+    float x[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) x[e] = 0.f;
+    const uint32_t b_a = sic_tc::smem_u32(sp + (wg == 0 ? kB16Q : kB16G));
+    sic_tc::fence_regs(x);
+    sic_tc::fence_regs(af);
+    sic_tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sic_tc::wgmma_m64n64k16_bf16<0>(x, af[4 * kk], af[4 * kk + 1],
+                                      af[4 * kk + 2], af[4 * kk + 3],
+                                      sic_tc::desc_sw128(b_a + 32 * kk), kk != 0);
+    sic_tc::wgmma_commit();
+    sic_tc::wgmma_wait_all();
+    sic_tc::fence_regs(x);
+    sic_tc::fence_regs(af);
+
+    // slot 4j+e holds key r0 + 8 (e >> 1), query 8j + 2t + (e & 1)
+    if (wg == 0) {
+      const uint8_t* bias = sp + kB16Bias;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          const int kr = r0 + 8 * (e >> 1);
+          const float v = x[4 * j + e] * scale +
+                          *reinterpret_cast<const float*>(
+                              bias + sic_tc::swz(kRows, qc, kr));
+          x[4 * j + e] = (v == NEG_INF) ? 0.f : expf(v - stv[2 * j + (e & 1)]);
+        }
+        px[j * 128 + wtid] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      }
+    }
+    __syncthreads();  // P^T is passed on
+
+    if (wg == 1) {
+      // dS^T = P^T (dP^T - D), to the scratch as (query, key) rows
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = px[j * 128 + wtid];
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          const int kr = r0 + 8 * (e >> 1);
+          x[4 * j + e] = pv[e] * (x[4 * j + e] - stv[2 * j + (e & 1)]);
+          ds_slab[(int64_t)(i0 + qc) * s + k0 + kr] = x[4 * j + e];
+        }
+      }
+    }
+    // dv += P^T g (warpgroup 0) or dk += dS^T q (warpgroup 1)
+    mma16_rs_add(acc, x, sic_tc::smem_u32(sp + (wg == 0 ? kB16G : kB16Q)));
+    __syncthreads();  // the stage and P^T are free again
+    if (tid == 0 && it + 2 < n) {
+      sic_tc::fence_async_smem();  // the bias reads before the TMA overwrites
+      issue(it + 2, st);
+    }
+  }
+
+  // rows r0 and r0 + 8: the keys' dv (warpgroup 0) or dk (1), rounded once
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int key = k0 + r0 + 8 * row;
+    __nv_bfloat16* out =
+        dqkv + (((int64_t)b * H + y0 + key / ws) * W + x0 + key % ws) * 3 * C +
+        (wg == 0 ? 2 * C : C) + head * kHeadDim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sic_tc::store_pair(out + 8 * j + 2 * t, acc[4 * j + 2 * row] * mul,
+                         acc[4 * j + 2 * row + 1] * mul);
+  }
+}
+
+// The pass-3 block: a two-stage ring of (dS tile f32 16 KB, k tile bf16
+// 8 KB), then two mbarriers.
+constexpr int kDq16Stage = kTileBytes + kBoxBytes;
+constexpr int kDq16Bar = 2 * kDq16Stage;
+constexpr int kDq16Bytes = kDq16Bar + 16 + 1008;
+
+// grid: x = head * nq + query tile, y = window, z = batch; 128 threads.
+// dq = dS k scale: the dS rows as split register A fragments read from the
+// f32 tile as it lands, k as the MN-major B tile.
+__global__ void __launch_bounds__(128)
+    bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map,
+                       const __grid_constant__ CUtensorMap ds_map,
+                       __nv_bfloat16* __restrict__ dqkv, int H, int W, int C,
+                       int ws, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sic_tc::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDq16Bar);
+
+  const int s = ws * ws;
+  const int n = s / kRows;
+  const int head = blockIdx.x / n;
+  const int i0 = (blockIdx.x % n) * kRows;
+  const int win = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nww = W / ws;
+  const int x0 = (win % nww) * ws, y0 = (win / nww) * ws;
+  const int slab =
+      (int)(((int64_t)b * gridDim.y + win) * (gridDim.x / n) + head);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // queries r0, r0 + 8
+
+  auto issue = [&](int kt, int st) {
+    uint8_t* sp = smem + st * kDq16Stage;
+    sic_tc::mbar_expect_tx(&full[st], kDq16Stage);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sic_tc::tma_load_3d(sp + h * kBoxBytes, &ds_map, &full[st],
+                          kt * kRows + h * 32, i0, slab);
+    sic_tc::tma_load_4d(sp + kTileBytes, &map, &full[st], C + head * kHeadDim,
+                        x0, y0 + kt * kRows / ws, b);
+  };
+
+  sic_tc::init_bars(full, 2);
+  if (tid == 0) {
+    for (int i = 0; i < 2 && i < n; ++i) issue(i, i);
+  }
+  float dq[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+  for (int kt = 0; kt < n; ++kt) {
+    const int st = kt & 1;
+    uint8_t* sp = smem + st * kDq16Stage;
+    sic_tc::mbar_wait(&full[st], (kt >> 1) & 1);
+    // dS rows r0, r0 + 8 of this key tile as hi and lo A fragments
+    uint32_t hi[16], lo[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + ((e & 1) ? 8 : 0);
+        const int c = 16 * kk + 2 * t + ((e & 2) ? 8 : 0);
+        const float2 v =
+            *reinterpret_cast<const float2*>(sp + sic_tc::swz(kRows, r, c));
+        sic_tc::split_bf16(v.x, v.y, hi[4 * kk + e], lo[4 * kk + e]);
+      }
+    }
+    const uint32_t k_a = sic_tc::smem_u32(sp + kTileBytes);
+    float part[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) part[e] = 0.f;
+    sic_tc::fence_regs(part);
+    sic_tc::fence_regs(hi);
+    sic_tc::fence_regs(lo);
+    sic_tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sic_tc::wgmma_m64n64k16_bf16<1>(part, lo[4 * kk], lo[4 * kk + 1],
+                                      lo[4 * kk + 2], lo[4 * kk + 3],
+                                      sic_tc::desc_sw128(k_a + 2048 * kk), kk != 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sic_tc::wgmma_m64n64k16_bf16<1>(part, hi[4 * kk], hi[4 * kk + 1],
+                                      hi[4 * kk + 2], hi[4 * kk + 3],
+                                      sic_tc::desc_sw128(k_a + 2048 * kk), 1);
+    sic_tc::wgmma_commit();
+    sic_tc::wgmma_wait_all();
+    sic_tc::fence_regs(part);
+    sic_tc::fence_regs(hi);
+    sic_tc::fence_regs(lo);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[e] += part[e];
+    __syncthreads();  // the stage is free
+    if (tid == 0 && kt + 2 < n) {
+      sic_tc::fence_async_smem();  // the dS reads before the TMA overwrites
+      issue(kt + 2, st);
+    }
+  }
+
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int q = i0 + r0 + 8 * row;
+    __nv_bfloat16* out =
+        dqkv + (((int64_t)b * H + y0 + q / ws) * W + x0 + q % ws) * 3 * C +
+        head * kHeadDim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sic_tc::store_pair(out + 8 * j + 2 * t, dq[4 * j + 2 * row] * scale,
+                         dq[4 * j + 2 * row + 1] * scale);
+  }
+}
+
 // -- pass 4 -------------------------------------------------------------------
 
 // dbias[nb, i, j] = sum over b, windows w (w == nb, or every w when
@@ -542,28 +922,26 @@ __global__ void __launch_bounds__(256)
   dbias[e] = acc;
 }
 
-template <int NWG>
+template <typename T, int NWG>
 int launch_stats(const CUtensorMap& map, const CUtensorMap& bias_map,
-                 const float* g, float2* stats, int B, int H, int W, int C,
+                 const T* g, float2* stats, int B, int H, int W, int C,
                  int heads, int ws, int nB, float scale, cudaStream_t st) {
-  constexpr int bytes = sic_tc::Plan<NWG, true>::kAlloc;
-  const int rc = sic_tc::allow_smem<bwd_stats_kernel<NWG>>(bytes);
+  constexpr int bytes = sic_tc::alloc_bytes<T, NWG, true>();
+  const int rc = sic_tc::allow_smem<bwd_stats_kernel<T, NWG>>(bytes);
   if (rc != 0) return rc;
   const int ntiles = ws * ws / (NWG * sic_tc::kWgRows);
   const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
-  bwd_stats_kernel<NWG><<<grid, NWG * 128, bytes, st>>>(
+  bwd_stats_kernel<T, NWG><<<grid, NWG * 128, bytes, st>>>(
       map, bias_map, g, stats, H, W, C, ws, nB, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int sic_window_attention_bwd(const void* qkv, const void* bias,
-                                        const void* g, void* dqkv, void* dbias,
-                                        void* ds_scratch, void* stats_scratch,
-                                        int B, int H, int W, int C, int heads,
-                                        int ws, int nB, float scale,
-                                        void* stream) {
+// T: the type of qkv, g and dqkv (f32: split TF32; bf16: the bf16 passes);
+// bias, dbias and the scratch are f32 in both
+template <typename T>
+int run(const void* qkv, const void* bias, const void* g, void* dqkv,
+        void* dbias, void* ds_scratch, void* stats_scratch, int B, int H,
+        int W, int C, int heads, int ws, int nB, float scale, void* stream) {
   if (C != heads * kHeadDim || B <= 0 || ws < 8 || sic_tc::kBoxRows % ws ||
       H % ws || W % ws) {
     return (int)cudaErrorInvalidValue;
@@ -577,39 +955,77 @@ extern "C" int sic_window_attention_bwd(const void* qkv, const void* bias,
   for (const void* p : bases)
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
   CUtensorMap map, g_map, bias_map, ds_map;
-  int rc = sic_tc::encode_window_map(&map, qkv, 3 * C, W, H, B, ws);
-  if (rc == 0) rc = sic_tc::encode_window_map(&g_map, g, C, W, H, B, ws);
+  int rc = sic_tc::encode_window_map<T>(&map, qkv, 3 * C, W, H, B, ws);
+  if (rc == 0) rc = sic_tc::encode_window_map<T>(&g_map, g, C, W, H, B, ws);
   if (rc == 0) rc = sic_tc::encode_square_map(&bias_map, bias, s, s, nB);
   if (rc == 0)
     rc = sic_tc::encode_square_map(&ds_map, ds_scratch, s, s, (int)slabs);
   if (rc != 0) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
-  const float* fg = (const float*)g;
+  const T* tg = (const T*)g;
   float* fds = (float*)ds_scratch;
   float2* fst = (float2*)stats_scratch;
 
   rc = s % (2 * sic_tc::kWgRows) == 0
-           ? launch_stats<2>(map, bias_map, fg, fst, B, H, W, C, heads, ws,
-                             nB, scale, st)
-           : launch_stats<1>(map, bias_map, fg, fst, B, H, W, C, heads, ws,
-                             nB, scale, st);
+           ? launch_stats<T, 2>(map, bias_map, tg, fst, B, H, W, C, heads, ws,
+                                nB, scale, st)
+           : launch_stats<T, 1>(map, bias_map, tg, fst, B, H, W, C, heads, ws,
+                                nB, scale, st);
   if (rc != 0) return rc;
 
   const dim3 grid(heads * (s / kRows), nW, B);
-  rc = sic_tc::allow_smem<bwd_dkdv_kernel>(kDkdvBytes);
-  if (rc != 0) return rc;
-  bwd_dkdv_kernel<<<grid, 256, kDkdvBytes, st>>>(
-      map, g_map, bias_map, fst, fds, (float*)dqkv, H, W, C, ws, nB, scale);
-  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  if constexpr (std::is_same<T, float>::value) {
+    rc = sic_tc::allow_smem<bwd_dkdv_kernel>(kDkdvBytes);
+    if (rc != 0) return rc;
+    bwd_dkdv_kernel<<<grid, 256, kDkdvBytes, st>>>(
+        map, g_map, bias_map, fst, fds, (float*)dqkv, H, W, C, ws, nB, scale);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
 
-  rc = sic_tc::allow_smem<bwd_dq_kernel>(kDqBytes);
-  if (rc != 0) return rc;
-  bwd_dq_kernel<<<grid, 128, kDqBytes, st>>>(map, ds_map, (float*)dqkv, H, W,
-                                             C, ws, scale);
+    rc = sic_tc::allow_smem<bwd_dq_kernel>(kDqBytes);
+    if (rc != 0) return rc;
+    bwd_dq_kernel<<<grid, 128, kDqBytes, st>>>(map, ds_map, (float*)dqkv, H,
+                                               W, C, ws, scale);
+  } else {
+    rc = sic_tc::allow_smem<bwd_dkdv_bf16_kernel>(kDkdv16Bytes);
+    if (rc != 0) return rc;
+    bwd_dkdv_bf16_kernel<<<grid, 256, kDkdv16Bytes, st>>>(
+        map, g_map, bias_map, fst, fds, (__nv_bfloat16*)dqkv, H, W, C, ws, nB,
+        scale);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+
+    rc = sic_tc::allow_smem<bwd_dq_bf16_kernel>(kDq16Bytes);
+    if (rc != 0) return rc;
+    bwd_dq_bf16_kernel<<<grid, 128, kDq16Bytes, st>>>(
+        map, ds_map, (__nv_bfloat16*)dqkv, H, W, C, ws, scale);
+  }
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
 
   const int64_t n = (int64_t)nB * s * s;
   bwd_dbias_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       fds, (float*)dbias, B, nW, heads, s, nB);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f32 qkv, g and dqkv (split TF32)
+extern "C" int sic_window_attention_bwd(const void* qkv, const void* bias,
+                                        const void* g, void* dqkv, void* dbias,
+                                        void* ds_scratch, void* stats_scratch,
+                                        int B, int H, int W, int C, int heads,
+                                        int ws, int nB, float scale,
+                                        void* stream) {
+  return run<float>(qkv, bias, g, dqkv, dbias, ds_scratch, stats_scratch, B,
+                    H, W, C, heads, ws, nB, scale, stream);
+}
+
+// bf16 qkv, g and dqkv (bf16 tensor cores, f32 accumulation and softmax);
+// bias and dbias f32
+extern "C" int sic_window_attention_bwd_bf16(
+    const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias,
+    void* ds_scratch, void* stats_scratch, int B, int H, int W, int C,
+    int heads, int ws, int nB, float scale, void* stream) {
+  return run<__nv_bfloat16>(qkv, bias, g, dqkv, dbias, ds_scratch,
+                            stats_scratch, B, H, W, C, heads, ws, nB, scale,
+                            stream);
 }

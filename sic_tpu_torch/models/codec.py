@@ -26,9 +26,10 @@ from torch import nn
 from ..config import CodecSpec
 from ..entropy import EntropyCoder
 from ..entropy.torchac_compat import UniformTorchacCodec
+from ..utils.profiling import timed_stage
 from .bottleneck import BottleneckCoder
 from .hybrid import FeatMerge, HybridCodec
-from .layers import cast_compute
+from .layers import cast_compute, set_compute_dtype
 from .vqgan import VQGAN
 
 
@@ -105,10 +106,12 @@ class Codec(nn.Module):
 
     ``dtype``: the compute dtype, as the JAX package's ``Codec(spec,
     dtype)``: with ``torch.bfloat16`` every Linear and Conv outside the
-    detail bottleneck computes in bf16 (:func:`layers.cast_compute`); the
-    bottleneck, the norms, the positional parameters and the codebooks stay
-    f32, and so does the coding chain (the JAX bottleneck takes no
-    dtype)."""
+    detail bottleneck computes in bf16 on its stored (f32) parameters
+    (:meth:`set_compute_dtype`); the bottleneck, the norms, the positional
+    parameters and the codebooks compute in f32, and so does the coding
+    chain (the JAX bottleneck takes no dtype).  ``spec.remat`` (a YAML's
+    ``save_mem``) recomputes the trunk blocks, the cross blocks and the
+    detail refiners in the backward, as the JAX package's ``nn.remat``."""
 
     def __init__(self, spec: CodecSpec, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -116,18 +119,21 @@ class Codec(nn.Module):
         self.spec = spec
         self.hybrid_codec = HybridCodec(s.titok, s.insert_pos_enc,
                                         s.insert_pos_dec, s.feat_width,
-                                        s.quant_dim, s.num_attns)
+                                        s.quant_dim, s.num_attns, s.remat)
         self.vqgan = VQGAN(s.vqgan)
         self.prior_fusion = FeatMerge(s.titok.width, s.feat_width,
                                       s.vqgan.n_embed, s.merge_inner_width)
         if dtype is not None:
             self.set_compute_dtype(dtype)
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "Codec":
-        """Cast every Linear and Conv outside the bottleneck to ``dtype``."""
+    def set_compute_dtype(self, dtype: torch.dtype,
+                          cast_weights: bool = False) -> "Codec":
+        """Make every Linear and Conv outside the bottleneck compute in
+        ``dtype``; ``cast_weights`` also casts their weights to it once
+        (the serving runtime's bf16 copy)."""
         hc = self.hybrid_codec
         for m in (hc.encoder, hc.decoder, self.vqgan, self.prior_fusion):
-            cast_compute(m, dtype)
+            (cast_compute if cast_weights else set_compute_dtype)(m, dtype)
         return self
 
     def encode_stage(self, x01):
@@ -334,7 +340,7 @@ class CodecRuntime:
             # the bottleneck is shared, not copied: it stays the caller's f32
             bottleneck = model.hybrid_codec.quantize_feat
             self.net = copy.deepcopy(model, {id(bottleneck): bottleneck})
-            self.net.set_compute_dtype(self.dtype).eval()
+            self.net.set_compute_dtype(self.dtype, cast_weights=True).eval()
         self.stream_part = stream_part
         self.device_entropy = device_entropy
         self.h_coder = BottleneckCoder(model.hybrid_codec.quantize_feat,
@@ -458,13 +464,15 @@ class CodecRuntime:
 
     # -- decode entry points ----------------------------------------------------
     def decode_only(self, z_bit_stream, h_bit_stream, img_shape, feat_shape,
-                    stack_shape, token_length, z_indices_shape,
+                    stack_shape, token_length, z_indices_shape, timer=None,
                     z_coder: str = "rans", coding_batch=None,
                     output: str = "float", probe: Optional[Dict] = None,
                     **_ignored) -> torch.Tensor:
         """One stream -> x_hat (B, H, W, 3) in [-1, 1], or uint8 pixels with
         ``output="u8"``.  ``coding_batch``: the h stream's coding contract
-        from the file header.  ``probe`` (optional dict) receives
+        from the file header.  ``timer`` (a :class:`StageTimer`) records
+        the JAX runtime's stages: ``z_rans`` (on a worker thread),
+        ``h_rans``, ``decode_device``.  ``probe`` (optional dict) receives
         ``h_hat`` and the per-step planes (see :class:`BottleneckCoder`)."""
         coding_batch = self._check_coding_batch(coding_batch)
         zshape = tuple(int(s) for s in z_indices_shape)
@@ -477,22 +485,28 @@ class CodecRuntime:
             raise ValueError(
                 f"inconsistent semantic-stream geometry: token_length="
                 f"{token_length}, z_indices_shape={tuple(z_indices_shape)}")
-        z_future = self._io.submit(self._decode_z, z_bit_stream, token_length,
-                                   z_coder)
+        def _z():
+            with timed_stage(timer, "z_rans"):
+                return self._decode_z(z_bit_stream, token_length, z_coder)
+
+        z_future = self._io.submit(_z)
         B, Hf, Wf, _ = _nhwc_feat_shape(feat_shape, self.spec.feat_width)
         latent_shape = (B, Hf, Wf, self.spec.quant_dim)
-        if self._use_device_entropy(h_bit_stream, latent_shape):
-            h_hat = self.h_coder.decompress_device(
-                h_bit_stream, latent_shape, coding_batch=coding_batch,
-                probe=probe)
-        else:
-            h_hat = self.h_coder.decompress(
-                h_bit_stream, latent_shape, coding_batch=coding_batch,
-                probe=probe)
+        with timed_stage(timer, "h_rans"):
+            if self._use_device_entropy(h_bit_stream, latent_shape):
+                h_hat = self.h_coder.decompress_device(
+                    h_bit_stream, latent_shape, coding_batch=coding_batch,
+                    probe=probe)
+            else:
+                h_hat = self.h_coder.decompress(
+                    h_bit_stream, latent_shape, coding_batch=coding_batch,
+                    probe=probe)
         if probe is not None:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result().astype(np.int64).reshape(zshape))
-        return self._decode_pixels(z.to(self.device), h_hat, stack_shape, output)
+        with timed_stage(timer, "decode_device"):
+            return self._decode_pixels(z.to(self.device), h_hat, stack_shape,
+                                       output)
 
     def decode_only_many(self, enc_results, workers: int = 4) -> list:
         """Concurrent decodes, one :meth:`decode_only` a worker thread: each
@@ -509,13 +523,15 @@ class CodecRuntime:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             return list(pool.map(_one, enc_results))
 
-    def decode_only_batched(self, enc_results, output: str = "float",
+    def decode_only_batched(self, enc_results, timer=None, output: str = "float",
                             probe: Optional[Dict] = None,
                             per_stream_networks: bool = False) -> torch.Tensor:
         """Same-shaped streams decoded together: the 4 autoregressive steps
         run device-batched over all B streams with one host coder each, the
         pixel decoder batched or, with ``per_stream_networks``, one stream
-        at a time.  Returns x_hat (B, H, W, 3)."""
+        at a time.  ``timer`` as for :meth:`decode_only` (the JAX
+        runtime's second positional argument).  Returns x_hat (B, H, W,
+        3)."""
         if not enc_results:
             raise ValueError("empty batch")
         first = enc_results[0]
@@ -528,31 +544,35 @@ class CodecRuntime:
         n_latent = int(first["z_indices_shape"][-1])
 
         def _z_all():
-            outs = [self._decode_z(e["z_bit_stream"], e["token_length"],
-                                   e.get("z_coder", "rans"))
-                    for e in enc_results]
-            return np.concatenate(outs).astype(np.int64).reshape(-1, n_latent)
+            with timed_stage(timer, "z_rans"):
+                outs = [self._decode_z(e["z_bit_stream"], e["token_length"],
+                                       e.get("z_coder", "rans"))
+                        for e in enc_results]
+                return np.concatenate(outs).astype(np.int64).reshape(-1, n_latent)
 
         z_future = self._io.submit(_z_all)
         fs = _nhwc_feat_shape(first["feat_shape"], self.spec.feat_width)
         latent_shape = (1, fs[1], fs[2], self.spec.quant_dim)
-        h_hat = self.h_coder.decompress_batched(
-            [e["h_bit_stream"] for e in enc_results], latent_shape,
-            coding_batch=self._check_coding_batch(first.get("coding_batch")),
-            probe=probe)
+        with timed_stage(timer, "h_rans"):
+            h_hat = self.h_coder.decompress_batched(
+                [e["h_bit_stream"] for e in enc_results], latent_shape,
+                coding_batch=self._check_coding_batch(first.get("coding_batch")),
+                probe=probe)
         if probe is not None:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result()).to(self.device)
-        if not per_stream_networks:
-            return self._decode_pixels(z, h_hat, first["stack_shape"], output)
-        nt = z.shape[0] // len(enc_results)
-        outs = []
-        for b, e in enumerate(enc_results):
-            # a repeated stream (a padded lane) reuses its pixels
-            outs.append(outs[-1] if b and e is enc_results[b - 1] else
-                        self._decode_pixels(z[b * nt:(b + 1) * nt], h_hat[b:b + 1],
-                                            first["stack_shape"], output))
-        return torch.cat(outs)
+        with timed_stage(timer, "decode_device"):
+            if not per_stream_networks:
+                return self._decode_pixels(z, h_hat, first["stack_shape"], output)
+            nt = z.shape[0] // len(enc_results)
+            outs = []
+            for b, e in enumerate(enc_results):
+                # a repeated stream (a padded lane) reuses its pixels
+                outs.append(outs[-1] if b and e is enc_results[b - 1] else
+                            self._decode_pixels(z[b * nt:(b + 1) * nt],
+                                                h_hat[b:b + 1],
+                                                first["stack_shape"], output))
+            return torch.cat(outs)
 
     # -- encode entry points ----------------------------------------------------
     def _fetch_packed(self, packed: torch.Tensor) -> np.ndarray:
@@ -566,9 +586,11 @@ class CodecRuntime:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
     @torch.no_grad()
-    def encode_only(self, x, probe: Optional[Dict] = None) -> Dict:
+    def encode_only(self, x, timer=None, probe: Optional[Dict] = None) -> Dict:
         """x: (B, H, W, 3) in [-1, 1], H and W multiples of the tile.  One
-        stream pair for the batch.  ``probe`` (optional dict) receives
+        stream pair for the batch.  ``timer`` (a :class:`StageTimer`)
+        records the JAX runtime's stages: ``encode_device``, ``fetch``,
+        ``h_rans``, ``z_rans``.  ``probe`` (optional dict) receives
         ``y_hat``, the reconstruction a decode must reproduce bit for bit,
         and ``h_path``."""
         x = self._images(x)
@@ -580,20 +602,27 @@ class CodecRuntime:
         use_dev = B == 1 and self._use_device_encode(
             4 * (H // 32) * (W // 32) * q, 1, latent_shape)
         self._count_path(use_dev)
-        z_indices, h = self._encode_stage(x)
         stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
-        if use_dev:
-            streams, y_hat = self.h_coder.compress_device(h)
-            h_bit_stream = streams[0]
-        else:
-            packed, y_hat = self.h_coder.compress_plan(h)
-            h_bit_stream = self.h_coder.encode_packed(self._fetch_packed(packed))
+        with timed_stage(timer, "encode_device"):
+            z_indices, h = self._encode_stage(x)
+            if use_dev:
+                streams, y_hat = self.h_coder.compress_device(h)
+            else:
+                packed, y_hat = self.h_coder.compress_plan(h)
+        with timed_stage(timer, "fetch"):
+            if not use_dev:
+                packed = self._fetch_packed(packed)
+            z_np = z_indices.cpu().numpy()
+        with timed_stage(timer, "h_rans"):
+            h_bit_stream = streams[0] if use_dev else \
+                self.h_coder.encode_packed(packed)
         if probe is not None:
             probe["y_hat"] = y_hat
             probe["h_path"] = "device" if use_dev else "host"
-        z_np = z_indices.cpu().numpy()
+        with timed_stage(timer, "z_rans"):
+            z_bit_stream = self.encode_z(z_np)
         return {
-            "z_bit_stream": self.encode_z(z_np),
+            "z_bit_stream": z_bit_stream,
             "h_bit_stream": h_bit_stream,
             "img_shape": (H, W),
             "feat_shape": tuple(h.shape),
@@ -615,7 +644,7 @@ class CodecRuntime:
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     @torch.no_grad()
-    def encode_only_batched(self, x, probe: Optional[Dict] = None,
+    def encode_only_batched(self, x, timer=None, probe: Optional[Dict] = None,
                             per_stream_networks: bool = False) -> list:
         """Batched encode: one device pass for B images (with
         ``per_stream_networks`` one an image), then B independent per-image
@@ -626,15 +655,19 @@ class CodecRuntime:
         chunk's chain is enqueued first, then chunk j's packed planes come
         back as soon as its chain completes and go to the host rANS on a
         worker thread while chunks j+1.. still compute (the native coder
-        releases the GIL).  ``probe`` as for :meth:`encode_only`."""
+        releases the GIL).  ``timer`` and ``probe`` as for
+        :meth:`encode_only`; the stages overlap here, as in the JAX runtime
+        (``z_rans`` on a worker thread, ``fetch`` once a chunk), so their
+        sum can exceed the wall time."""
         x = self._images(x)
         B, H, W, _ = x.shape
         if B == 1:
             # single requests take the latency path, field-compatible
-            return [self.encode_only(x, probe=probe)]
+            return [self.encode_only(x, timer=timer, probe=probe)]
         stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
         n_tiles = stack_shape[0] * stack_shape[1]
-        z_indices, h = self._encode_networks(x, per_stream_networks)
+        with timed_stage(timer, "encode_device"):
+            z_indices, h = self._encode_networks(x, per_stream_networks)
         n_chunks = len(self.h_coder._chunk_batches(B))
         q = self.spec.quant_dim
         packed_bytes = 4 * B * int(h.shape[1]) * int(h.shape[2]) * q
@@ -643,28 +676,33 @@ class CodecRuntime:
         self._count_path(use_dev)
 
         def _z_all():
-            z_np = z_indices.cpu().numpy()
-            return [self.encode_z(z_np[b * n_tiles:(b + 1) * n_tiles])
-                    for b in range(B)]
+            with timed_stage(timer, "z_rans"):
+                z_np = z_indices.cpu().numpy()
+                return [self.encode_z(z_np[b * n_tiles:(b + 1) * n_tiles])
+                        for b in range(B)]
 
         if use_dev:
             t0 = time.perf_counter()
-            h_streams, y_hat = self.h_coder.compress_device(h)
+            with timed_stage(timer, "h_rans"):
+                h_streams, y_hat = self.h_coder.compress_device(h)
             self.router.note_device_encode(
                 time.perf_counter() - t0, sum(len(s) for s in h_streams),
                 packed_bytes, n_chunks)
             z_streams = _z_all()
         else:
-            chunk_plans = self.h_coder.compress_plan_chunks(h)
+            with timed_stage(timer, "encode_device"):
+                chunk_plans = self.h_coder.compress_plan_chunks(h)
             z_future = self._io.submit(_z_all)
             h_streams: list = [None] * B
             pending = []
             for start, real, packed_dev, _yh in chunk_plans:
-                packed = self._fetch_packed(packed_dev)    # waits for this chunk
+                with timed_stage(timer, "fetch"):
+                    packed = self._fetch_packed(packed_dev)  # waits for this chunk
                 pending.append((start, real, self._io.submit(
                     self.h_coder.encode_packed_many, packed)))
-            for start, real, fut in pending:
-                h_streams[start:start + real] = fut.result()
+            with timed_stage(timer, "h_rans"):
+                for start, real, fut in pending:
+                    h_streams[start:start + real] = fut.result()
             z_streams = z_future.result()
             y_hat = torch.cat([c[3] for c in chunk_plans])
         if probe is not None:

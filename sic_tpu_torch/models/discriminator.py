@@ -84,8 +84,10 @@ class NLayerDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = False) -> torch.Tensor:
-        """x (B, H, W, 3) -> patch logits (B, H', W', 1)."""
-        x = F.leaky_relu(self.conv_0(x), 0.2)
+        """x (B, H, W, 3) -> patch logits (B, H', W', 1).  A bf16 image (a
+        bf16 codec's reconstruction) is promoted to the parameters' f32, as
+        flax's convolution promotes it."""
+        x = F.leaky_relu(self.conv_0(x.to(self.conv_0.weight.dtype)), 0.2)
         for n in range(1, self.n_layers + 1):
             x = getattr(self, f"conv_{n}")(x)
             x = getattr(self, f"bn_{n}")(x, train, update_stats)

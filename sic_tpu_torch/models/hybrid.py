@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TiTokSpec
 from .bottleneck import CompressiveBottleneck
@@ -46,6 +47,17 @@ class FeatBlock(nn.Module):
         return self.convnext_1(self.convnext_0(self.swin(x)))
 
 
+def _run(remat: bool, module: nn.Module, *args):
+    """``module(*args)``; with ``remat`` and gradients on, its activations
+    are recomputed in the backward instead of kept (the JAX package's
+    ``nn.remat`` on the same blocks, the ``save_mem`` path).  The blocks
+    draw no random numbers and their kernels are deterministic, so the
+    recomputed forward gives the same activations and gradients."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
+
+
 def _scaled_normal(shape, scale: float) -> nn.Parameter:
     return nn.Parameter(scale * torch.randn(shape))
 
@@ -55,10 +67,11 @@ class HybridEncoder(nn.Module):
     (reference: codec_sq_fixbpp.py:48-183)."""
 
     def __init__(self, spec: TiTokSpec, insert_pos: Tuple[int, ...],
-                 feat_width: int, num_attns: int = 2):
+                 feat_width: int, num_attns: int = 2, remat: bool = False):
         super().__init__()
         s = spec
         self.spec = spec
+        self.remat = remat
         self.insert_pos = tuple(p for p in insert_pos if p < s.num_layers)
         scale = s.width ** -0.5
         self.patch_embed = Conv2d(3, s.width, s.patch_size, stride=s.patch_size)
@@ -106,10 +119,11 @@ class HybridEncoder(nn.Module):
         feat = self.feat_in(feat_emb)
         x = self.ln_pre(x)
         for i, blk in enumerate(self.transformer):
-            x = blk(x)
+            x = _run(self.remat, blk, x)
             if i in self.insert_pos:
-                feat, x = self.inter_blocks[str(i)](feat, x, stack_shape)
-                feat = self.feat_blocks[str(i)](feat)
+                feat, x = _run(self.remat, self.inter_blocks[str(i)], feat, x,
+                               stack_shape)
+                feat = _run(self.remat, self.feat_blocks[str(i)], feat)
 
         z = self.ln_post(x[:, 1 + s.grid_size ** 2:])
         # TiTok's "fake 2D" projection: the torch original reshapes
@@ -128,10 +142,11 @@ class HybridDecoder(nn.Module):
     (reference: codec_sq_fixbpp.py:186-300)."""
 
     def __init__(self, spec: TiTokSpec, insert_pos: Tuple[int, ...],
-                 feat_width: int, num_attns: int = 2):
+                 feat_width: int, num_attns: int = 2, remat: bool = False):
         super().__init__()
         s = spec
         self.spec = spec
+        self.remat = remat
         # a position past the trunk never fires (flax then creates no
         # parameters for it, e.g. the tiny spec's 2 layers)
         self.insert_pos = tuple(p for p in insert_pos if p < s.num_layers)
@@ -178,10 +193,11 @@ class HybridDecoder(nn.Module):
 
         x = self.ln_pre(x)
         for i, blk in enumerate(self.transformer):
-            x = blk(x)
+            x = _run(self.remat, blk, x)
             if i in self.insert_pos:
-                feat, x = self.inter_blocks[str(i)](feat, x, stack_shape)
-                feat = self.feat_blocks[str(i)](feat)
+                feat, x = _run(self.remat, self.inter_blocks[str(i)], feat, x,
+                               stack_shape)
+                feat = _run(self.remat, self.feat_blocks[str(i)], feat)
 
         x = self.ln_post(x[:, 1:1 + s.grid_size ** 2])
         return tokens_to_tile_nhwc(x, stack_shape, s.grid_size), feat
@@ -219,10 +235,12 @@ class HybridCodec(nn.Module):
 
     def __init__(self, spec: TiTokSpec, insert_pos_enc: Tuple[int, ...],
                  insert_pos_dec: Tuple[int, ...], feat_width: int,
-                 quant_dim: int, num_attns: int = 2):
+                 quant_dim: int, num_attns: int = 2, remat: bool = False):
         super().__init__()
-        self.encoder = HybridEncoder(spec, insert_pos_enc, feat_width, num_attns)
-        self.decoder = HybridDecoder(spec, insert_pos_dec, feat_width, num_attns)
+        self.encoder = HybridEncoder(spec, insert_pos_enc, feat_width,
+                                     num_attns, remat)
+        self.decoder = HybridDecoder(spec, insert_pos_dec, feat_width,
+                                     num_attns, remat)
         self.latent_tokens = _scaled_normal((spec.num_latent_tokens, spec.width),
                                             spec.width ** -0.5)
         self.quantize = L2VectorQuantizer(spec.codebook_size, spec.token_size,

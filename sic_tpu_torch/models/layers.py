@@ -6,16 +6,21 @@ JAX package.  The qkv projection stays packed so the attention kernel reads
 ``[q | k | v]`` straight from one matmul's output (torch
 ``nn.MultiheadAttention`` checkpoints map 1:1 onto ``in_proj``/``out_proj``).
 
-Compute dtype (the JAX package's flax modules built with ``dtype=bf16``:
-f32 parameters, bf16 compute).  A :class:`Linear` or :class:`Conv2d`
-computes in its weight's dtype and casts its input to it, as flax's Dense
-and Conv cast input, kernel and bias to their dtype; :func:`cast_compute`
-casts those weights once (the same numbers as flax's cast on every call).
-:class:`LayerNorm` and :class:`GroupNorm` keep f32 parameters, normalise in
-f32 and return the input's dtype, as flax's norms compute their
-statistics and affine in f32.  Elementwise steps run in the activation's
-dtype; positional parameters are cast to it where the JAX module casts
-them.  In fp32 every rule is the identity.
+Compute dtype apart from storage dtype.  A :class:`Linear` or
+:class:`Conv2d` has a compute dtype (``compute_dtype``, f32 unless
+:func:`set_compute_dtype` names another) and casts its input, weight and
+bias to it on every call, as flax's Dense and Conv do with ``dtype``
+set; the gradient flows back through the cast to the stored parameter.
+So f32 parameters computed in bf16 are flax's ``dtype=bf16``, and bf16-
+stored (frozen) parameters computed in f32 are flax's ``dtype=None`` with
+bf16 parameters, where promotion upcasts the kernel.  :func:`cast_compute`
+also casts the weights to the compute dtype once, for the serving
+runtime's bf16 copy (the same numbers as the cast on every call).
+:class:`LayerNorm` and :class:`GroupNorm` normalise in f32 with their
+parameters upcast, whatever their storage, and return the input's dtype,
+as flax's norms compute their statistics and affine in f32.  Elementwise
+steps run in the activation's dtype; positional parameters are cast to it
+where the JAX module casts them.  In fp32 every rule is the identity.
 """
 from __future__ import annotations
 
@@ -28,41 +33,63 @@ from torch import nn
 from ..ops import seq_attention
 
 
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype):
+    return None if p is None else p.to(dtype)
+
+
+def _f32(p: Optional[torch.Tensor]):
+    return _cast(p, torch.float32)
+
+
 class Linear(nn.Linear):
-    """nn.Linear in its weight's dtype: the input is cast to it."""
+    """nn.Linear in its compute dtype: input, weight and bias cast to it."""
+
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm (eps 1e-5, the JAX package's) in f32 with f32 parameters,
-    returning the input's dtype."""
+    """LayerNorm (eps 1e-5, the JAX package's) in f32, its parameters
+    upcast, returning the input's dtype."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape, _f32(self.weight),
+                            _f32(self.bias), self.eps).to(x.dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every Linear and Conv2d in ``module`` compute in ``dtype``
+    (their parameters keep their storage dtype)."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            m.compute_dtype = dtype
+    return module
 
 
 def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the weights and biases of every Linear and Conv2d in ``module``
-    to ``dtype``, the compute dtype (norms, positional parameters and
-    codebooks keep theirs)."""
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+    """:func:`set_compute_dtype`, and cast the weights and biases of every
+    Linear and Conv2d in ``module`` to ``dtype`` once (norms, positional
+    parameters and codebooks keep theirs): the serving runtime's copy."""
+    for m in set_compute_dtype(module, dtype).modules():
+        if isinstance(m, (Linear, Conv2d)):
             m.to(dtype)
     return module
 
 
 class Conv2d(nn.Conv2d):
     """Convolution on NHWC tensors with torch-layout (OIHW) weights, in its
-    weight's dtype (the input is cast to it).
+    compute dtype (input, weight and bias cast to it).
 
     Padding follows flax's SAME for the odd kernels used here.  A 1x1
     stride-1 convolution runs as a matmul over the channel axis."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
                  stride: int = 1, groups: int = 1, bias: bool = True):
@@ -71,21 +98,22 @@ class Conv2d(nn.Conv2d):
                          groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
+        dt = self.compute_dtype
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
         if self.kernel_size == (1, 1) and self.stride == (1, 1) \
                 and self.groups == 1:
-            return F.linear(x, self.weight[:, :, 0, 0], self.bias)
-        y = super().forward(x.permute(0, 3, 1, 2))
+            return F.linear(x, w[:, :, 0, 0], b)
+        y = self._conv_forward(x.permute(0, 3, 1, 2), w, b)
         return y.permute(0, 2, 3, 1)
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm over the channel axis of an NHWC tensor, in f32 with f32
-    parameters, returning the input's dtype."""
+    """GroupNorm over the channel axis of an NHWC tensor, in f32 with its
+    parameters upcast, returning the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
-                         self.weight, self.bias, self.eps)
+                         _f32(self.weight), _f32(self.bias), self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -25,6 +25,43 @@ def _relative_index(window_size: int) -> np.ndarray:
     return rel + window_size - 1
 
 
+def _relative_bins(window_size: int):
+    """The relative position table's gather and its inverse: ``flat``
+    (S*S,) holds, for each (query, key) pair, its bin of the flattened
+    (2ws-1, 2ws-1) table; ``members`` (bins, ws*ws) lists each bin's pairs
+    in ascending order, padded with S*S (a zero slot)."""
+    idx = _relative_index(window_size)
+    nb = 2 * window_size - 1
+    flat = (idx[..., 0] * nb + idx[..., 1]).reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=nb * nb)
+    members = np.full((nb * nb, window_size * window_size), flat.size, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for b in range(nb * nb):
+        members[b, :counts[b]] = order[starts[b]:starts[b] + counts[b]]
+    return flat, members
+
+
+class _RelativeBias(torch.autograd.Function):
+    """``table.flatten()[flat]`` with a deterministic backward: each bin's
+    gradient is the sum of its pairs' in a fixed order (a gather and a sum
+    over a fixed axis), where indexing's own backward accumulates with
+    atomics on CUDA and across threads on the CPU, and so changes from run
+    to run."""
+
+    @staticmethod
+    def forward(ctx, table, flat, members):
+        ctx.save_for_backward(members)
+        ctx.shape = table.shape
+        return table.reshape(-1)[flat]
+
+    @staticmethod
+    def backward(ctx, g):
+        (members,) = ctx.saved_tensors
+        padded = torch.cat([g.reshape(-1), g.new_zeros(1)])
+        return padded[members].sum(1).reshape(ctx.shape), None, None
+
+
 def _shift_masks(window_size: int) -> tuple:
     """Additive -inf masks for the shifted layout
     (reference: swin_transformer.py:42-55)."""
@@ -63,9 +100,10 @@ class WindowAttention(nn.Module):
         self.to_qkv = Linear(dim, inner * 3, bias=False)
         if relative_pos_embedding:
             self.pos_embedding = nn.Parameter(torch.randn(2 * ws - 1, 2 * ws - 1))
-            self.register_buffer(
-                "rel_index", torch.from_numpy(_relative_index(ws)).long(),
-                persistent=False)
+            flat, members = _relative_bins(ws)
+            self.register_buffer("rel_flat", torch.from_numpy(flat), persistent=False)
+            self.register_buffer("rel_members", torch.from_numpy(members),
+                                 persistent=False)
         else:
             self.pos_embedding = nn.Parameter(torch.randn(ws * ws, ws * ws))
         self.to_out = Linear(inner, dim)
@@ -88,8 +126,9 @@ class WindowAttention(nn.Module):
             x = torch.roll(x, shifts=(-d, -d), dims=(1, 2))
         qkv = self.to_qkv(x)
         if self.relative:
-            idx = self.rel_index
-            bias = self.pos_embedding[idx[:, :, 0], idx[:, :, 1]]
+            ws2 = self.window_size ** 2
+            bias = _RelativeBias.apply(self.pos_embedding, self.rel_flat,
+                                       self.rel_members).reshape(ws2, ws2)
         else:
             bias = self.pos_embedding
         bias = bias.float()[None]      # f32 in every compute dtype

@@ -84,8 +84,12 @@ class Upsample(nn.Module):
         self.conv = Conv2d(ch, ch, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return self.conv(x)
+        # nearest x2 as a broadcast: its backward is a sum over the
+        # broadcast axes, deterministic where repeat_interleave's index
+        # backward accumulates with atomics on CUDA
+        B, H, W, C = x.shape
+        x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C)
+        return self.conv(x.reshape(B, 2 * H, 2 * W, C))
 
 
 class Encoder(nn.Module):

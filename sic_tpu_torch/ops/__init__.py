@@ -23,7 +23,8 @@ KERNEL_WRAPPERS = {
 
 
 # the wrappers whose kernel has a bf16 entry beside the f32 one
-BF16_ENTRIES = ("seq_attention", "window_attention_nhwc", "window_attention")
+BF16_ENTRIES = ("seq_attention", "window_attention_nhwc",
+                "window_attention_nhwc_bwd", "window_attention")
 
 
 def launch_counts() -> dict:

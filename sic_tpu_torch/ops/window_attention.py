@@ -7,7 +7,7 @@ for f32, and bf16 products with f32 accumulation for the forwards' bf16
 entries, the bf16 serving mode): ``csrc/window_attention.cu`` (the NHWC forward, replacing the TPU
 kernel ``sic_tpu/ops/window_attention.py::_nhwc_kernel``),
 ``csrc/window_attention_bwd.cu`` (its backward, replacing
-``_nhwc_bwd_kernel``) and ``csrc/window_attention_gsd.cu`` (the (G, s, d)
+``_nhwc_bwd_kernel``, with a bf16 entry for training in bf16) and ``csrc/window_attention_gsd.cu`` (the (G, s, d)
 forward, replacing ``_attention_kernel``).  Every Swin layer runs the NHWC
 pair: the detail branch's ``feat_in``, ``feat_out_swin``, ``feat_up_swin``,
 the ``FeatBlock`` refiners and the eight layers of FeatMerge.  The (G, s, d)
@@ -71,12 +71,16 @@ def window_attention_nhwc_bwd_plain(qkv: torch.Tensor, bias: torch.Tensor,
                                     g: torch.Tensor, scale: float,
                                     heads: int):
     """The VJP of :func:`window_attention_nhwc_plain` at (qkv, bias) for
-    the output gradient ``g``: (dqkv (B, H, W, 3C), dbias (nB, s, s))."""
+    the output gradient ``g``: (dqkv (B, H, W, 3C) of qkv's type, dbias
+    (nB, s, s) f32).  As the TPU kernel does, qkv and g of any float type
+    are upcast and the VJP taken in f32; dqkv is rounded once to qkv's
+    type."""
     with torch.enable_grad():
-        a = qkv.detach().requires_grad_(True)
+        a = qkv.detach().float().requires_grad_(True)
         b = bias.detach().requires_grad_(True)
         out = window_attention_nhwc_plain(a, b, scale, heads)
-        return torch.autograd.grad(out, (a, b), g)
+        dqkv, dbias = torch.autograd.grad(out, (a, b), g.float())
+    return dqkv.to(qkv.dtype), dbias
 
 
 def _check_kernel_args(qkv, bias, heads, name, dtypes=(torch.float32,)):
@@ -142,7 +146,7 @@ def window_attention_nhwc(qkv: torch.Tensor, bias: torch.Tensor,
     Returns (B, H, W, C) of qkv's type, head-major.  A CPU tensor takes the
     plain version; a CUDA tensor launches the forward kernel's entry for
     its type (head dim 64) or raises, and its gradient (to qkv and bias)
-    launches the backward kernel (f32 only: a bf16 gradient raises)."""
+    launches the backward kernel's entry for that type."""
     if qkv.device.type == "cpu":
         return window_attention_nhwc_plain(qkv, bias, scale, heads)
     return _WindowAttention.apply(qkv, bias, scale, heads)
@@ -154,12 +158,13 @@ window_attention_nhwc.launches_bf16 = 0
 
 def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                               g: torch.Tensor, scale: float, heads: int):
-    """The gradient of :func:`window_attention_nhwc`: (dqkv (B, H, W, 3C),
-    dbias (nB, s, s) f32).  dbias is summed over the batch and the heads,
-    and over the windows too when nB == 1; nB must be 1 or the window count.
-    A CPU tensor takes the plain version's autograd; a CUDA tensor launches
-    the backward kernel (head dim 64, a window side the forward kernel
-    takes) or raises."""
+    """The gradient of :func:`window_attention_nhwc`: (dqkv (B, H, W, 3C)
+    of qkv's type, dbias (nB, s, s) f32).  dbias is summed over the batch
+    and the heads, and over the windows too when nB == 1; nB must be 1 or
+    the window count.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the backward kernel's entry for its type (qkv and g both f32
+    or both bf16, head dim 64, a window side the forward kernel takes) or
+    raises."""
     B, H, W, c3 = qkv.shape
     ws = _window_size(bias)
     nW = (H // ws) * (W // ws)
@@ -168,8 +173,9 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"bias rows must be 1 or {nW}, got {nB}")
     if qkv.device.type == "cpu":
         return window_attention_nhwc_bwd_plain(qkv, bias, g, scale, heads)
-    B, H, W, C, ws = _check_kernel_args(qkv, bias, heads, "window_attention_nhwc_bwd")
-    cuda_build.require_cuda(g, "g", torch.float32)
+    B, H, W, C, ws = _check_kernel_args(qkv, bias, heads,
+                                        "window_attention_nhwc_bwd", DTYPES)
+    cuda_build.require_cuda(g, "g", qkv.dtype)
     s = ws * ws
     if tuple(g.shape) != (B, H, W, C) or ws not in FORWARD_WINDOWS or B == 0 \
             or any(t.data_ptr() % 16 for t in (qkv, bias, g)):
@@ -183,16 +189,18 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     # scratch: dS per (batch, window, head) and the per-row (lse, D) stats
     ds = torch.empty((B, nW, heads, s, s), device=qkv.device, dtype=torch.float32)
     stats = torch.empty((B, nW, heads, s, 2), device=qkv.device, dtype=torch.float32)
-    rc = _entry("window_attention_bwd", "sic_window_attention_bwd", 7)(
+    rc = _entry("window_attention_bwd",
+                cuda_build.entry_symbol("sic_window_attention_bwd", qkv.dtype), 7)(
         qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         dbias.data_ptr(), ds.data_ptr(), stats.data_ptr(), B, H, W, C, heads,
         ws, nB, float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "window_attention_nhwc_bwd")
-    cuda_build.count_launch(window_attention_nhwc_bwd)
+    cuda_build.count_launch(window_attention_nhwc_bwd, qkv.dtype)
     return dqkv, dbias
 
 
 window_attention_nhwc_bwd.launches = 0
+window_attention_nhwc_bwd.launches_bf16 = 0
 
 
 def _entry(name: str, fn_name: str, n_pointers: int):

@@ -19,6 +19,11 @@ codec_sq_fixbpp.py:510-520, 560-569), in PyTorch idiom:
 The schedule state (``epoch_for_strategy``, ``lmbda_idx``, ``lmbda_list``,
 ``rate_floor``) and the noise generator live in :class:`TrainState`, so a
 checkpoint carries them.
+
+The JAX package's single-chip memory options have their counterparts here:
+:func:`cast_frozen_params` stores the frozen leaves in bf16, and
+:class:`MomentDtypeAdam` keeps Adam's first moments in bf16 (optax's
+``mu_dtype``).
 """
 from __future__ import annotations
 
@@ -95,9 +100,91 @@ def stage_grad_mask(trainable, stage: str) -> None:
             p.grad.zero_()
 
 
-def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
+def cast_frozen_params(model: nn.Module, dtype: torch.dtype,
+                       tune_titok: bool = False) -> None:
+    """Store every frozen parameter of ``model`` (:func:`is_frozen_path`)
+    in ``dtype``, in place: the JAX package's ``cast_frozen_params``.  They
+    are inference-only; each module upcasts them where it computes in f32,
+    as JAX's promotion does."""
+    for path, p in named_codec_params(model):
+        if is_frozen_path(path, tune_titok):
+            p.data = p.data.to(dtype)
+
+
+class MomentDtypeAdam(torch.optim.Optimizer):
+    """Adam with its first moment stored in ``mu_dtype``, step for step as
+    optax's ``adam(mu_dtype=...)`` (``scale_by_adam`` then
+    ``scale_by_learning_rate``): mu is updated in f32 from the stored mu
+    (``(1 - b1) g + b1 mu``, the product ``b1 mu`` taken in the stored
+    dtype as optax's weakly typed scalar leaves it), the step is taken from
+    that f32 value, and mu is then stored cast to ``mu_dtype``; nu stays
+    f32.  Its state (``step``, ``exp_avg``, ``exp_avg_sq``) is in the
+    checkpoint's ``state_dict``."""
+
+    def __init__(self, params, lr: float, betas=ADAM_BETAS, eps: float = ADAM_EPS,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      mu_dtype=mu_dtype))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    # the step as torch.optim.Adam keeps it (a CPU f32
+                    # scalar), so a checkpoint of either resumes in the other
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=group["mu_dtype"])
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st["step"] += 1
+            count = float(states[0]["step"])
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            mu32 = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(mu32, torch._foreach_mul(mus, b1))
+            nu = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(nu, 1.0 - b2)
+            torch._foreach_add_(nu, torch._foreach_mul(nus, b2))
+            # optax's bias corrections, 1 - b ** count, in f32
+            bc1 = float(1.0 - np.float32(b1) ** np.float32(count))
+            bc2 = float(1.0 - np.float32(b2) ** np.float32(count))
+            upd = torch._foreach_div(mu32, bc1)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(upd, den)
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+            for m, m32, n, n32 in zip(mus, mu32, nus, nu):
+                m.copy_(m32)
+                n.copy_(n32)
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts loaded state to each parameter's dtype; mu goes back
+        # to its own (exact when it was saved in mu_dtype); the groups of a
+        # torch.optim.Adam checkpoint carry no mu_dtype
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            group.setdefault("mu_dtype", self.defaults["mu_dtype"])
+            for p in group["params"]:
+                st = self.state.get(p)
+                if st:
+                    st["exp_avg"] = st["exp_avg"].to(group["mu_dtype"])
+
+
+def make_optimizer(params, learning_rate: float, mu_dtype=None):
     """Adam with betas (0.5, 0.9), eps 1e-8 (reference:
-    codec_sq_fixbpp.py:510-517), the JAX package's optax.adam."""
+    codec_sq_fixbpp.py:510-517), the JAX package's optax.adam:
+    ``torch.optim.Adam``, or with ``mu_dtype`` (optax's argument of that
+    name) :class:`MomentDtypeAdam`."""
+    if mu_dtype is not None:
+        return MomentDtypeAdam(params, learning_rate, mu_dtype=mu_dtype)
     return torch.optim.Adam(params, lr=learning_rate, betas=ADAM_BETAS,
                             eps=ADAM_EPS)
 

@@ -11,6 +11,13 @@ The discriminator's BatchNorm statistics move only on its own update (real
 pass, then fake pass): the generator-side passes, the adaptive weight's two
 included, normalise with batch statistics and keep nothing, as the JAX
 steps discard what their ``mutable`` passes produce.
+
+Under a bf16 compute dtype (``create_train_state(dtype=torch.bfloat16)``)
+the steps take the JAX steps' dtypes: the alignment terms (MSE, CE) of the
+bf16 latent and logits are bf16 and the sums that meet an f32 term (the VQ
+loss, the rates) f32; the reconstruction, the perceptual term and the
+discriminator (f32 parameters) take the bf16 reconstruction promoted to
+f32; the bottleneck and its rates stay f32.
 """
 from __future__ import annotations
 
@@ -71,8 +78,13 @@ class ImgLossCfg:
 
 def _last_conv_apply(h_pre, w, b):
     """Re-apply the decoder's final 3x3 convolution with weight ``w``
-    (OIHW) to the NHWC activation ``h_pre``."""
-    return F.conv2d(h_pre.permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
+    (OIHW) to the NHWC activation ``h_pre``, in ``w``'s (f32) dtype: under
+    a bf16 compute dtype ``h_pre`` is bf16 and is promoted, as jnp's rule
+    promotes mixed operands.  (The JAX package's ``lax`` convolution here
+    refuses a bf16 ``h_pre`` beside the f32 kernel, so its pix step does
+    not run under ``Codec(spec, jnp.bfloat16)``.)"""
+    return F.conv2d(h_pre.to(w.dtype).permute(0, 3, 1, 2), w, b,
+                    padding=1).permute(0, 2, 3, 1)
 
 
 def _detach(logs: Dict) -> Dict[str, torch.Tensor]:

@@ -24,7 +24,7 @@ from ..models.codec import Codec, configure_numerics, resolve_device
 from ..models.discriminator import NLayerDiscriminator
 from ..models.lpips import LPIPS, load_lpips_weights
 from ..weights import init_seeded, load_flax_params
-from .state import TrainState, make_optimizer, partition
+from .state import TrainState, cast_frozen_params, make_optimizer, partition
 from .steps import FeatLossCfg, ImgLossCfg, TrainSteps
 from .strategy import TrainingStrategy
 
@@ -33,7 +33,11 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
                        seed: int = 0, feat_cfg: FeatLossCfg = FeatLossCfg(),
                        img_cfg: ImgLossCfg = ImgLossCfg(), codec_params=None,
                        device=None, lpips_lin: Optional[str] = None,
-                       lpips_vgg: Optional[str] = None, tune_titok: bool = False):
+                       lpips_vgg: Optional[str] = None, tune_titok: bool = False,
+                       dtype: Optional[torch.dtype] = None,
+                       mu_dtype: Optional[torch.dtype] = None,
+                       frozen_dtype: Optional[torch.dtype] = None,
+                       donate: bool = False):
     """Models, optimizers and steps, on ``device`` (CUDA unless named).
 
     ``codec_params``: a flat ``params/...`` dict for the codec (default: the
@@ -41,13 +45,22 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
     of the LPIPS calibration heads and the VGG16 backbone; with
     ``perceptual == "lpips"`` and no backbone the perceptual term scores a
     seeded network, and a warning says so.  ``tune_titok``: the TiTok
-    encoder and decoder backbones train too.  Returns (model, state,
-    steps)."""
+    encoder and decoder backbones train too.
+
+    The JAX package's single-chip options, under its names and defaults
+    (all f32 unless given): ``dtype`` the codec's compute dtype
+    (``Codec(spec, dtype)``: f32 parameters computed in bf16);
+    ``mu_dtype`` Adam's first-moment dtype (:class:`~.state.MomentDtypeAdam`);
+    ``frozen_dtype`` the storage dtype of the frozen leaves
+    (:func:`~.state.cast_frozen_params`).  ``donate`` is accepted and does
+    nothing: PyTorch updates the state in place already, which is what
+    JAX's buffer donation buys.  Returns (model, state, steps)."""
+    del donate
     steps = TrainSteps(feat_cfg, img_cfg)     # a bad flag fails before the build
     dev = resolve_device(device)
     configure_numerics()
     with torch.device(dev):
-        model = Codec(spec)
+        model = Codec(spec, dtype)
         disc = NLayerDiscriminator(img_cfg.disc_ndf, img_cfg.disc_num_layers)
         lpips = LPIPS()
     if codec_params is None:
@@ -69,10 +82,13 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
             "meaningless. Pass a torchvision VGG16 checkpoint or train with "
             "perceptual='msssim'.", stacklevel=2)
     trainable = partition(model, tune_titok)
+    if frozen_dtype is not None:
+        cast_frozen_params(model, frozen_dtype, tune_titok)
     _, stage0 = strategy.stage_at(strategy.start_epoch)
     state = TrainState(
         model=model, disc=disc, lpips=lpips, trainable=trainable,
-        opt_ae=make_optimizer([p for _, p in trainable], strategy.learning_rate),
+        opt_ae=make_optimizer([p for _, p in trainable], strategy.learning_rate,
+                              mu_dtype),
         opt_disc=make_optimizer(disc.parameters(), strategy.learning_rate),
         generator=gens[2], epoch_for_strategy=strategy.start_epoch,
         lmbda_idx=stage0.init_lmbda_idx, lmbda_list=tuple(stage0.lmbda_list),

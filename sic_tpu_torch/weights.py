@@ -99,10 +99,13 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> set:
 
 def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
     """Inverse of :func:`load_flax_params`: the model's parameters as a
-    flat ``params/...`` dict in the JAX package's names and layouts."""
+    flat ``params/...`` dict in the JAX package's names and layouts, f32
+    (a bf16-stored leaf is upcast, exactly: numpy has no bf16 on every
+    machine; :func:`load_flax_params` copies it back into its storage
+    dtype)."""
     flat = {}
     for name, mod, leaf, p in _owners(model):
-        value = p.detach().cpu().numpy()
+        value = p.detach().float().cpu().numpy()
         if leaf == "weight" and isinstance(mod, nn.Linear):
             value = value.T
         elif leaf == "weight" and isinstance(mod, nn.Conv2d):

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 from sic_tpu_torch import config as tcfg
 from sic_tpu_torch.cli._common import load_runtime
 from sic_tpu_torch.models.layers import cast_compute
+from test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 from sic_tpu_torch.weights import export_flax_params
 from fixtures.golden_bf16 import GAP_MULTIPLE, JAX_GAP_MAX, JAX_GAP_MEAN
 from test_torch_modules import _flax_vars, _randomize, _x
@@ -138,7 +139,8 @@ def test_kernel_wrappers_refuse_other_dtypes_on_cuda():
 
     def fake(shape, dtype=torch.float16):
         return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
-                                     shape=shape, is_contiguous=lambda: True)
+                                     shape=shape, is_contiguous=lambda: True,
+                                     dim=lambda: len(shape))
 
     bias = fake((1, 256, 256), torch.float32)
     with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
@@ -151,6 +153,13 @@ def test_kernel_wrappers_refuse_other_dtypes_on_cuda():
     with pytest.raises(ValueError, match="bias must be torch.float32"):
         wa._gsd_kernel(*[fake((8, 256, 64), BF16)] * 3, fake((1, 256, 256), BF16),
                        0.125)
+    # the backward: float16, or g of another type than qkv's
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        wa.window_attention_nhwc_bwd(fake((1, 16, 16, 384)), bias,
+                                     fake((1, 16, 16, 128)), 0.125, 2)
+    with pytest.raises(ValueError, match="g must be torch.bfloat16"):
+        wa.window_attention_nhwc_bwd(fake((1, 16, 16, 384), BF16), bias,
+                                     fake((1, 16, 16, 128), torch.float32), 0.125, 2)
 
 
 def test_failed_build_or_launch_raises(tmp_path, monkeypatch):
@@ -326,8 +335,12 @@ def test_load_runtime_dtypes(golden):
     assert all(p.dtype == torch.float32
                for p in bf.h_coder.module.parameters())
     from sic_tpu_torch.models import Codec
+    # Codec(dtype=bf16) is flax's: f32 parameters computed in bf16
     m = Codec(tcfg.tiny_spec(), dtype=BF16)
-    assert m.vqgan.decoder.conv_out.weight.dtype == BF16
+    assert m.vqgan.decoder.conv_out.compute_dtype == BF16
+    assert m.vqgan.decoder.conv_out.weight.dtype == torch.float32
+    assert bf.net.prior_fusion.ffn_fc2.compute_dtype == BF16
+    assert bf.model.prior_fusion.ffn_fc2.compute_dtype == torch.float32
     assert m.hybrid_codec.encoder.ln_pre.weight.dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in m.hybrid_codec.quantize_feat.parameters())
     assert m.vqgan.quantize.embedding.dtype == torch.float32
@@ -357,6 +370,36 @@ def test_golden_stream_bf16_decode_matches_jax(golden):
         gap = stat(np.abs(jb - j32))
         assert 0 < stat(np.abs(port - jb)) <= GAP_MULTIPLE * gap
         assert stat(np.abs(port - port32)) <= GAP_MULTIPLE * gap
+
+
+def test_timer_records_the_jax_stage_names(golden):
+    """timer= on the four runtime entry points, in the JAX positions
+    (decode_only_batched's second positional argument): each call records
+    the stages the JAX runtime records for the same call, on the bf16
+    runtimes the tests above compile."""
+    from fixtures.golden.generate import golden_input
+    from sic_tpu.utils.profiling import StageTimer as JTimer
+    from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
+    from sic_tpu_torch.utils.profiling import StageTimer
+    enc, header = unpack_c2df(GOLDEN / "golden.c2df")
+    enc = dict(sanitize_enc_result_types(enc), z_coder=header["z_coder"],
+               coding_batch=header["coding_batch"])
+    rt, jrt = golden["port_bf16"], golden["jax_bf16"]
+    x = golden_input()[None]
+    calls = {
+        "decode_only": lambda r, t: r.decode_only(**enc, timer=t),
+        "decode_only_batched": lambda r, t: r.decode_only_batched([enc, enc], t),
+        "encode_only": lambda r, t: r.encode_only(x, timer=t),
+        "encode_only_batched": lambda r, t: r.encode_only_batched(
+            np.concatenate([x, x[:, ::-1]]), timer=t)}
+    for name, call in calls.items():
+        pt, jt = StageTimer(), JTimer()
+        call(rt, pt)
+        call(jrt, jt)
+        assert set(pt.stages) == set(jt.stages), (name, pt.stages, jt.stages)
+        assert all(ms >= 0 for ms in pt.stages.values())
+        assert set(pt.headers()) == set(jt.headers())
+    assert set(pt.stages) == {"encode_device", "fetch", "h_rans", "z_rans"}
 
 
 def test_golden_input_bf16_encode(golden):

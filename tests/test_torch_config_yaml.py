@@ -27,6 +27,7 @@ from hypothesis import strategies as st
 
 from sic_tpu_torch.config import load_config
 from sic_tpu_torch.config_yaml import safe_load
+from test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = [ROOT / "tests" / "fixtures" / "config_tiny.yaml",
@@ -240,7 +241,9 @@ def test_train_cli_takes_base_config(two_images, tmp_path):
     """config_tiny.yaml's spec, strategy (one epoch a stage) and loss
     configs drive the train CLI through its first two stages (the card
     runs all three: chip_smoke.py); a config asking for
-    rematerialisation, and --base_config beside --tiny, are refused."""
+    rematerialisation (save_mem) sets spec.remat, which the train CLI
+    takes (tests/test_torch_train_bf16.py trains with it); --base_config
+    beside --tiny is refused."""
     from sic_tpu_torch.cli.train import main as train_main
     common = ["--device", "cpu", "--train_dir", str(two_images), "--batch_size",
               "2", "--perceptual", "msssim"]
@@ -257,7 +260,6 @@ def test_train_cli_takes_base_config(two_images, tmp_path):
     remat.write_text(TINY_YAML.read_text().replace(
         "    n_attn: 1\n", "    n_attn: 1\n    save_mem: True\n"))
     assert load_config(remat).spec.remat is True
-    for argv in (["--base_config", str(remat)],
-                 ["--base_config", str(TINY_YAML), "--tiny"]):
-        with pytest.raises(SystemExit):
-            train_main([*argv, "--ckpt_dir", str(tmp_path / "x"), *common])
+    with pytest.raises(SystemExit):
+        train_main(["--base_config", str(TINY_YAML), "--tiny", "--ckpt_dir",
+                    str(tmp_path / "x"), *common])

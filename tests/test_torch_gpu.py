@@ -889,6 +889,106 @@ def test_gsd_window_attention_bf16_kernel(cuda, G, nW, s, masked):
     assert torch.equal(out, ops.window_attention(q, k, v, bias, 0.125))
 
 
+@pytest.mark.parametrize("B,H,W,C,heads,nB", [
+    (2, 16, 16, 768, 12, 1),      # 256 px training, one window a map
+    (2, 32, 32, 768, 12, 4),      # 512 px training, shifted
+    (1, 16, 48, 128, 2, 3)])      # ragged: one row of three windows
+def test_window_attention_bwd_bf16_kernel(cuda, B, H, W, C, heads, nB):
+    """Kernel 5's bf16 entry: dqkv (bf16) no farther from the f64 VJP than
+    1.5x the plain bf16 version (f32 inside, rounded once); dbias (f32)
+    within TOL of the plain version's; one bf16 launch; two launches give
+    the same bits."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    bf = torch.bfloat16
+    qkv = _randn((B, H, W, 3 * C), C + nB + 100, cuda).to(bf)
+    g = _randn((B, H, W, C), 8, cuda).to(bf)
+    bias = _randn((1, 256, 256), 4, cuda)
+    if nB > 1:
+        bias = (bias + torch.from_numpy(_full_shift_mask(H // 16, W // 16, 16))
+                .to(cuda)).contiguous()
+    before = ops.bf16_launch_counts()["window_attention_nhwc_bwd"]
+    dqkv, dbias = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, heads)
+    torch.cuda.synchronize()
+    assert ops.bf16_launch_counts()["window_attention_nhwc_bwd"] == before + 1
+    assert dbias.dtype == torch.float32 and torch.isfinite(dbias).all()
+    want_q, want_b = ops.window_attention_nhwc_bwd_plain(qkv, bias, g, 0.125, heads)
+    f64_q, _ = _window_bwd_f64(qkv, bias, g, 0.125, heads)
+    _bf16_within(dqkv, want_q, f64_q)
+    assert _rel_err(dbias, want_b) <= TOL
+    again = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, heads)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+
+
+def test_window_attention_bwd_bf16_compiles_to_bf16_tensor_core_instructions(cuda):
+    """Kernel 5's library: its bf16 entry's functions (the stats pass at
+    both warpgroup counts, the dk-dv and dq passes) hold bf16 HGMMA only,
+    its f32 ones none; the dbias pass (shared) holds none."""
+    from sic_tpu_torch.ops import cuda_build
+    cuda_build.build(("window_attention_bwd",))
+    counts = cuda_build.sass_hgmma("window_attention_bwd")
+    bf16_fns = [f for f in counts if "bfloat16" in f or "_bf16" in f]
+    assert len(bf16_fns) == 4 and len(counts) == 9, counts
+    for fn, c in counts.items():
+        if fn == "bwd_dbias_kernel":
+            assert c["hgmma"] == 0
+        elif fn in bf16_fns:
+            assert c["hgmma"] > 0 and c["bf16"] == c["hgmma"], (fn, c)
+        else:
+            assert c["hgmma"] > 0 and c["bf16"] == 0, (fn, c)
+
+
+def test_bf16_feat_step_on_the_card_against_the_cpu(cuda):
+    """One tiny-spec feat step with bf16 compute, bf16 Adam moments and
+    bf16 frozen storage, and the same step in fp32, on the card and on the
+    CPU from the same weights, batch and noise: the card's bf16-vs-fp32 gap
+    within twice the CPU's own (tests/test_torch_train.py's rule against
+    the JAX package), plus the fp32 steps' card-vs-CPU difference: every
+    loss (or within one bf16 step of its magnitude), and the trainable
+    gradients as one vector; each leaf's within three times."""
+    import warnings
+
+    from sic_tpu_torch import config as tcfg
+    from sic_tpu_torch import train
+    bf = torch.bfloat16
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(np.clip(rng.standard_normal((1, 256, 256, 3)) * 0.5, -1, 1)
+                         .astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 8, 8, 16)).astype(np.float32))
+    S = train.StageSpec
+    strategy = train.TrainingStrategy(
+        learning_rate=1e-4, start_epoch=0,
+        stages=(S(1, 0, (1.0, 2.0), 2.0, 0.001),) * 3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for name, kw in (("f32", {}), ("bf16", dict(dtype=bf, mu_dtype=bf,
+                                                    frozen_dtype=bf))):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, state, steps = train.create_train_state(
+                    tcfg.tiny_spec(), strategy, 0, device=dev, **kw,
+                    img_cfg=train.ImgLossCfg(disc_ndf=16, disc_num_layers=2))
+            logs = steps.feat_step(state, x.to(dev), noise=noise.to(dev))
+            out[dev, name] = ({k: float(v) for k, v in logs.items()},
+                              {"/".join(k): p.grad.double().cpu()
+                               for k, p in state.trainable})
+    (c32, g32), (c16, g16) = out["cpu", "f32"], out["cpu", "bf16"]
+    (d32, h32), (d16, h16) = out["cuda", "f32"], out["cuda", "bf16"]
+    for k in c16:
+        assert np.isfinite(d16[k]), k
+        assert abs(d16[k] - d32[k]) <= max(2 * abs(c16[k] - c32[k]), 2 ** -8 * abs(c32[k])) \
+            + abs(d32[k] - c32[k]), (k, d16[k], d32[k], c16[k], c32[k])
+    sq = torch.zeros(3, dtype=torch.float64)
+    for k in g16:
+        gaps = torch.stack([torch.linalg.vector_norm(h16[k] - h32[k]),
+                            torch.linalg.vector_norm(g16[k] - g32[k]),
+                            torch.linalg.vector_norm(h32[k] - g32[k])])
+        sq += gaps ** 2
+        card, cpu, f32_diff = gaps.tolist()
+        assert card <= 3 * cpu + f32_diff + 1e-7 * torch.linalg.vector_norm(g32[k]), (k, gaps)
+    card, cpu, f32_diff = sq.sqrt().tolist()
+    assert card <= 2 * cpu + f32_diff, (card, cpu, f32_diff)
+
+
 def test_attention_kernels_refuse_other_dtypes(cuda):
     """No fallback: a CUDA tensor of a dtype no entry takes (float16), or a
     bf16 bias, raises in each wrapper, and nothing launches."""
@@ -906,6 +1006,11 @@ def test_attention_kernels_refuse_other_dtypes(cuda):
     with pytest.raises(ValueError, match="bias must be torch.float32"):
         qb = q.to(torch.bfloat16)
         ops.window_attention(qb, qb, qb, bias.to(torch.bfloat16), 0.125)
+    qkv, g = _randn((1, 16, 16, 3 * 128), 4, cuda), _randn((1, 16, 16, 128), 5, cuda)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        ops.window_attention_nhwc_bwd(qkv.to(h), bias, g.to(h), 0.125, 2)
+    with pytest.raises(ValueError, match="g must be torch.bfloat16"):
+        ops.window_attention_nhwc_bwd(qkv.to(torch.bfloat16), bias, g, 0.125, 2)
     assert ops.launch_counts() == before
 
 

@@ -42,9 +42,11 @@ from sic_tpu_torch import ops
 from sic_tpu_torch.entropy import EntropyCoder, build_gaussian_tables
 from sic_tpu_torch.ops import rans_encode as renc
 from sic_tpu_torch.ops.rans_tables import packed_tables
+from test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 M32 = 0xFFFFFFFF
 RAW_TAG = 0x80000000
+
 CHUNK = 64          # positions of an encode chunk: one a producer thread
 BIG = 0xFFFFFFFF    # a masked entry: no cum reaches it
 

@@ -12,6 +12,7 @@ from PIL import Image
 
 from sic_tpu_torch import config
 from sic_tpu_torch.train import ImgLossCfg, StageSpec, TrainingStrategy
+from test_torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _one_epoch_stages(qp, train_px=256):
