@@ -2,7 +2,8 @@
 """Chip check of the PyTorch port on one CUDA card: encode, decode, the
 (G, s, d) window-attention op, the HTTP service with search, the evaluate
 CLI, the concurrent runtime entry points, reference-format files and YAML
-configs, bf16 serving, training, and bf16 training.
+configs, bf16 serving, training, bf16 training, and TiTok tokenization
+with MaskGIT generation.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -20,7 +21,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               each rANS chain in SM cycles, and nvidia-smi the SM's highest
               clock, for the rANS rows' chain bound;
 2. kernels  - each kernel against its plain PyTorch version on the card at
-              the flagship's shapes (rANS decode also against the native
+              the flagship's shapes (kernel 1 also at the MaskGIT
+              generator's, head dim 48, and the tiny generator's, head dim
+              32, in both entries; rANS decode also against the native
               decoder at 4 x 1024, 1 x 4096 and 32 x 256; rANS encode also
               against the native encoder, and through one forced buffer
               overflow; the
@@ -136,7 +139,21 @@ Phases, each printing one JSON line with the card's name and power limit:
               without), each one's peak memory; the train CLI's CUDA
               defaults on tests/fixtures/config_tiny.yaml for one epoch
               with --log_dir (an event file and scalars.jsonl);
-12. cpu     - the first 256x256 request decoded again on the CPU (plain
+12. generate - TiTok 1-D tokenization and MaskGIT generation at full
+              width, seeded: TiTok-L (tile 256) with the MaskGIT-VQGAN
+              pixel decoder and the MaskGIT generator (hidden 768, 16
+              heads: head dim 48); generate of four classes (8 steps,
+              guidance 3.0) twice from one seed (ids equal, in vocabulary,
+              no mask id), decode_tokens of those ids, TiTok.forward on the
+              eight heldout images, forward_latent_concat on the 512x512
+              mosaic and the generate CLI (four PNGs); kernel 1 launched at
+              head dims 48 and 64; times (median of 5) and a profile of
+              generate and of decode_tokens; one generator
+              forward and one decode_tokens against CPU copies (within
+              GENERATE_CPU_TOL of the largest magnitude), and the ids a
+              temperature-0 sampling differs in, card against CPU
+              (reported);
+13. cpu     - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
               one 256x256 image encoded on the CPU, its differences from
               the card's encode reported; and one tiny-spec feat step and
@@ -149,8 +166,9 @@ Phases, each printing one JSON line with the card's name and power limit:
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
 serving, phase 8 for the surface, phase 9 for bf16 serving, phase 10 for
-training, phase 11 for bf16 training) and read just after, by wrapper and
-by bf16 entry; every kernel of the path must have launched, and the
+training, phase 11 for bf16 training, phase 12 for generation) and read
+just after, by wrapper, by bf16 entry and (kernel 1) by head dim; every
+kernel of the path must have launched, and the
 (G, s, d) kernel on no model path.  Every phase but 9 and 11 runs fp32
 and asks for it (the train CLI's moments and frozen storage aside).  Then a ``{"kernels":
 [...]}`` line (the bf16 entries as rows of their own), the nvidia-smi
@@ -210,6 +228,17 @@ GSD_GRAD_TOL = 1e-4
 # the JAX CLI's three best scores for val3.c2df over artifacts_r05/faiss
 R05_VAL3_TOP3 = (("val3", 0.99724), ("val4", 0.99316), ("val6", 0.99262))
 SEED = 0
+# kernel 1's shapes, (B, S, C, heads): the ViT trunk (four 256-px tiles),
+# the cross blocks and the CLIP image tower at head dim 64; the MaskGIT
+# generator at full width (head dim 48) at the generate phase's batch of
+# four classes, and the generate CLI's tiny one (head dim 32)
+SEQ_SHAPES = {"trunk": (4, 289, 1024, 16), "cross": (4, 545, 768, 12),
+              "clip": (1, 50, 768, 12), "maskgit": (4, 33, 768, 16),
+              "tiny_generator": (2, 9, 64, 2)}
+# card vs CPU, the full-width MaskGIT generator's logits and TiTok's
+# decode_tokens pixels, relative to their largest magnitude (f32
+# summation order only)
+GENERATE_CPU_TOL = 1e-3
 
 
 def _card_line() -> str:
@@ -237,6 +266,7 @@ class Smoke:
         self.kernels = {}
         self.counts = {}      # path -> launch counts of its main-path run
         self.bf16_counts = {}  # path -> launches of the bf16 entries in that run
+        self.head_dim_counts = {}  # path -> kernel 1's launches by head dim
         self.requests = {}    # stem -> decode_only kwargs + the encoder's y_hat
 
     def phase(self, name, fn):
@@ -259,6 +289,7 @@ class Smoke:
         it: by wrapper, and the bf16 entries' apart."""
         from sic_tpu_torch import ops
         self.bf16_counts[path] = ops.bf16_launch_counts()
+        self.head_dim_counts[path] = ops.head_dim_launch_counts()
         self.counts[path] = ops.launch_counts()
         return self.counts[path]
 
@@ -449,12 +480,15 @@ class Smoke:
         out = {}
 
         # kernel 1: trunk (4 tiles of a 512x512 image), cross blocks, and
-        # the CLIP image tower (one image, 1 + 7*7 tokens)
-        for tag, (B, S, C, heads) in {"trunk": (4, 289, 1024, 16),
-                                      "cross": (4, 545, 768, 12),
-                                      "clip": (1, 50, 768, 12)}.items():
-            qkv = torch.randn((B, S, 3 * C), device=dev, generator=g)
-            scale = 64 ** -0.5
+        # the CLIP image tower (one image, 1 + 7*7 tokens), head dim 64;
+        # the MaskGIT generator at full width (head dim 48) and the generate
+        # CLI's tiny one (head dim 32), whose inputs come from a generator
+        # of their own, so that every other row's stay as they were
+        g_narrow = torch.Generator(device=dev).manual_seed(SEED + 1)
+        for tag, (B, S, C, heads) in SEQ_SHAPES.items():
+            qkv = torch.randn((B, S, 3 * C), device=dev,
+                              generator=g if C // heads == 64 else g_narrow)
+            scale = (C // heads) ** -0.5
             k_out = ops.seq_attention(qkv, scale, heads)
             p_out = ops.seq_attention_plain(qkv, scale, heads)
             err = (k_out - p_out).abs().max().item()
@@ -465,8 +499,8 @@ class Smoke:
             lib = F.scaled_dot_product_attention(q, k, v, scale=scale)
             lib_err = (lib.transpose(1, 2).reshape(B, S, C) - p_out).abs().max().item()
             rec = {
-                "shape": [B, S, 3 * C], "heads": heads, "max_abs_err": err,
-                "library_max_abs_err": lib_err,
+                "shape": [B, S, 3 * C], "heads": heads, "head_dim": d,
+                "max_abs_err": err, "library_max_abs_err": lib_err,
                 "f64_max_abs_err": (k_out.double() - ref).abs().max().item(),
                 "plain_f64_max_abs_err": (p_out.double() - ref).abs().max().item(),
                 "ms": self.time_ms(lambda: ops.seq_attention(qkv, scale, heads)),
@@ -597,12 +631,13 @@ class Smoke:
         from sic_tpu_torch import ops
         from sic_tpu_torch.models.swin import _full_shift_mask
         dev, bf = torch.device("cuda"), torch.bfloat16
-        scale, out = 64 ** -0.5, {}
-        for tag, (B, S, C, heads) in {"trunk": (4, 289, 1024, 16),
-                                      "cross": (4, 545, 768, 12),
-                                      "clip": (1, 50, 768, 12)}.items():
-            qkv = torch.randn((B, S, 3 * C), device=dev, generator=g).to(bf)
+        out = {}
+        g_narrow = torch.Generator(device=dev).manual_seed(SEED + 2)
+        for tag, (B, S, C, heads) in SEQ_SHAPES.items():
+            qkv = torch.randn((B, S, 3 * C), device=dev,
+                              generator=g if C // heads == 64 else g_narrow).to(bf)
             d = C // heads
+            scale = d ** -0.5
             q, k, v = (t.view(B, S, heads, d).transpose(1, 2) for t in qkv.split(C, dim=-1))
             out[f"seq_attention_bf16_{tag}"] = self._bf16_row(
                 lambda: ops.seq_attention(qkv, scale, heads),
@@ -611,7 +646,9 @@ class Smoke:
                 lambda o: o.transpose(1, 2).reshape(B, S, C),
                 self._seq_f64(qkv, scale, heads),
                 4 * B * heads * S * S * d, B * S * 4 * C * 2)
+            out[f"seq_attention_bf16_{tag}"]["head_dim"] = d
         self.kernels["seq_attention_bf16"] = out["seq_attention_bf16_trunk"]
+        scale = 64 ** -0.5
         ws, s = 16, 256
         for C, heads in ((768, 12), (1024, 16)):
             qkv = torch.randn((1, 32, 32, 3 * C), device=dev, generator=g).to(bf)
@@ -2903,6 +2940,157 @@ class Smoke:
         return rec
 
     # -- phase 10 ---------------------------------------------------------------
+    # -- phase 12 ---------------------------------------------------------------
+    def generate(self):
+        """TiTok 1-D tokenization and MaskGIT generation at full width,
+        seeded: TiTok-L (tile 256) with the MaskGIT-VQGAN pixel decoder, and
+        the MaskGIT generator (hidden 768, 24 layers, 16 heads: head dim
+        48).  Drives generate (four classes, 8 steps, guidance 3.0) twice
+        from one seed, decode_tokens of its ids, TiTok.forward on the eight
+        heldout images, forward_latent_concat on the 512x512 mosaic and
+        the generate CLI; kernel 1 must launch at head dims 48 and 64.
+        Then times (median of 5), one profiled generate and decode_tokens,
+        and the card against the CPU."""
+        import numpy as np
+        torch = self.torch
+        from PIL import Image
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.cli.generate import main as generate_main
+        from sic_tpu_torch.config import TiTokSpec
+        from sic_tpu_torch.data import load_image
+        from sic_tpu_torch.models.maskgit import (MaskGITGenerator, MaskGITSpec,
+                                                  generate)
+        from sic_tpu_torch.models.maskgit_vqgan import MaskGITVQGANSpec
+        from sic_tpu_torch.models.titok import TiTok
+        from sic_tpu_torch.weights import init_seeded
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            titok = TiTok(TiTokSpec(), MaskGITVQGANSpec())
+            gen = MaskGITGenerator(MaskGITSpec(codebook_size=4096, image_seq_len=32))
+        init_seeded(titok, seed=0)
+        init_seeded(gen, seed=1)
+        titok.eval().requires_grad_(False)
+        gen.eval().requires_grad_(False)
+        init_s = time.perf_counter() - t0
+        val = [(load_image(HELDOUT / f"val{i}.png") + 1.0) / 2.0 for i in range(8)]
+        x8 = torch.from_numpy(np.stack(val)).to(dev)
+        mosaic = torch.from_numpy(np.concatenate(
+            [np.concatenate(val[0:2], axis=1), np.concatenate(val[2:4], axis=1)]
+        )[None]).to(dev)
+        cond = torch.tensor([0, 1, 2, 3], device=dev)
+        mask_id = gen.spec.mask_token_id
+
+        def sample(temperature=4.5, model=gen, device=dev):
+            out = generate(model, torch.Generator(device=device).manual_seed(SEED),
+                           cond.to(device), guidance_scale=3.0,
+                           randomize_temperature=temperature, num_sample_steps=8)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            return out
+
+        ops.reset_launch_counts()
+        ids, ids2 = sample(), sample()
+        with torch.no_grad():
+            pixels = titok.decode_tokens(ids)
+            x_hat, result = titok(x8)
+            big, latent = titok.forward_latent_concat(mosaic)
+        out_dir = WORK / "generate"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        names = generate_main(["--save_dir", str(out_dir), "--classes", "0,1,2,3"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = self.read_counts("generate")
+        by_head_dim = self.head_dim_counts["generate"]
+        pngs = [np.asarray(Image.open(out_dir / n)) for n in names]
+        # the CLI seeds the same weights and noise: its PNGs are these ids'
+        # pixels, if the card repeats itself (reported)
+        want = (np.clip(pixels.cpu().numpy(), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        rec = {"init_s": round(init_s, 3), "cli_s": round(cli_s, 3),
+               "ids_equal_for_one_seed": torch.equal(ids, ids2),
+               "ids_range": [int(ids.min()), int(ids.max())],
+               "mask_ids_left": int((ids == mask_id).sum()),
+               "pixels_shape": list(pixels.shape),
+               "pixels_finite": bool(torch.isfinite(pixels).all()),
+               "forward_tokens_shape": list(result["min_encoding_indices"].shape),
+               "forward_finite": bool(torch.isfinite(x_hat).all()),
+               "latent_concat_shapes": [list(big.shape), list(latent.shape)],
+               "latent_concat_finite": bool(torch.isfinite(big).all()
+                                            and torch.isfinite(latent).all()),
+               "cli_pngs": names, "cli_png_shapes": [list(p.shape) for p in pngs],
+               "cli_pngs_equal_in_process": all(
+                   p.shape == w.shape and np.array_equal(p, w) for p, w in zip(pngs, want)),
+               "launches": counts,
+               "seq_attention_launches_by_head_dim": by_head_dim}
+
+        def median_ms(fn, reps=5):
+            fn()
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(t))
+
+        with torch.no_grad():
+            rec["ms_median_of_5"] = {
+                "generate_4_images_8_steps": median_ms(sample),
+                "decode_tokens_4": median_ms(lambda: titok.decode_tokens(ids)),
+                "forward_8x256x256": median_ms(lambda: titok(x8))}
+            rec["profile_generate"] = self._profile(sample)
+            rec["profile_decode_tokens_4"] = self._profile(
+                lambda: titok.decode_tokens(ids))
+        rec["cpu"] = cpu = self._generate_cpu_compare(gen, titok, ids, sample)
+        ok = (rec["ids_equal_for_one_seed"] and rec["mask_ids_left"] == 0
+              and 0 <= rec["ids_range"][0] and rec["ids_range"][1] < 4096
+              and rec["pixels_shape"] == [4, 256, 256, 3] and rec["pixels_finite"]
+              and rec["forward_tokens_shape"] == [8, 32] and rec["forward_finite"]
+              and rec["latent_concat_shapes"] == [[1, 512, 512, 3], [1, 512, 512, 128]]
+              and rec["latent_concat_finite"] and len(names) == 4
+              and all(p.shape == (256, 256, 3) for p in pngs)
+              and counts["seq_attention"] > 0
+              and by_head_dim.get(48, 0) > 0 and by_head_dim.get(64, 0) > 0
+              and cpu["logits_rel_diff"] <= GENERATE_CPU_TOL
+              and cpu["pixels_rel_diff"] <= GENERATE_CPU_TOL)
+        if not ok:
+            raise AssertionError(f"generate check failed: {rec}")
+        return rec
+
+    def _generate_cpu_compare(self, gen, titok, ids, sample):
+        """One generator forward (half the positions masked) and one
+        decode_tokens on the card against CPU copies of the same models:
+        each within GENERATE_CPU_TOL of the CPU output's largest magnitude
+        (and the clipped [0, 1] pixels' largest difference beside it); and
+        the ids a temperature-0 sampling differs in between the two,
+        reported."""
+        import copy
+        torch = self.torch
+        cpu = torch.device("cpu")
+        gen_cpu = copy.deepcopy(gen).to(cpu)
+        titok_cpu = copy.deepcopy(titok).to(cpu)
+        masked = ids.clone()
+        masked[:, ::2] = gen.spec.mask_token_id
+        cond = torch.tensor([0, 1, 2, 3])
+        drop = torch.tensor([False, False, True, True])
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg = gen(masked, cond.to(ids.device), drop.to(ids.device)).cpu()
+            lc = gen_cpu(masked.cpu(), cond, drop)
+            pg = titok.decode_tokens(ids[:1]).cpu()
+            pc = titok_cpu.decode_tokens(ids[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        t_card, t_cpu = sample(0.0), sample(0.0, gen_cpu, cpu)
+        return {"logits_rel_diff": ((lg - lc).abs().max() / lc.abs().max()).item(),
+                "pixels_rel_diff": ((pg - pc).abs().max() / pc.abs().max()).item(),
+                "pixels_max_abs": pc.abs().max().item(),
+                "clipped_pixels_max_diff": (pg.clamp(0, 1) - pc.clamp(0, 1)).abs().max().item(),
+                "temperature_0_ids_differing": int((t_card.cpu() != t_cpu).sum()),
+                "cpu_s": round(cpu_s, 3), "bound": GENERATE_CPU_TOL}
+
     def cpu_compare(self):
         torch = self.torch
         from sic_tpu_torch.models import Codec, CodecRuntime
@@ -3092,6 +3280,13 @@ class Smoke:
                          "library_device_ms": k.get("library_device_ms"),
                          "deterministic": k.get("deterministic"),
                          "library_ms": k.get("library_ms")})
+            if name + entry == "seq_attention":
+                # kernel 1's launches by head dim, both entries together
+                by = {}
+                for c in self.head_dim_counts.values():
+                    for d, n in c.items():
+                        by[str(d)] = by.get(str(d), 0) + n
+                rows[-1]["launches_by_head_dim"] = by
         return {"kernels": rows}
 
 
@@ -3124,6 +3319,7 @@ def main() -> int:
         smoke.phase("bf16", smoke.bf16)
         smoke.phase("train", smoke.train)
         smoke.phase("train_bf16", smoke.train_bf16)
+    smoke.phase("generate", smoke.generate)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)
     if getattr(smoke, "rt", None) is not None:

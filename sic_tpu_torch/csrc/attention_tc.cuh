@@ -409,6 +409,13 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// A Geo whose heads are narrower than the body's 64 columns specialises
+// this to true and gives the head dim as `cols` (kernel 1, whose
+// specialisation stands beside its SeqGeo): the epilogue then stores only
+// columns [0, cols) of each row.  Every other Geo stores all 64.
+template <class Geo>
+struct NarrowHead : std::false_type {};
+
 // the output rows r0 and r0 + 8 of the tile, 16 columns each: O / l,
 // rounded once to the output's type
 template <class Geo>
@@ -422,9 +429,14 @@ __device__ __forceinline__ void write_rows(const Geo& geo, const float (&o)[32],
       const float inv = 1.f / l[row];
       auto* orow = geo.out_row(qi);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
+        // cols is a multiple of 4, so a pair lies wholly inside or past it
+        if constexpr (NarrowHead<Geo>::value) {
+          if (8 * j + 2 * t >= geo.cols) continue;
+        }
         store_pair(orow + 8 * j + 2 * t, o[4 * j + 2 * row] * inv,
                    o[4 * j + 2 * row + 1] * inv);
+      }
     }
   }
 }
@@ -469,7 +481,8 @@ __device__ __forceinline__ void write_stats_rows(const Geo& geo, const float (&o
 //     of the head (f32; a bf16 box is the whole head, half 0);
 //   load_bias(dst, bar, half, qrow0, k0): bias rows qrow0.., keys
 //     k0 + 32 half..;
-//   out_row(t): the head's 64 output values of token t (float or bf16);
+//   out_row(t): the head's 64 output values of token t (float or bf16;
+//     the first `cols` of them with NarrowHead);
 // or, with kStats, g_row(t) (the head's 64 floats of the output gradient
 // at token t) and write_stats(t, lse, D): the epilogue then writes
 // lse = m + log l and D = sum_d g_d O_d for each query row instead of O.

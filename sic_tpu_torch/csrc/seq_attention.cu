@@ -3,8 +3,12 @@
 // Replaces the TPU kernel sic_tpu/ops/seq_attention.py::_seq_attn_kernel
 // (launcher _seq_attn_pallas): unmasked multi-head attention from
 // (B, S, 3C) packed [q | k | v] to (B, S, C) head-major, f32 logits and
-// softmax, in f32 or bf16.  S is 289 in the ViT trunks, 545 in the cross-attention blocks
-// and 50 in the CLIP image tower; head dim 64.
+// softmax, in f32 or bf16.  S is 289 in the ViT trunks (TiTok-L's
+// encoder and decoder included), 545 in the cross-attention blocks, 50 in
+// the CLIP image tower, head dim 64; and 33 in the MaskGIT generator, head
+// dim 48 (32 in its test-scale spec).  Any head dim d <= 64 whose row of d
+// elements is a multiple of 16 bytes (the tensor map's stride rule) runs:
+// 32, 48 and 64 in f32 and bf16.
 //
 // What bounds it on the H100: 4*S*d flops per (query, head) against
 // 16*C bytes read and written per token make it bound by operations (S/4
@@ -18,10 +22,15 @@
 // products, both operands K-major as tf32 wgmma requires (q and k as they
 // lie, head dim contiguous; v staged transposed with its key rows permuted
 // so that the probabilities go to wgmma as the register A operand straight
-// from the logits accumulator, never through shared memory).  One 3-D
-// tensor map (3C, S, B) serves q, k and v at channels h*64, C + h*64 and
-// 2C + h*64; rows past S come zero-filled, so a tile never reads the next
-// sequence, and their keys are masked to -inf.
+// from the logits accumulator, never through shared memory).  One 4-D
+// tensor map (d, 3 heads, S, B) serves q, k and v of head h at (0 or 32,
+// h), (.., heads + h) and (.., 2 heads + h); rows past S come zero-filled,
+// so a tile never reads the next sequence, and their keys are masked to
+// -inf.  The body stays 64 columns wide: columns d..63 lie past the map's
+// innermost extent, so TMA fills them with zeros as well, they add nothing
+// to q k^T and their output columns (zeros) are not stored.  At d = 48 a
+// quarter of the products multiply those zeros; at d = 32 half (the f32
+// entry's second 32-float box is then all zeros).
 //
 // Block shape, from ptxas and the wave count (132 SMs):
 //   * two consumer warpgroups (128 query rows) share each 64-key tile, so
@@ -51,62 +60,85 @@ template <typename T>
 struct SeqGeo {
   const CUtensorMap* map;
   T* out;
-  int S, C, head, b;
+  int S, C, heads, head, b;
+  int cols;  // the head dim d: only these columns of a row are stored
   __device__ __forceinline__ void load(void* dst, uint64_t* bar, int which,
                                        int half, int row0) const {
-    sic_tc::tma_load_3d(dst, map, bar,
-                        which * C + head * sic_tc::kHeadDim + half * 32, row0,
+    sic_tc::tma_load_4d(dst, map, bar, half * 32, which * heads + head, row0,
                         b);
   }
   __device__ __forceinline__ T* out_row(int t) const {
-    return out + ((int64_t)b * S + t) * C + head * sic_tc::kHeadDim;
+    return out + ((int64_t)b * S + t) * C + head * cols;
   }
 };
+
+}  // namespace
+
+// kernel 1's heads may be narrower than the body: store `cols` columns
+namespace sic_tc {
+template <typename T>
+struct NarrowHead<SeqGeo<T>> : std::true_type {};
+}  // namespace sic_tc
+
+namespace {
 
 // grid: x = query tile, y = head, z = sequence
 template <typename T, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
     seq_attention_kernel(const __grid_constant__ CUtensorMap map,
-                         T* __restrict__ out, int S, int C, float scale) {
+                         T* __restrict__ out, int S, int C, int d,
+                         float scale) {
   extern __shared__ uint8_t smem[];
-  const SeqGeo<T> geo{&map, out, S, C, (int)blockIdx.y, (int)blockIdx.z};
+  const SeqGeo<T> geo{&map, out, S, C, (int)gridDim.y, (int)blockIdx.y,
+                      (int)blockIdx.z, d};
   sic_tc::attend<T, NWG, false>(geo, S, scale,
                                 blockIdx.x * NWG * sic_tc::kWgRows, smem);
 }
 
 template <typename T, int NWG>
 int launch(const CUtensorMap& map, T* out, int B, int S, int C, int heads,
-           float scale, cudaStream_t stream) {
+           int d, float scale, cudaStream_t stream) {
   constexpr int bytes = sic_tc::alloc_bytes<T, NWG, false>();
   const int rc = sic_tc::allow_smem<seq_attention_kernel<T, NWG>>(bytes);
   if (rc != 0) return rc;
   const int rows = NWG * sic_tc::kWgRows;
   const dim3 grid((S + rows - 1) / rows, heads, B);
   seq_attention_kernel<T, NWG><<<grid, NWG * 128, bytes, stream>>>(
-      map, out, S, C, scale);
+      map, out, S, C, d, scale);
   return (int)cudaGetLastError();
+}
+
+// The head dims the kernel takes: d <= 64 (the body's width), d elements
+// a multiple of 16 bytes (a tensor-map stride).
+template <typename T>
+bool head_dim_ok(int C, int heads) {
+  if (heads <= 0 || C % heads) return false;
+  const int d = C / heads;
+  return d > 0 && d <= sic_tc::kHeadDim && (d * (int)sizeof(T)) % 16 == 0;
 }
 
 template <typename T>
 int run(const void* qkv, void* out, int B, int S, int C, int heads,
         float scale, void* stream) {
-  if (C != heads * sic_tc::kHeadDim || B <= 0 || S <= 0 ||
+  if (!head_dim_ok<T>(C, heads) || B <= 0 || S <= 0 ||
       reinterpret_cast<uintptr_t>(qkv) % 16) {
     return (int)cudaErrorInvalidValue;
   }
+  const int d = C / heads;
   CUtensorMap map;
   const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[3] = {(cuuint64_t)3 * C, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)3 * C * e,
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)3 * heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * e, (cuuint64_t)3 * C * e,
                                  (cuuint64_t)S * 3 * C * e};
-  const cuuint32_t box[3] = {(cuuint32_t)sic_tc::atom_elems<T>(),
+  const cuuint32_t box[4] = {(cuuint32_t)sic_tc::atom_elems<T>(), 1,
                              sic_tc::kBoxRows, 1};
-  const int rc = sic_tc::encode_map<T>(&map, qkv, 3, dims, strides, box);
+  const int rc = sic_tc::encode_map<T>(&map, qkv, 4, dims, strides, box);
   if (rc != 0) return rc;
   cudaStream_t s = (cudaStream_t)stream;
   return S <= sic_tc::kWgRows
-             ? launch<T, 1>(map, (T*)out, B, S, C, heads, scale, s)
-             : launch<T, 2>(map, (T*)out, B, S, C, heads, scale, s);
+             ? launch<T, 1>(map, (T*)out, B, S, C, heads, d, scale, s)
+             : launch<T, 2>(map, (T*)out, B, S, C, heads, d, scale, s);
 }
 
 }  // namespace

@@ -117,6 +117,18 @@ class GroupNorm(nn.GroupNorm):
         return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+class Embed(nn.Module):
+    """A token-embedding table; its one parameter is named as flax's
+    ``nn.Embed`` leaf (``embedding``, (vocab, width))."""
+
+    def __init__(self, num: int, width: int):
+        super().__init__()
+        self.embedding = nn.Parameter(0.02 * torch.randn(num, width))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embedding[tokens]
+
+
 class MultiheadSelfAttention(nn.Module):
     """Packed-qkv self attention: through the sequence-attention kernel,
     or, with an additive ``attn_mask`` (the CLIP text tower's causal mask),

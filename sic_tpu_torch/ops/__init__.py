@@ -38,11 +38,18 @@ def bf16_launch_counts() -> dict:
     return {name: KERNEL_WRAPPERS[name].launches_bf16 for name in BF16_ENTRIES}
 
 
+def head_dim_launch_counts() -> dict:
+    """Kernel 1's launches since the last :func:`reset_launch_counts`, by
+    head dim (included in :func:`launch_counts`)."""
+    return dict(seq_attention.launches_by_head_dim)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     for name in BF16_ENTRIES:
         KERNEL_WRAPPERS[name].launches_bf16 = 0
+    seq_attention.launches_by_head_dim.clear()
 
 
 __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
@@ -53,4 +60,5 @@ __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
            "rans_decode_plane_plain", "rans_encode_plane",
            "rans_encode_plane_plain", "pack_substreams", "split_substreams",
            "KERNEL_WRAPPERS", "BF16_ENTRIES", "launch_counts",
-           "bf16_launch_counts", "reset_launch_counts"]
+           "bf16_launch_counts", "head_dim_launch_counts",
+           "reset_launch_counts"]

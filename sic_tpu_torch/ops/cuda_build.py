@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -104,15 +105,20 @@ def stream_of(t: torch.Tensor) -> int:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, dtype: torch.dtype = torch.float32) -> None:
-    """Add one to ``wrapper.launches``, and to ``wrapper.launches_bf16``
-    for a launch of its bf16 entry.  Wrappers launch from several threads
-    at once (``CodecRuntime.decode_only_many``), and ``+=`` on an attribute
-    is not atomic, so the add holds a lock."""
+def count_launch(wrapper, dtype: torch.dtype = torch.float32,
+                 head_dim: Optional[int] = None) -> None:
+    """Add one to ``wrapper.launches``, to ``wrapper.launches_bf16`` for a
+    launch of its bf16 entry, and with ``head_dim`` to that head dim's
+    entry of ``wrapper.launches_by_head_dim``.  Wrappers launch from
+    several threads at once (``CodecRuntime.decode_only_many``), and ``+=``
+    on an attribute is not atomic, so the add holds a lock."""
     with _count_lock:
         wrapper.launches += 1
         if dtype == torch.bfloat16:
             wrapper.launches_bf16 += 1
+        if head_dim is not None:
+            by = wrapper.launches_by_head_dim
+            by[head_dim] = by.get(head_dim, 0) + 1
 
 
 def check_launch(rc: int, name: str) -> None:

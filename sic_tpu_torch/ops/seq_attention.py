@@ -4,8 +4,12 @@ CUDA kernel: ``csrc/seq_attention.cu`` (replaces the TPU kernel
 ``sic_tpu/ops/seq_attention.py::_seq_attn_kernel``), on the tensor cores
 (``wgmma``) with tiles loaded by TMA: an f32 entry in split TF32 and a
 bf16 entry (bf16 products, f32 accumulation, logits and softmax; the bf16
-serving mode).  The ViT trunks (S = 289), the cross-attention blocks
-(S = 545) and the CLIP image tower (S = 50, f32) run it in every layer.
+serving mode).  The ViT trunks (S = 289; TiTok-L's encoder and decoder
+too), the cross-attention blocks (S = 545) and the CLIP image tower
+(S = 50, f32) run it in every layer at head dim 64, the MaskGIT generator
+(S = 33) at head dim 48.  The kernel takes every head dim the JAX kernel
+does up to its body's 64 columns whose row is a multiple of 16 bytes
+(:func:`kernel_takes_head_dim`): 32, 48 and 64 in f32 and bf16.
 :func:`seq_attention_plain` is the same function in plain PyTorch: it
 serves CPU tensors and is the kernel's oracle on the card.  On a CUDA tensor
 :func:`seq_attention` is a ``torch.autograd.Function``: the kernel forward,
@@ -19,9 +23,18 @@ import torch
 
 from . import cuda_build
 
-HEAD_DIM = 64
+# the widest head the kernel's body holds
+MAX_HEAD_DIM = 64
 # the dtypes the kernel has an entry for
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_takes_head_dim(d: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes heads of ``d`` channels of ``dtype``: at
+    most 64 (its tiles' width; TMA fills the columns past d with zeros),
+    and a row of d elements a multiple of 16 bytes (a tensor-map stride)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 0 < d <= MAX_HEAD_DIM and (d * itemsize) % 16 == 0
 
 
 def seq_attention_plain(qkv: torch.Tensor, scale: float,
@@ -48,9 +61,11 @@ def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor
     cuda_build.require_cuda(qkv, "qkv", DTYPES)
     B, S, c3 = qkv.shape
     C = c3 // 3
-    if c3 != 3 * C or C != heads * HEAD_DIM:
-        raise ValueError(f"seq_attention kernel needs head dim {HEAD_DIM}: "
-                         f"qkv {tuple(qkv.shape)}, heads {heads}")
+    d = C // heads if heads > 0 else 0
+    if c3 != 3 * C or C != heads * d or not kernel_takes_head_dim(d, qkv.dtype):
+        raise ValueError(f"seq_attention kernel takes a head dim of at most "
+                         f"{MAX_HEAD_DIM} whose row is a multiple of 16 bytes: "
+                         f"qkv {tuple(qkv.shape)} {qkv.dtype}, heads {heads}")
     if B == 0 or S == 0 or qkv.data_ptr() % 16:
         raise ValueError(f"seq_attention kernel: qkv {tuple(qkv.shape)} must "
                          "be non-empty and start on a 16-byte boundary (its "
@@ -59,7 +74,7 @@ def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor
     rc = _entry(qkv.dtype)(qkv.data_ptr(), out.data_ptr(), B, S, C, heads,
                            float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "seq_attention")
-    cuda_build.count_launch(seq_attention, qkv.dtype)
+    cuda_build.count_launch(seq_attention, qkv.dtype, head_dim=d)
     return out
 
 
@@ -88,8 +103,8 @@ def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
     """qkv: (B, S, 3C) float32 or bfloat16, channel layout [q heads*d | k |
     v]; returns (B, S, C) of qkv's type in head-major channel order.  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel's
-    entry for its type (head dim 64) or raises, and its gradient
-    recomputes through the plain version."""
+    entry for its type (a head dim :func:`kernel_takes_head_dim`) or
+    raises, and its gradient recomputes through the plain version."""
     if qkv.device.type == "cpu":
         return seq_attention_plain(qkv, scale, heads)
     return _SeqAttention.apply(qkv, scale, heads)
@@ -97,6 +112,7 @@ def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
 
 seq_attention.launches = 0
 seq_attention.launches_bf16 = 0
+seq_attention.launches_by_head_dim = {}
 
 
 def _entry(dtype: torch.dtype):

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.layers import Conv2d, LayerNorm, ResidualAttentionBlock
+from ..models.layers import Conv2d, Embed, LayerNorm, ResidualAttentionBlock
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -85,18 +85,6 @@ class CLIPVisionTower(nn.Module):
         for blk in self.block:
             x = blk(x)
         return self.ln_post(x[:, 0]) @ self.proj
-
-
-class Embed(nn.Module):
-    """A token-embedding table; its one parameter is named as flax's
-    ``nn.Embed`` leaf (``embedding``, (vocab, width))."""
-
-    def __init__(self, num: int, width: int):
-        super().__init__()
-        self.embedding = nn.Parameter(0.02 * torch.randn(num, width))
-
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding[tokens]
 
 
 class CLIPTextTower(nn.Module):

@@ -126,7 +126,7 @@ def init_seeded(model: nn.Module, seed: int = 0) -> None:
     device from one explicit generator (the flax initializers' scales:
     lecun-normal matrices, zero biases, unit norms, N(0, 1) position
     biases, width**-0.5 embeddings, +-1/K codebooks, N(0, 0.02) token
-    embeddings).  The VQGAN teacher
+    embeddings and the leaves a module names in ``normal_002``).  The VQGAN teacher
     encoder draws after every other parameter, so the rest of a codec gets
     the weights it had before the teacher was part of it."""
     g = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
@@ -140,7 +140,8 @@ def init_seeded(model: nn.Module, seed: int = 0) -> None:
             elif leaf == "weight":            # Linear / Conv2d
                 fan_in = p[0].numel()
                 p.normal_(0.0, fan_in ** -0.5, generator=g)
-            elif name.endswith("token_embedding.embedding"):   # CLIP text
+            elif name.endswith("token_embedding.embedding") \
+                    or leaf in getattr(mod, "normal_002", ()):   # CLIP text, MaskGIT
                 p.normal_(0.0, 0.02, generator=g)
             elif leaf == "embedding":         # codebooks
                 k = p.shape[0]

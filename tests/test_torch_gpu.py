@@ -105,6 +105,36 @@ def test_seq_attention_kernel_matches_plain(cuda, B, S, C, heads, magnitude):
     assert torch.equal(out, ops.seq_attention(qkv, 0.125, heads))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,C,heads", [(4, 33, 768, 16), (2, 33, 768, 16),
+                                         (2, 9, 64, 2),
+                                         (3, 65, 96, 2), (4, 100, 192, 4),
+                                         (2, 289, 512, 16), (5, 130, 64, 2)])
+def test_seq_attention_kernel_at_head_dims_32_and_48(cuda, B, S, C, heads, dtype):
+    """Head dims 48 (MaskGIT at full width: (4, 33, 2304), 16 heads, as
+    the generate phase samples four classes) and 32 (the tiny generator),
+    in both entries: f32 within TOL of the plain
+    version, bf16 within 1.5x the plain bf16 version's error against f64.
+    S = 65 and 130 cross a 64-row tile inside a sequence, and B * S crosses
+    64-row tiles everywhere; columns d..63 of a tile are TMA's zeros, and
+    a row stores only its head's d columns (the next head's and the next
+    sequence's values stay the kernel's own).  Two launches give the same
+    bits; the launch is counted under its head dim."""
+    qkv = _randn((B, S, 3 * C), C + S, cuda).to(dtype)
+    d = C // heads
+    scale = d ** -0.5
+    before = ops.head_dim_launch_counts().get(d, 0)
+    out = ops.seq_attention(qkv, scale, heads)
+    assert ops.head_dim_launch_counts()[d] == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    plain = ops.seq_attention_plain(qkv, scale, heads)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=TOL, atol=TOL)
+    else:
+        _bf16_within(out, plain, _seq_attention_f64(qkv, scale, heads))
+    assert torch.equal(out, ops.seq_attention(qkv, scale, heads))
+
+
 @pytest.mark.parametrize("magnitude", [1.0, 4.0])
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("C,heads", [(768, 12), (1024, 16)])
@@ -131,12 +161,17 @@ def test_window_attention_kernel_matches_plain(cuda, shifted, C, heads, magnitud
 
 
 def test_attention_kernels_refuse_what_they_cannot_take(cuda):
-    """Head dim other than 64, a qkv or bias off a 16-byte boundary (the
-    tensor maps' base), a window side the 64-token tiles do not fit: each
-    raises, and nothing launches."""
+    """A head dim kernel 1 does not take (42: a row of 168 bytes, not a
+    multiple of 16; 96: wider than its 64 columns), a qkv or bias off a
+    16-byte boundary (the tensor maps' base), a window side the 64-token
+    tiles do not fit: each raises, and nothing launches."""
     before = ops.launch_counts()
-    with pytest.raises(ValueError, match="head dim"):
-        ops.seq_attention(_randn((2, 40, 3 * 128), 1, cuda), 0.125, 4)
+    for C, heads in ((84, 2), (192, 2)):
+        with pytest.raises(ValueError, match="head dim"):
+            ops.seq_attention(_randn((2, 40, 3 * C), 1, cuda), C ** -0.5, heads)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.seq_attention(_randn((2, 40, 3 * C), 1, cuda).to(torch.bfloat16),
+                              C ** -0.5, heads)
     off = torch.empty(2 * 40 * 3 * 128 + 1, device=cuda)[1:].view(2, 40, 3 * 128)
     with pytest.raises(ValueError, match="16-byte"):
         ops.seq_attention(off, 0.125, 2)
@@ -1055,3 +1090,53 @@ def test_bf16_runtime_on_the_card(cuda):
     finally:
         rt.close()
         rt32.close()
+
+
+def _card_and_cpu(module):
+    """``module`` on the card and an identical copy on the CPU."""
+    import copy
+    return copy.deepcopy(module).to("cuda"), module
+
+
+def test_maskgit_generator_at_full_width_on_the_card(cuda):
+    """MaskGITSpec() (hidden 768, 24 layers, 16 heads: head dim 48), seeded:
+    conditioned and class-dropped logits on the card within 1e-3 of the
+    largest CPU logit, kernel 1 launched at head dim 48 in every layer;
+    the sampler's ids in vocabulary, no mask id, equal for one seed."""
+    from sic_tpu_torch.models.maskgit import MaskGITGenerator, MaskGITSpec, generate
+    from sic_tpu_torch.weights import init_seeded
+    m = MaskGITGenerator(MaskGITSpec())
+    init_seeded(m, seed=1)
+    gpu, cpu = _card_and_cpu(m.eval().requires_grad_(False))
+    g = np.random.default_rng(0)
+    ids = torch.from_numpy(g.integers(0, 4097, (2, 32)))
+    cond, drop = torch.tensor([3, 999]), torch.tensor([False, True])
+    before = ops.head_dim_launch_counts().get(48, 0)
+    with torch.no_grad():
+        got = gpu(ids.to(cuda), cond.to(cuda), drop.to(cuda)).cpu()
+        want = cpu(ids, cond, drop)
+    assert ops.head_dim_launch_counts()[48] == before + 24
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+    cond = torch.tensor([0, 1, 2, 3], device=cuda)
+    a = generate(gpu, torch.Generator(device=cuda).manual_seed(5), cond)
+    b = generate(gpu, torch.Generator(device=cuda).manual_seed(5), cond)
+    assert torch.equal(a, b) and int(a.min()) >= 0 and int(a.max()) < 4096
+
+
+def test_titok_decode_tokens_at_full_width_on_the_card(cuda):
+    """TiTok-L with the MaskGIT-VQGAN pixel decoder, seeded: decode_tokens
+    of 32 tokens to 256x256 pixels on the card within 1e-3 of the CPU's
+    (relative to their largest magnitude), kernel 1 at head dim 64."""
+    from sic_tpu_torch.models.titok import TiTok
+    from sic_tpu_torch.weights import init_seeded
+    m = TiTok()
+    init_seeded(m, seed=0)
+    gpu, cpu = _card_and_cpu(m.eval().requires_grad_(False))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 4096, (1, 32)))
+    before = ops.head_dim_launch_counts().get(64, 0)
+    with torch.no_grad():
+        got = gpu.decode_tokens(tokens.to(cuda)).cpu()
+        want = cpu.decode_tokens(tokens)
+    assert ops.head_dim_launch_counts()[64] == before + 24
+    assert got.shape == (1, 256, 256, 3) and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()

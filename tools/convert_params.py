@@ -3,6 +3,7 @@
 
     python tools/convert_params.py to-npz   SRC_ORBAX_DIR DST.npz   [--spec tiny|small|flagship | --base_config CFG.yaml]
     python tools/convert_params.py to-orbax SRC.npz       DST_DIR
+    python tools/convert_params.py maskgit-to-npz SRC.msgpack DST.npz
 
 ``to-npz``: an orbax parameter checkpoint of the JAX package (the train
 CLI's ``deploy_params`` directory, ``sic_tpu.checkpoint.save_codec_params``;
@@ -16,6 +17,10 @@ expects (default flagship).
 ``to-orbax``: a port npz (the port's train CLI writes ``deploy_params.npz``)
 -> an orbax checkpoint that ``sic_tpu.checkpoint.load_codec_params`` and
 the JAX package's CLIs (``--ckpt_path``) restore.
+
+``maskgit-to-npz``: a flax-msgpack ``MaskGITGenerator`` parameter file
+(what the JAX generate CLI's ``--maskgit_ckpt`` reads) -> the flat npz that
+the port's generate CLI reads with ``--maskgit_ckpt``; f32 leaves.
 
 Runs where the JAX package and orbax are installed (this script imports
 ``sic_tpu``, ``jax`` and ``orbax``); the port itself imports none of them,
@@ -51,6 +56,16 @@ def flat_to_orbax(flat, dst) -> str:
         {k: np.asarray(v) for k, v in flat.items()}, sep="/"))
 
 
+def msgpack_to_flat(src) -> dict:
+    """A flax-msgpack parameter file (``flax.serialization.to_bytes`` of
+    ``{"params": ...}``) -> flat ``params/...`` f32 arrays."""
+    from flax.serialization import msgpack_restore
+    from flax.traverse_util import flatten_dict
+    tree = msgpack_restore(Path(src).read_bytes())
+    return {k: np.asarray(v, np.float32)
+            for k, v in flatten_dict(tree, sep="/").items()}
+
+
 def _spec(args):
     from sic_tpu import config
     if args.base_config:
@@ -74,11 +89,16 @@ def main(argv=None) -> int:
     to_orbax = sub.add_parser("to-orbax", help="port npz -> JAX orbax checkpoint")
     to_orbax.add_argument("src", help="input .npz (params/... keys)")
     to_orbax.add_argument("dst", help="output orbax checkpoint directory")
+    maskgit = sub.add_parser("maskgit-to-npz",
+                             help="flax-msgpack MaskGIT generator -> port npz")
+    maskgit.add_argument("src", help="flax-msgpack parameter file")
+    maskgit.add_argument("dst", help="output .npz")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, str(ROOT))
-    if args.cmd == "to-npz":
-        flat = orbax_to_flat(args.src, _spec(args))
+    if args.cmd in ("to-npz", "maskgit-to-npz"):
+        flat = orbax_to_flat(args.src, _spec(args)) if args.cmd == "to-npz" \
+            else msgpack_to_flat(args.src)
         np.savez(args.dst, **flat)
         print(f"[OK] {len(flat)} leaves -> {args.dst}", file=sys.stderr)
     else:
