@@ -2,8 +2,8 @@
 """Chip check of the PyTorch port on one CUDA card: encode, decode, the
 (G, s, d) window-attention op, the HTTP service with search, the evaluate
 CLI, the concurrent runtime entry points, reference-format files and YAML
-configs, bf16 serving, training, bf16 training, and TiTok tokenization
-with MaskGIT generation.
+configs, bf16 serving, int8 W8A8 serving, training, bf16 training, and
+TiTok tokenization with MaskGIT generation.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -116,7 +116,24 @@ Phases, each printing one JSON line with the card's name and power limit:
               on golden.c2df (tests/fixtures/golden_bf16.py); one served
               /compress and /decompress; request times of bf16 beside
               fp32 (median of 5) and one profiled bf16 decode;
-10. train   - the seeded flagship trained through create_train_state and
+10. int8    - the W8A8 int8 serving mode at flagship width through
+              load_runtime(quant="int8"), in fp32 and in bf16:
+              encode_only of the 512x512 image and encode_only_batched of
+              the eight 256x256 (the encode kernel's coder), decode_only of
+              phase 5's 512x512 stream and decode_only_batched of the eight
+              int8 streams, the compress and decompress CLIs with --quant
+              int8, one served /compress and /decompress under
+              SIC_QUANT=int8; every int8 stream decoding to its encoder's
+              y_hat in the fp32, bf16 and both int8 runtimes; every Linear
+              left float one of the two sensitive layers (no float
+              fallback); int8 GEMM launches and kernels 1-4 launched; the
+              int8-vs-fp32 pixel gap reported (relative norm below the JAX
+              package's cascade bound, 0.3); request times of the four
+              modes, one profiled int8 decode, and the int8 GEMM
+              (torch._int_mm, cuBLASLt) at the flagship's Linear shapes
+              against bf16 and fp32 F.linear, with its bounds at 1,979
+              int8 TOPS, 989 bf16 TFLOP/s, 67 f32 TFLOP/s and 3.35 TB/s;
+11. train   - the seeded flagship trained through create_train_state and
               Trainer at 256 px, batch 2, on the heldout images: four steps
               of each stage (feat_wo_bpp, feat, pix) and an eval step after
               each, every loss finite, frozen leaves bit-unchanged,
@@ -128,7 +145,7 @@ Phases, each printing one JSON line with the card's name and power limit:
               with those params, h_hat equal to the encoder's y_hat; step
               times, peak memory and one profiled pix step (the CLI with
               its CUDA defaults: bf16 Adam moments and frozen storage);
-11. train_bf16 - the same Trainer run with create_train_state(dtype,
+12. train_bf16 - the same Trainer run with create_train_state(dtype,
               mu_dtype, frozen_dtype all bf16): every loss finite, frozen
               leaves bf16 and bit-unchanged, trainable leaves f32 and
               moved, the VQGAN decoder side unchanged after the feat
@@ -139,7 +156,7 @@ Phases, each printing one JSON line with the card's name and power limit:
               without), each one's peak memory; the train CLI's CUDA
               defaults on tests/fixtures/config_tiny.yaml for one epoch
               with --log_dir (an event file and scalars.jsonl);
-12. generate - TiTok 1-D tokenization and MaskGIT generation at full
+13. generate - TiTok 1-D tokenization and MaskGIT generation at full
               width, seeded: TiTok-L (tile 256) with the MaskGIT-VQGAN
               pixel decoder and the MaskGIT generator (hidden 768, 16
               heads: head dim 48); generate of four classes (8 steps,
@@ -153,7 +170,7 @@ Phases, each printing one JSON line with the card's name and power limit:
               GENERATE_CPU_TOL of the largest magnitude), and the ids a
               temperature-0 sampling differs in, card against CPU
               (reported);
-13. cpu     - the first 256x256 request decoded again on the CPU (plain
+14. cpu     - the first 256x256 request decoded again on the CPU (plain
               versions): CDF-index planes and pixels against the card's;
               one 256x256 image encoded on the CPU, its differences from
               the card's encode reported; and one tiny-spec feat step and
@@ -166,11 +183,12 @@ Phases, each printing one JSON line with the card's name and power limit:
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
 serving, phase 8 for the surface, phase 9 for bf16 serving, phase 10 for
-training, phase 11 for bf16 training, phase 12 for generation) and read
-just after, by wrapper, by bf16 entry and (kernel 1) by head dim; every
-kernel of the path must have launched, and the
-(G, s, d) kernel on no model path.  Every phase but 9 and 11 runs fp32
-and asks for it (the train CLI's moments and frozen storage aside).  Then a ``{"kernels":
+int8 serving, phase 11 for training, phase 12 for bf16 training, phase 13
+for generation) and read just after, by wrapper, by bf16 entry and
+(kernel 1) by head dim, and phase 10's int8 GEMMs apart; every kernel of
+the path must have launched, and the (G, s, d) kernel on no model path.
+Every phase but 9, 10 and 12 runs fp32 and asks for it (the train CLI's
+moments and frozen storage aside).  Then a ``{"kernels":
 [...]}`` line (the bf16 entries as rows of their own), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -201,6 +219,7 @@ HELDOUT = ROOT / "artifacts_r05" / "heldout"
 F32_TFLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_TFLOPS = 495e12    # H100 SXM dense TF32 on the tensor cores
 BF16_TFLOPS = 989e12    # H100 SXM dense bf16 on the tensor cores
+INT8_TOPS = 1979e12     # H100 SXM dense int8 on the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 CHAIN_PROBE_STEPS = 1 << 16   # steps of each dependent-chain probe
 ATTN_TOL = 1e-4         # kernel vs plain, fp32: only the summation order differs
@@ -2548,9 +2567,10 @@ class Smoke:
             raise AssertionError(f"bf16 phase: {rec}")
         return rec
 
-    def _bf16_serve(self, image):
+    def _bf16_serve(self, image, quant=None):
         """One /compress and one /decompress of the service with no dtype
-        given (its default, bf16 on CUDA): its runtime's dtype, the
+        given (its default, bf16 on CUDA) and ``SIC_QUANT`` set to
+        ``quant`` (unset for None): its runtime's dtype and quant mode, the
         response headers, and its PNG against the served stream decoded by
         that runtime."""
         import gc
@@ -2565,11 +2585,15 @@ class Smoke:
         from sic_tpu_torch.service import ServiceState, make_server
         env = {"INDEX_DIR": str(WORK / "encode_out" / "faiss"),
                "MEDIA_ROOT": str(WORK), "PREVIEW_CACHE": str(WORK / "previews")}
-        saved = {k: os.environ.get(k) for k in (*env, "SIC_DTYPE")}
+        saved = {k: os.environ.get(k) for k in (*env, "SIC_DTYPE", "SIC_QUANT")}
         os.environ.update(env)
         os.environ.pop("SIC_DTYPE", None)
+        os.environ.pop("SIC_QUANT", None)
+        if quant is not None:
+            os.environ["SIC_QUANT"] = quant
         try:
             state = ServiceState("flagship", device="cuda")
+            state.runtime       # loads now, while SIC_QUANT is set
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -2596,7 +2620,7 @@ class Smoke:
             enc = dict(sanitize_enc_result_types(enc), z_coder=header["z_coder"],
                        coding_batch=header["coding_batch"])
             want = rt.decode_only(**enc, output="u8")[0].cpu().numpy()
-            rec = {"dtype": str(rt.dtype).replace("torch.", ""),
+            rec = {"dtype": str(rt.dtype).replace("torch.", ""), "quant": rt.quant,
                    "compress_stage": hdr_c.get("X-SIC-Stage"),
                    "decompress_stage": hdr_d.get("X-SIC-Stage"),
                    "png_equals_decode_only": bool(np.array_equal(
@@ -2609,7 +2633,8 @@ class Smoke:
             del state, srv, th
             gc.collect()
             torch.cuda.empty_cache()
-        rec["ok"] = (rec["dtype"] == "bfloat16" and rec["png_equals_decode_only"]
+        rec["ok"] = (rec["dtype"] == "bfloat16" and rec["quant"] == quant
+                     and rec["png_equals_decode_only"]
                      and rec["decompress_stage"] == "decompress")
         return rec
 
@@ -2652,6 +2677,284 @@ class Smoke:
         return {"request_ms_p50": out,
                 "profile_decode_512x512": self._profile(
                     lambda: rt.decode_only(**requests["a_512x512"], output="u8"))}
+
+    # -- phase 10 ---------------------------------------------------------------
+    def int8(self):
+        """The W8A8 int8 serving mode at flagship width through
+        load_runtime(quant="int8"), in fp32 and in bf16: encode_only of the
+        512x512 image and encode_only_batched of the eight 256x256 with the
+        encode kernel's coder, decode_only of the decode phase's 512x512
+        stream and decode_only_batched of the eight int8 streams; the compress
+        and decompress CLIs with --quant int8; one served /compress and
+        /decompress under SIC_QUANT=int8.  Every int8 stream decodes to its
+        encoder's y_hat in the fp32, bf16, int8 and int8+bf16 runtimes; every
+        Linear left float is one of the two sensitive ones; the pixels' gap
+        to fp32 is reported (and held to the JAX package's cascade bound on
+        seeded weights, relative norm < 0.3).  Then request times of the four
+        modes, one profiled int8 decode, and the int8 GEMM at the flagship's
+        Linear shapes against bf16 and fp32 F.linear."""
+        import gc
+
+        import numpy as np
+        torch = self.torch
+        from PIL import Image
+
+        from sic_tpu_torch import ops
+        from sic_tpu_torch.cli._common import load_runtime
+        from sic_tpu_torch.cli.compress import main as compress_main
+        from sic_tpu_torch.cli.decompress import main as decompress_main
+        from sic_tpu_torch.config import flagship_spec
+        from sic_tpu_torch.container import unpack_c2df
+        from sic_tpu_torch.data import load_image
+        from sic_tpu_torch.models import CodecRuntime
+        from sic_tpu_torch.models.layers import Linear
+        from sic_tpu_torch.ops.quant import QuantLinear, int8_mm
+        sys.path.insert(0, str(ROOT / "tests"))
+        from fixtures.golden_int8 import GAP_MULTIPLE, JAX_GAP_MAX, JAX_GAP_MEAN
+        rt32 = self.rt
+        t0 = time.perf_counter()
+        rts = {name: load_runtime(None, flagship_spec(), device="cuda", stream_part=4,
+                                  dtype=dtype, quant="int8")
+               for name, dtype in (("int8_fp32", "float32"), ("int8_bf16", "bfloat16"))}
+        init_s = time.perf_counter() - t0
+        rt_bf = CodecRuntime(flagship_spec(), rt32.model, stream_part=4,
+                             dtype=torch.bfloat16)
+        same_weights = all(torch.equal(a, b) for r in rts.values() for a, b in
+                           zip(r.model.parameters(), rt32.model.parameters()))
+        layers = {name: {"quant_linears": sum(isinstance(m, QuantLinear)
+                                              for m in r.net.modules()),
+                         "float_linears": sorted(n for n, m in r.net.named_modules()
+                                                 if isinstance(m, Linear))}
+                  for name, r in rts.items()}
+        src = WORK / "encode_in"
+        img = {p.stem: load_image(p) for p in sorted(src.glob("*.png"))}
+        x = {"a_512x512": img["a_512x512"][None],
+             "group_of_8": np.stack([img[f"c_256x256_{i}"] for i in range(8)])}
+        requests = {k: {f: v for f, v in e.items() if f != "y_hat"}
+                    for k, e in self.requests.items()}
+
+        def encode(r, probes=None):
+            def probe(k):
+                return None if probes is None else probes.setdefault(k, {})
+            r.device_entropy = "device"      # the encode kernel's coder
+            try:
+                return {"a_512x512": r.encode_only(x["a_512x512"], probe=probe("a_512x512")),
+                        "group_of_8": r.encode_only_batched(x["group_of_8"],
+                                                            probe=probe("group_of_8"))}
+            finally:
+                r.device_entropy = "auto"
+
+        def decode(r, group_of_8, probes=None):
+            def probe(k):
+                return None if probes is None else probes.setdefault(k, {})
+            out = {"a_512x512": r.decode_only(**requests["a_512x512"], probe=probe("a_512x512")),
+                   "group_of_8": r.decode_only_batched(
+                       [dict(e, coding_batch=8) for e in group_of_8], probe=probe("group_of_8"))}
+            torch.cuda.synchronize()
+            return out
+
+        for r in rts.values():           # warm-up (cuBLASLt heuristics), not counted
+            decode(r, encode(r)["group_of_8"])
+
+        # -- the int8 main path: counts from 0, read right after ---------------------
+        ops.reset_launch_counts()
+        enc_probes = {name: {} for name in rts}
+        dec_probes = {name: {} for name in rts}
+        encs, x_hat = {}, {}
+        for name, r in rts.items():
+            encs[name] = encode(r, enc_probes[name])
+            x_hat[name] = decode(r, encs[name]["group_of_8"], dec_probes[name])
+        cli_in, cli_out = WORK / "int8_cli_in", WORK / "int8_cli_out"
+        shutil.rmtree(cli_in, ignore_errors=True)
+        cli_in.mkdir(parents=True)
+        shutil.copy(src / "a_512x512.png", cli_in)
+        shutil.copy(src / "c_256x256_0.png", cli_in)
+        t1 = time.perf_counter()
+        cli = compress_main(["--dataset_dir", str(cli_in), "--save_dir", str(cli_out),
+                             "--spec", "flagship", "--device", "cuda", "--quant", "int8"])
+        n_dec = decompress_main(["--dataset_dir", str(cli_out / "bitstreams"),
+                                 "--save_dir", str(cli_out / "png"), "--spec", "flagship",
+                                 "--device", "cuda", "--quant", "int8"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        served = self._bf16_serve(src / "a_512x512.png", quant="int8")
+        torch.cuda.synchronize()
+        int8_launches = int8_mm.launches
+        counts = self.read_counts("int8")
+        # ------------------------------------------------------------------------------
+
+        # every int8 stream decodes to its encoder's y_hat in all four modes
+        exact = {}
+        modes = {"fp32": rt32, "bf16": rt_bf, **rts}
+        for ename in rts:
+            for dname, r in modes.items():
+                d = {}
+                r.decode_only(**encs[ename]["a_512x512"], coding_batch=8, probe=d)
+                exact[f"{ename}_a_512x512_in_{dname}"] = bool(torch.equal(
+                    d["h_hat"], enc_probes[ename]["a_512x512"]["y_hat"]))
+                d = {}
+                r.decode_only_batched([dict(e, coding_batch=8)
+                                       for e in encs[ename]["group_of_8"]], probe=d)
+                exact[f"{ename}_group_of_8_in_{dname}"] = bool(torch.equal(
+                    d["h_hat"], enc_probes[ename]["group_of_8"]["y_hat"]))
+            # the decode phase's fp32 stream, read by the int8 runtime
+            exact[f"decode_a_512x512_{ename}"] = bool(torch.equal(
+                dec_probes[ename]["a_512x512"]["h_hat"], self.requests["a_512x512"]["y_hat"]))
+        x32 = {"a_512x512": rt32.decode_only(**requests["a_512x512"]),
+               "group_of_8": {n: rt32.decode_only_batched(
+                   [dict(e, coding_batch=8) for e in encs[n]["group_of_8"]]) for n in rts}}
+        pixels = {}
+        for name in rts:
+            for k, ref in (("a_512x512", x32["a_512x512"]),
+                           ("group_of_8", x32["group_of_8"][name])):
+                got = x_hat[name][k]
+                pixels[f"{name}_{k}"] = {
+                    "max_abs_diff": (got - ref).abs().max().item(),
+                    "mean_abs_diff": (got - ref).abs().mean().item(),
+                    "rel_norm": (torch.linalg.norm(got - ref)
+                                 / torch.linalg.norm(ref)).item()}
+        golden_bound = {"max": GAP_MULTIPLE * JAX_GAP_MAX, "mean": GAP_MULTIPLE * JAX_GAP_MEAN}
+        cli_a = unpack_c2df(cli_out / "bitstreams" / "a_512x512.c2df")[0]
+        cli_equal = (cli_a["h_bit_stream"] == encs["int8_bf16"]["a_512x512"]["h_bit_stream"]
+                     and cli_a["z_bit_stream"] == encs["int8_bf16"]["a_512x512"]["z_bit_stream"])
+        png = np.asarray(Image.open(cli_out / "png" / "a_512x512.png"))
+        timing = self._int8_timing(rts, rt32, rt_bf, x, requests)
+        rec = {"spec": "flagship", "init_s": round(init_s, 3),
+               "dtypes": {n: str(r.dtype).replace("torch.", "") for n, r in rts.items()},
+               "quant": {n: r.quant for n, r in rts.items()},
+               "same_weights_as_fp32_runtime": same_weights, "layers": layers,
+               "h_hat_bit_exact": exact, "pixels_vs_fp32": pixels,
+               "golden_derived_bound": golden_bound,
+               "within_golden_derived_bound": {
+                   k: p["max_abs_diff"] <= golden_bound["max"]
+                   and p["mean_abs_diff"] <= golden_bound["mean"] for k, p in pixels.items()},
+               "cli": cli, "cli_files": n_dec, "cli_s": round(cli_s, 3),
+               "cli_streams_equal_runtime": cli_equal, "cli_png_shape": list(png.shape),
+               "served": served, "launches": counts, "int8_gemm_launches": int8_launches,
+               "bf16_launches": self.bf16_counts["int8"],
+               "h_paths": {f"{n}_{k}": v.get("h_path") for n in rts
+                           for k, v in {**enc_probes[n], **dec_probes[n]}.items()},
+               **timing, "int8_gemm": self._int8_gemm_times()}
+        for r in (*rts.values(), rt_bf):
+            r.close()
+        del rts, rt_bf
+        gc.collect()
+        torch.cuda.empty_cache()
+        float_ok = {"hybrid_codec.encoder.conv_out", "prior_fusion.ffn_fc2"}
+        if not (same_weights and all(exact.values())
+                and rec["dtypes"] == {"int8_fp32": "float32", "int8_bf16": "bfloat16"}
+                and set(rec["quant"].values()) == {"int8"}
+                and all(set(v["float_linears"]) == float_ok and v["quant_linears"] > 400
+                        for v in layers.values())
+                and all(p["rel_norm"] < 0.3 for p in pixels.values())
+                and cli["images"] == 2 and n_dec == 2 and cli_equal
+                and png.shape == (512, 512, 3) and served["ok"]
+                and int8_launches > 0
+                and min(counts[k] for k in ("seq_attention", "window_attention_nhwc",
+                                            "rans_decode_plane", "rans_encode_plane")) >= 1
+                and counts["window_attention"] == 0
+                and {p["h_path"] for n in enc_probes for p in enc_probes[n].values()}
+                == {"device"}):
+            raise AssertionError(f"int8 phase: {rec}")
+        return rec
+
+    def _int8_timing(self, rts, rt32, rt_bf, x, requests, reps=5):
+        """Request times, median of ``reps``, of the four modes in turns
+        (fp32, bf16, int8 in fp32, int8 in bf16), the encode kernel's coder
+        on all; one profiled int8+bf16 decode of the 512x512 stream."""
+        import statistics
+        torch = self.torch
+
+        def median_ms(fn):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        modes = {"fp32": rt32, "bf16": rt_bf, **rts}
+        calls = {
+            "encode_a_512x512": lambda r: r.encode_only(x["a_512x512"]),
+            "encode_group_of_8": lambda r: r.encode_only_batched(x["group_of_8"]),
+            "decode_a_512x512": lambda r: r.decode_only(**requests["a_512x512"],
+                                                        output="u8")}
+        out = {m: {} for m in modes}
+        for r in modes.values():
+            r.device_entropy = "device"
+        try:
+            for name, fn in calls.items():
+                for m, r in modes.items():
+                    out[m][name] = median_ms(lambda: fn(r))
+        finally:
+            for r in modes.values():
+                r.device_entropy = "auto"
+        return {"request_ms_p50": out,
+                "profile_int8_bf16_decode_512x512": self._profile(
+                    lambda: rts["int8_bf16"].decode_only(**requests["a_512x512"],
+                                                         output="u8"))}
+
+    def _int8_gemm_times(self):
+        """The int8 GEMM (torch._int_mm through ops.quant.int8_mm, weight_q
+        (N, K) passed transposed: column-major) at the flagship's Linear
+        shapes against F.linear in bf16 and in fp32, CUDA-event and
+        CUDA-graph device times; the other operand layout ((K, N)
+        row-major) once; the whole QuantLinear against a bf16 Linear (the
+        per-row quantization and rescale included).  Bounds at 1,979 int8
+        TOPS, 989 bf16 TFLOP/s, 67 f32 TFLOP/s and 3.35 TB/s."""
+        import torch.nn.functional as F
+        torch = self.torch
+        from sic_tpu_torch.models.layers import Linear
+        from sic_tpu_torch.ops.quant import QuantLinear, int8_mm, int8_mm_plain
+        shapes = {"vit_in_proj": (4 * 289, 1024, 3072),
+                  "vit_mlp_fc1": (4 * 289, 1024, 4096),
+                  "vit_mlp_fc2": (4 * 289, 4096, 1024),
+                  "swin_to_qkv": (32 * 32, 768, 2304),
+                  "decoder_embed": (4 * 128, 12, 1024)}
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = {}
+        for name, (M, K, N) in shapes.items():
+            xq = torch.randint(-127, 128, (M, K), device="cuda", generator=g,
+                               dtype=torch.int8)
+            wq = torch.randint(-127, 128, (N, K), device="cuda", generator=g,
+                               dtype=torch.int8)
+            w_kn = wq.t().contiguous()
+            x32 = torch.randn(M, K, device="cuda", generator=g)
+            w32 = torch.randn(N, K, device="cuda", generator=g) * K ** -0.5
+            xb, wb = x32.bfloat16(), w32.bfloat16()
+            exact = bool(torch.equal(int8_mm(xq, wq), int8_mm_plain(xq, wq)))
+            flops = 2.0 * M * N * K
+            t_i8 = max(flops / INT8_TOPS, (M * K + N * K + 4 * M * N) / HBM_BYTES_S) * 1e3
+            t_bf = max(flops / BF16_TFLOPS, 2 * (M * K + N * K + M * N) / HBM_BYTES_S) * 1e3
+            t_32 = max(flops / F32_TFLOPS, 4 * (M * K + N * K + M * N) / HBM_BYTES_S) * 1e3
+            lin = Linear(K, N).cuda()
+            q = QuantLinear.from_linear(lin)
+            lin_bf = Linear(K, N).cuda().bfloat16()
+            lin_bf.compute_dtype = torch.bfloat16
+            q.compute_dtype = torch.bfloat16
+            def device(fn):
+                try:
+                    return self.device_ms(fn)
+                except RuntimeError as e:      # a call the graph cannot capture
+                    return f"not measured: {e}"[:200]
+
+            row = {"M": M, "K": K, "N": N, "exact": exact,
+                   "int8_ms": self.time_ms(lambda: int8_mm(xq, wq)),
+                   "int8_device_ms": device(lambda: int8_mm(xq, wq)),
+                   "bf16_ms": self.time_ms(lambda: F.linear(xb, wb)),
+                   "bf16_device_ms": device(lambda: F.linear(xb, wb)),
+                   "fp32_ms": self.time_ms(lambda: F.linear(x32, w32)),
+                   "fp32_device_ms": device(lambda: F.linear(x32, w32)),
+                   "quant_linear_bf16_ms": self.time_ms(lambda: q(xb)),
+                   "quant_linear_bf16_device_ms": device(lambda: q(xb)),
+                   "linear_bf16_ms": self.time_ms(lambda: lin_bf(xb)),
+                   "linear_bf16_device_ms": device(lambda: lin_bf(xb)),
+                   "int8_bound_ms": t_i8, "bf16_bound_ms": t_bf, "fp32_bound_ms": t_32}
+            if K % 8 == 0 and M > 16:
+                row["int8_row_major_b_ms"] = self.time_ms(lambda: torch._int_mm(xq, w_kn))
+            rows[name] = row
+        return rows
 
     # -- phase 9 ----------------------------------------------------------------
     def _trainer_run(self, **state_kw):
@@ -3317,6 +3620,7 @@ def main() -> int:
         smoke.phase("serve", smoke.serve)
         smoke.phase("surface", smoke.surface)
         smoke.phase("bf16", smoke.bf16)
+        smoke.phase("int8", smoke.int8)
         smoke.phase("train", smoke.train)
         smoke.phase("train_bf16", smoke.train_bf16)
     smoke.phase("generate", smoke.generate)

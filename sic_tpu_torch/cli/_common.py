@@ -59,7 +59,8 @@ def cli_config(parser, args):
 def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = None,
                  device=None, stream_part: Optional[int] = None,
                  base_config: Optional[str] = None,
-                 z_format: str = "rans", dtype=None) -> CodecRuntime:
+                 z_format: str = "rans", dtype=None,
+                 quant: Optional[str] = None) -> CodecRuntime:
     """A CodecRuntime on ``device`` (CUDA unless named), of ``spec`` or of
     the YAML ``base_config`` (not both; flagship without either).
 
@@ -71,8 +72,10 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
     the ``SIC_STREAM_PART`` environment variable, else 4, as the JAX
     package's ``load_runtime``); decoding reads the count from each
     stream.  ``z_format``: the semantic
-    stream's format it writes.  Without ``ckpt_path`` it warns and uses the
-    seeded initialisation, as the JAX CLI does."""
+    stream's format it writes.  ``quant``: ``"int8"`` serves W8A8,
+    ``"none"`` float (None: the ``SIC_QUANT`` environment variable, else
+    none, as the JAX package's ``load_runtime``).  Without ``ckpt_path`` it
+    warns and uses the seeded initialisation, as the JAX CLI does."""
     if spec is not None and base_config:
         raise ValueError("give spec or base_config, not both")
     dev = resolve_device(device)
@@ -83,8 +86,10 @@ def load_runtime(ckpt_path: Optional[str] = None, spec: Optional[CodecSpec] = No
     model = build_model(spec, dev, ckpt_path)
     if stream_part is None:
         stream_part = int(os.environ.get("SIC_STREAM_PART", "4"))
+    if quant is None:
+        quant = os.environ.get("SIC_QUANT", "none")
     return CodecRuntime(spec, model, stream_part=stream_part, z_format=z_format,
-                        dtype=resolve_dtype(dtype, dev))
+                        dtype=resolve_dtype(dtype, dev), quant=quant)
 
 
 def add_device_args(parser) -> None:
@@ -126,6 +131,14 @@ def load_clip_codec(clip_ckpt: Optional[str] = None,
         print("[WARN] no --clip_ckpt given; CLIP embeddings are "
               "non-calibrated (random weights)", file=sys.stderr)
     return ClipCodec(state, device=device, bpe_path=bpe_path)
+
+
+def add_quant_arg(parser) -> None:
+    """``--quant``, the JAX CLIs' flag."""
+    parser.add_argument("--quant", choices=["none", "int8"], default=None,
+                        help="serve the networks W8A8 int8 on the int8 tensor "
+                             "cores (streams stay decodable across modes); "
+                             "default: SIC_QUANT, else none")
 
 
 def init_func(seed: int = 0) -> None:

@@ -4,7 +4,7 @@
         [--ckpt_path params.npz] [--clip_ckpt open_clip.pt]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
         [--device cuda | --gpu_idx N] [--dtype auto|float32|bfloat16]
-        [--batch_size 8] [--stream_part 4] [--bpe_path merges.txt.gz]
+        [--quant none|int8] [--batch_size 8] [--stream_part 4] [--bpe_path merges.txt.gz]
 
 Same output layout as the reference's compress script (reference:
 src/compress.py:203-333): per image pad to 256 (replicate),
@@ -26,8 +26,9 @@ from ..container import pack_c2df
 from ..data import list_images, load_image, shard_list
 from ..models import get_padding_size, pad_replicate
 from ..retrieval import VectorIndex
-from ._common import (add_device_args, add_dtype_arg, cli_config, cli_device,
-                      init_func, load_clip_codec, load_runtime, progress)
+from ._common import (add_device_args, add_dtype_arg, add_quant_arg, cli_config,
+                      cli_device, init_func, load_clip_codec, load_runtime,
+                      progress)
 
 
 def c2df_header(rt, clip_meta: dict, hw, pads) -> dict:
@@ -124,9 +125,9 @@ def compress_dir(rt, clip_codec, dataset_dir, save_dir, tile_px: int = 256,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="sic_tpu_torch compress",
-        epilog="Not offered yet: --quant int8 (ROADMAP queue 1 item 9) and "
-               "the multi-process flags (--world_size, --rank, "
-               "--coordinator): this runs one process on one device.")
+        epilog="Not offered yet: the multi-process flags (--world_size, "
+               "--rank, --coordinator; ROADMAP queue 1 item 10): this runs "
+               "one process on one device.")
     parser.add_argument("--dataset_dir", required=True,
                         help="directory of images (searched recursively)")
     parser.add_argument("--save_dir", required=True)
@@ -147,6 +148,7 @@ def main(argv=None):
                         default=None, help="model preset (default flagship)")
     add_device_args(parser)
     add_dtype_arg(parser)
+    add_quant_arg(parser)
     args = parser.parse_args(argv)
 
     init_func()
@@ -154,7 +156,8 @@ def main(argv=None):
     spec = cli_config(parser, args).spec
     device = cli_device(args)
     rt = load_runtime(args.ckpt_path, spec, device=device,
-                      stream_part=args.stream_part, dtype=args.dtype)
+                      stream_part=args.stream_part, dtype=args.dtype,
+                      quant=args.quant)
     try:
         clip_codec = load_clip_codec(args.clip_ckpt, args.bpe_path, device)
         n = compress_dir(rt, clip_codec, args.dataset_dir, args.save_dir,

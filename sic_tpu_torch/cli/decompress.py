@@ -4,7 +4,7 @@
         [--ckpt_path params.npz]
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
         [--device cuda | --gpu_idx N] [--dtype auto|float32|bfloat16]
-        [--batch_size 8] [--stream_part N (ignored: streams carry theirs)]
+        [--quant none|int8] [--batch_size 8] [--stream_part N (ignored: streams carry theirs)]
 
 (reference: src/decompress.py:79-140 — unpack, decode_only, negative-pad
 crop, save.)  Same-shaped files are decoded in device-batched groups of up
@@ -20,8 +20,8 @@ import time
 from pathlib import Path
 
 from ..container import sanitize_enc_result_types, unpack_c2df
-from ._common import (add_device_args, add_dtype_arg, cli_config, cli_device,
-                      load_runtime, save_png)
+from ._common import (add_device_args, add_dtype_arg, add_quant_arg, cli_config,
+                      cli_device, load_runtime, save_png)
 
 
 def _crop_and_save(save_dir, stem, img, header):
@@ -86,12 +86,14 @@ def main(argv=None):
                              "ignores it: each stream carries its own part "
                              "count")
     add_dtype_arg(parser)
+    add_quant_arg(parser)
     args = parser.parse_args(argv)
 
     t0 = time.time()
     spec = cli_config(parser, args).spec
     rt = load_runtime(args.ckpt_path, spec, device=cli_device(args),
-                      stream_part=args.stream_part, dtype=args.dtype)
+                      stream_part=args.stream_part, dtype=args.dtype,
+                      quant=args.quant)
     try:
         n = decompress_dir(rt, args.dataset_dir, args.save_dir,
                            batch_size=args.batch_size)

@@ -3,7 +3,7 @@
     python -m sic_tpu_torch.cli.evaluate --dataset_dir IMGS
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
         [--ckpt_path params.npz] [--lpips_lin vgg.pth --lpips_vgg vgg16.pth]
-        [--device cuda] [--dtype auto|float32|bfloat16]
+        [--device cuda] [--dtype auto|float32|bfloat16] [--quant none|int8]
 
 Counterpart of the JAX package's ``cli/evaluate.py``: each image makes a
 full round trip through real bitstreams (``CodecRuntime.encode_decode``),
@@ -23,7 +23,8 @@ import torch
 from ..data import list_images, load_image
 from ..metrics import ms_ssim, psnr
 from ..models import get_padding_size, pad_replicate
-from ._common import add_dtype_arg, cli_config, init_func, load_runtime, progress
+from ._common import (add_dtype_arg, add_quant_arg, cli_config, init_func,
+                      load_runtime, progress)
 
 
 @torch.no_grad()
@@ -79,18 +80,15 @@ def main(argv=None, out=None):
                     help="LPIPS calibration heads (torch .pth)")
     ap.add_argument("--lpips_vgg", default=None,
                     help="torchvision VGG16 state dict")
-    ap.add_argument("--quant", choices=["none", "int8"], default=None,
-                    help="serving mode; int8 is not offered yet")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     add_dtype_arg(ap)
+    add_quant_arg(ap)
     args = ap.parse_args(argv)
-    if args.quant == "int8":
-        ap.error("--quant int8 is not offered yet (ROADMAP queue 1 item 9): "
-                 "the port serves fp32 and bf16 only")
 
     spec = cli_config(ap, args).spec
-    rt = load_runtime(args.ckpt_path, spec, device=args.device, dtype=args.dtype)
+    rt = load_runtime(args.ckpt_path, spec, device=args.device, dtype=args.dtype,
+                      quant=args.quant)
     lpips_fn = None
     if args.lpips_lin and not args.lpips_vgg:
         print("[WARN] --lpips_lin without --lpips_vgg: the VGG16 backbone "

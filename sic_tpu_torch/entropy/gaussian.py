@@ -3,8 +3,8 @@
 The scale -> CDF-table-index map consumed by both rANS decoders, with the
 same float32 arithmetic as the JAX package's ``build_indexes`` so a stream
 encoded by either package selects the same tables here; and the training
-math: the gated lower bound, the Gaussian likelihoods and their bit costs
-(reference behaviours: src/entropy/entropy_models.py:14-28, 252-374).
+math: the gated lower bound, the Gaussian and Laplace likelihoods and their
+bit costs (reference behaviours: src/entropy/entropy_models.py:14-28, 252-374).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from .tables import GAUSSIAN_SCALE_MIN, SCALE_LEVELS, SCALE_MAX
+from .tables import GAUSSIAN_SCALE_MIN, LAPLACE_SCALE_MIN, SCALE_LEVELS, SCALE_MAX
 
 
 class _LowerBound(torch.autograd.Function):
@@ -55,6 +55,18 @@ def gaussian_prob(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return lower_bound(0.5 * (upper - lower), 1e-9)
 
 
+def laplace_prob(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """P(round(v) == v | Laplace(0, scale)), the training surrogate."""
+    scales = lower_bound(scales, LAPLACE_SCALE_MIN)
+
+    def _cdf2(x):
+        return torch.sign(x) * (1.0 - torch.exp(-torch.abs(x)))
+
+    upper = _cdf2((values + 0.5) / scales)
+    lower = _cdf2((values - 0.5) / scales)
+    return lower_bound(0.5 * (upper - lower), 1e-9)
+
+
 def probs_to_bits(probs: torch.Tensor) -> torch.Tensor:
     bits = -torch.log(probs + 1e-5) / math.log(2.0)
     return lower_bound(bits, 0.0)
@@ -68,6 +80,19 @@ def gaussian_bits(y: torch.Tensor, sigma: torch.Tensor,
     sigma = torch.clamp(sigma, 1e-5, 1e10)
     probs = _ndtr((y + 0.5) / sigma) - _ndtr((y - 0.5) / sigma)
     return probs_to_bits(probs)
+
+
+def laplace_bits(y: torch.Tensor, sigma: torch.Tensor,
+                 training: bool) -> torch.Tensor:
+    """Per-element bit cost of quantized ``y`` under Laplace(0, sigma)."""
+    if training:
+        return probs_to_bits(laplace_prob(y, sigma))
+    sigma = torch.clamp(sigma, 1e-5, 1e10)
+    half = 0.5 * torch.exp(-torch.abs(y + 0.5) / sigma)
+    upper = torch.where(y + 0.5 < 0, half, 1.0 - half)
+    half2 = 0.5 * torch.exp(-torch.abs(y - 0.5) / sigma)
+    lower = torch.where(y - 0.5 < 0, half2, 1.0 - half2)
+    return probs_to_bits(upper - lower)
 
 
 def build_indexes(scales: torch.Tensor, skip_thres=None,

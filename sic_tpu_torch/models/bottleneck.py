@@ -12,6 +12,7 @@ kernels and no TF32 (see ``codec.configure_numerics``) are part of it.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import queue
 import threading
@@ -172,6 +173,20 @@ class BottleneckCoder:
             return self._dec_pool.get_nowait()
         except queue.Empty:
             return self._new_coder()
+
+    def clone_with_stream_part(self, stream_part: int) -> "BottleneckCoder":
+        """A shallow clone with its own native coders at another substream
+        count, sharing the module and the tables (stream framing is host
+        side only): reads legacy one-substream files beside a four-part
+        runtime."""
+        c = copy.copy(self)
+        c.stream_part = stream_part
+        c.coder, c.cdf_group = c._new_coder()
+        c.lock = threading.Lock()
+        c._dec_pool = queue.SimpleQueue()
+        c._dec_pool.put((c.coder, c.cdf_group))
+        c._enc_pool = queue.SimpleQueue()
+        return c
 
     def _tables_on(self, device):
         key = str(device)
@@ -548,6 +563,47 @@ class BottleneckCoder:
         finally:
             for item in coders:
                 self._dec_pool.put(item)
+
+    # -- the reference's ablation helpers (sq_bottleneck.py:202-253) -------------
+    @torch.no_grad()
+    def entropy_map(self, y, q_idx: int = 0) -> torch.Tensor:
+        """Per-element hard-quant bit map of the transformed latent
+        (reference: sq_bottleneck.py:219-232)."""
+        m = self.module
+        y_t = m.encode_transform(y, q_idx)
+        common = m.prior_params(tuple(y_t.shape[:3]), q_idx)
+        step_fns = [functools.partial(m.spatial_step, i) for i in (1, 2, 3)]
+        out = forward_four_part_prior(y_t, common, step_fns,
+                                      reduction_fn=m.reduce_common, training=False,
+                                      force_zero_thres=self.force_zero_thres)
+        return gaussian_bits(out.y_q, out.scales_hat, training=False)
+
+    def compress_decompress(self, y, img_hw, q_idx: int = 0):
+        """Round trip through a real stream with the reference's validity
+        contract (reference: sq_bottleneck.py:202-216): the decoded y_hat
+        must equal the encoder's, else AssertionError.  Returns (y_hat,
+        {"y_hat", "bpp", "bit_stream", "bpp_est", "bpp_diff"})."""
+        B, H, W, _ = y.shape
+        stream, y_hat_enc = self.compress(y, q_idx)
+        y_hat = self.decompress(stream, (B, H, W, self.module.quant_dim), q_idx)
+        if float(torch.sum(torch.abs(y_hat - y_hat_enc))) != 0.0:
+            raise AssertionError("entropy-coded reconstruction diverged from "
+                                 "encoder simulation")
+        bpp = len(stream) * 8 / (img_hw[0] * img_hw[1])
+        with torch.no_grad():
+            _, est = self.module(y, tuple(img_hw), q_idx,
+                                 force_zero_thres=self.force_zero_thres)
+        bpp_est = float(est["bpp"])
+        return y_hat, {"y_hat": y_hat, "bpp": bpp, "bit_stream": stream,
+                       "bpp_est": bpp_est, "bpp_diff": bpp - bpp_est}
+
+    def compress_decompress_entropy_map(self, y, img_hw, q_idx: int = 0):
+        """:meth:`compress_decompress` with the bit map under
+        ``"entropy_map"`` (reference: sq_bottleneck.py:234-253)."""
+        emap = self.entropy_map(y, q_idx)
+        y_hat, info = self.compress_decompress(y, img_hw, q_idx)
+        info["entropy_map"] = emap
+        return y_hat, info
 
 
 def worst_case_bytes(npos: int) -> int:

@@ -26,6 +26,7 @@ from torch import nn
 from ..config import CodecSpec
 from ..entropy import EntropyCoder
 from ..entropy.torchac_compat import UniformTorchacCodec
+from ..ops.quant import quantize_linears, resolve_quant
 from ..utils.profiling import timed_stage
 from .bottleneck import BottleneckCoder
 from .hybrid import FeatMerge, HybridCodec
@@ -318,13 +319,23 @@ class CodecRuntime:
     (bf16 values, exactly) or uint8 pixels rounded as the JAX bf16 mode
     rounds them.
 
+    ``quant``: ``"int8"`` serves the networks W8A8 (the JAX package's
+    ``CodecRuntime(quant="int8")``): ``self.net`` is then a runtime-owned
+    copy whose Linear layers, but for the two ``sensitive`` ones (the
+    encoder's pre-VQ ``conv_out``, FeatMerge's ``ffn_fc2``), are
+    :class:`~sic_tpu_torch.ops.quant.QuantLinear` quantized from the
+    caller's f32 weights (then the rest is cast to a bf16 ``dtype``, and
+    the QuantLinears return it); ``None`` or ``"none"`` serves float.  The
+    coding chain is conv-only and stays the caller's f32 bottleneck, so
+    streams decode to the same ``y_hat`` in every mode.
+
     Several threads may share one runtime (``decode_only_many``,
     ``round_trip_pipelined``, ``encode_decode_many``, the service): the
     coders are pooled, and the router and the path counts take a lock."""
 
     def __init__(self, spec: CodecSpec, model: Codec, stream_part: int = 1,
                  device_entropy: str = "auto", z_format: str = "rans",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant: Optional[str] = None):
         if device_entropy not in ("auto", "host", "device"):
             raise ValueError(f"device_entropy: {device_entropy}")
         if z_format not in Z_CODERS:
@@ -334,13 +345,18 @@ class CodecRuntime:
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.dtype = torch.float32 if dtype is None else resolve_dtype(dtype, self.device)
-        if self.dtype == torch.float32:
+        self.quant = resolve_quant(quant)
+        if self.dtype == torch.float32 and self.quant is None:
             self.net = self.model
         else:
             # the bottleneck is shared, not copied: it stays the caller's f32
             bottleneck = model.hybrid_codec.quantize_feat
             self.net = copy.deepcopy(model, {id(bottleneck): bottleneck})
-            self.net.set_compute_dtype(self.dtype, cast_weights=True).eval()
+            if self.quant == "int8":
+                quantize_linears(self.net)     # from the f32 weights
+            if self.dtype != torch.float32:
+                self.net.set_compute_dtype(self.dtype, cast_weights=True)
+            self.net.eval()
         self.stream_part = stream_part
         self.device_entropy = device_entropy
         self.h_coder = BottleneckCoder(model.hybrid_codec.quantize_feat,

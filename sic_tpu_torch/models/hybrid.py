@@ -83,7 +83,8 @@ class HybridEncoder(nn.Module):
         self.transformer = nn.ModuleList(
             ResidualAttentionBlock(s.width, s.num_heads) for _ in range(s.num_layers))
         self.ln_post = LayerNorm(s.width)
-        self.conv_out = Linear(s.width, s.token_size)
+        # pre-VQ projection: float in the int8 mode (sic_tpu/models/hybrid.py:261)
+        self.conv_out = Linear(s.width, s.token_size, sensitive=True)
         self.pix_emb_proj = Linear(s.width, feat_width)
         self.feat_in = SwinStack(feat_width, 4)
         self.inter_blocks = nn.ModuleDict({
@@ -219,7 +220,8 @@ class FeatMerge(nn.Module):
         self.merge_swin = SwinStack(inner_width, 4)
         self.ffn_ln = LayerNorm(inner_width)
         self.ffn_fc1 = Linear(inner_width, inner_width * 2)
-        self.ffn_fc2 = Linear(inner_width * 2, n_embed)
+        # the codebook logits: float in the int8 mode (sic_tpu/models/hybrid.py:448)
+        self.ffn_fc2 = Linear(inner_width * 2, n_embed, sensitive=True)
 
     def forward(self, titok: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
         h = torch.cat([self.titok_in(titok), self.feat_in(feat)], dim=-1)

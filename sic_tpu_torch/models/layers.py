@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import seq_attention
+from ..ops.quant import QuantLinear
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype):
@@ -42,9 +43,19 @@ def _f32(p: Optional[torch.Tensor]):
 
 
 class Linear(nn.Linear):
-    """nn.Linear in its compute dtype: input, weight and bias cast to it."""
+    """nn.Linear in its compute dtype: input, weight and bias cast to it.
+
+    ``sensitive``: the layer stays float in the int8 serving mode (the JAX
+    package's ``QDense(..., sensitive=True)``): a projection whose output
+    feeds a codebook choice, where a small perturbation flips an index
+    (``ops.quant.quantize_linears`` skips it)."""
 
     compute_dtype = torch.float32
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 sensitive: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
+        self.sensitive = sensitive
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -64,10 +75,10 @@ class LayerNorm(nn.LayerNorm):
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Make every Linear and Conv2d in ``module`` compute in ``dtype``
-    (their parameters keep their storage dtype)."""
+    """Make every Linear, Conv2d and int8 QuantLinear in ``module`` compute
+    in ``dtype`` (their parameters keep their storage dtype)."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv2d)):
+        if isinstance(m, (Linear, Conv2d, QuantLinear)):
             m.compute_dtype = dtype
     return module
 
@@ -75,7 +86,8 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """:func:`set_compute_dtype`, and cast the weights and biases of every
     Linear and Conv2d in ``module`` to ``dtype`` once (norms, positional
-    parameters and codebooks keep theirs): the serving runtime's copy."""
+    parameters, codebooks and an int8 QuantLinear's scales and bias keep
+    theirs): the serving runtime's copy."""
     for m in set_compute_dtype(module, dtype).modules():
         if isinstance(m, (Linear, Conv2d)):
             m.to(dtype)

@@ -94,3 +94,7 @@ class VQGANQuantizer(nn.Module):
                 + torch.mean((z_q - z32.detach()) ** 2))
         z_q = z32 + (z_q - z32).detach()
         return z_q.to(z.dtype), loss, {"indices": idx.reshape(B, H, W)}
+
+    def embed_code(self, indices: torch.Tensor) -> torch.Tensor:
+        """Indices (..) -> code vectors (.., embed_dim)."""
+        return self.codebook()[indices.long()]

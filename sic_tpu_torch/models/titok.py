@@ -63,7 +63,8 @@ class TiTokEncoderViT(nn.Module):
         self.transformer = nn.ModuleList(
             ResidualAttentionBlock(s.width, s.num_heads) for _ in range(s.num_layers))
         self.ln_post = LayerNorm(s.width)
-        self.conv_out = Linear(s.width, s.token_size)
+        # pre-VQ projection: float in the int8 mode (sic_tpu/models/titok.py:78)
+        self.conv_out = Linear(s.width, s.token_size, sensitive=True)
 
     def forward(self, pixel_values: torch.Tensor,
                 latent_tokens: torch.Tensor) -> torch.Tensor:

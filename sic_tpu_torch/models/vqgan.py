@@ -198,6 +198,11 @@ class VQGAN(nn.Module):
         self.encoder = Encoder(spec)
         self.quant_conv = Conv2d(spec.z_channels, spec.embed_dim)
 
+    def encode(self, x: torch.Tensor):
+        """Image in [-1, 1] -> (z_q, the codebook loss, {"indices"}), the
+        JAX package's ``VQGAN.encode``."""
+        return self.quantize(self.quant_conv(self.encoder(x)))
+
     def encode_latent(self, x: torch.Tensor) -> torch.Tensor:
         """Pre-VQ latent of an image in [-1, 1] (the frozen teacher path of
         stage-feat training)."""
@@ -205,3 +210,13 @@ class VQGAN(nn.Module):
 
     def decode(self, quant: torch.Tensor, return_pre: bool = False):
         return self.decoder(self.post_quant_conv(quant), return_pre=return_pre)
+
+    def decode_code(self, code_b: torch.Tensor) -> torch.Tensor:
+        """Codebook indices (B, H, W) -> image."""
+        return self.decode(self.quantize.embed_code(code_b))
+
+    def forward(self, x: torch.Tensor):
+        """The autoencoder: quantize, then decode; returns (x_hat, the
+        codebook loss, {"indices"}), as the JAX ``VQGAN.__call__``."""
+        quant, emb_loss, info = self.encode(x)
+        return self.decode(quant), emb_loss, info

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels of the codec and training paths and of the
 (G, s, d) window-attention op, each beside its plain PyTorch version.  A
 wrapper takes the plain version for CPU tensors and launches its kernel for
-CUDA tensors; it counts its launches."""
+CUDA tensors; it counts its launches.  ``quant`` holds the int8 mode's
+W8A8 Linear, whose product is cuBLASLt's int8 GEMM (``int8_mm``, counted
+apart: it ports no TPU kernel)."""
+from .quant import (QuantLinear, int8_mm, int8_mm_plain, quantize_kernel,
+                    quantize_linears)
 from .rans_decode import (pack_substreams, rans_decode_plane,
                           rans_decode_plane_plain, split_substreams)
 from .rans_encode import rans_encode_plane, rans_encode_plane_plain
@@ -45,6 +49,7 @@ def head_dim_launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    int8_mm.launches = 0
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     for name in BF16_ENTRIES:
@@ -61,4 +66,5 @@ __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
            "rans_encode_plane_plain", "pack_substreams", "split_substreams",
            "KERNEL_WRAPPERS", "BF16_ENTRIES", "launch_counts",
            "bf16_launch_counts", "head_dim_launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "QuantLinear", "int8_mm", "int8_mm_plain",
+           "quantize_kernel", "quantize_linears"]

@@ -15,90 +15,20 @@ flattened with ``/``, which ``weights.load_flax_params`` loads into
 - LayerNorm / GroupNorm ``weight`` -> ``scale``.
 
 The rest of the JAX package's map (the hybrid codec, the VQGAN, FeatMerge,
-the discriminator) is not copied yet.
+the discriminator) and the primitives both use are in ``port.py``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
-import torch
 
-
-def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
-    """A torch checkpoint (a state dict, or a dict holding one under
-    ``state_dict``) as f32 numpy arrays."""
-    sd = torch.load(path, map_location="cpu")
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    return {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
-
-
-def flatten(tree: dict, prefix: str = "params") -> Dict[str, np.ndarray]:
-    """A nested flax-named tree -> ``{"params/a/b/leaf": array}``."""
-    out = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}"
-        if isinstance(v, dict):
-            out.update(flatten(v, key))
-        else:
-            out[key] = np.asarray(v)
-    return out
-
-
-# -- primitive converters (sic_tpu/port.py:39-80) ------------------------------
-
-def t_conv(sd, p):
-    out = {"kernel": sd[f"{p}.weight"].transpose(2, 3, 1, 0)}
-    if f"{p}.bias" in sd:
-        out["bias"] = sd[f"{p}.bias"]
-    return out
-
-
-def t_lin(sd, p):
-    out = {"kernel": sd[f"{p}.weight"].T}
-    if f"{p}.bias" in sd:
-        out["bias"] = sd[f"{p}.bias"]
-    return out
-
-
-def t_conv1x1_as_dense(sd, p):
-    out = {"kernel": sd[f"{p}.weight"][:, :, 0, 0].T}
-    if f"{p}.bias" in sd:
-        out["bias"] = sd[f"{p}.bias"]
-    return out
-
-
-def t_norm(sd, p):
-    return {"scale": sd[f"{p}.weight"], "bias": sd[f"{p}.bias"]}
-
-
-def t_mha(sd, p):
-    """nn.MultiheadAttention -> MultiheadSelfAttention."""
-    return {"in_proj": {"kernel": sd[f"{p}.in_proj_weight"].T,
-                        "bias": sd[f"{p}.in_proj_bias"]},
-            "out_proj": t_lin(sd, f"{p}.out_proj")}
-
-
-def t_rab(sd, p):
-    """ResidualAttentionBlock (reference: titok/blocks.py:26-64)."""
-    out = {"ln_1": t_norm(sd, f"{p}.ln_1"), "attn": t_mha(sd, f"{p}.attn")}
-    if f"{p}.ln_2.weight" in sd:
-        out["ln_2"] = t_norm(sd, f"{p}.ln_2")
-        out["mlp"] = {"c_fc": t_lin(sd, f"{p}.mlp.c_fc"),
-                      "c_proj": t_lin(sd, f"{p}.mlp.c_proj")}
-    return out
+# load_torch_state_dict is this module's name for callers of the TiTok map
+from .port import (_resnet, flatten, load_torch_state_dict,  # noqa: F401
+                   t_conv, t_conv1x1_as_dense, t_lin, t_norm, t_rab)
 
 
 # -- the MaskGIT-VQGAN and TiTok maps (sic_tpu/port.py:313-430) ----------------
-
-def _resnet(sd, q):
-    out = {"norm1": t_norm(sd, f"{q}.norm1"), "conv1": t_conv(sd, f"{q}.conv1"),
-           "norm2": t_norm(sd, f"{q}.norm2"), "conv2": t_conv(sd, f"{q}.conv2")}
-    if f"{q}.nin_shortcut.weight" in sd:
-        out["nin_shortcut"] = t_conv(sd, f"{q}.nin_shortcut")
-    return out
-
 
 def port_maskgit_encoder(sd, p, num_resolutions: int = 5,
                          num_res_blocks: int = 2):

@@ -21,7 +21,8 @@ Codec responses carry the ``X-SIC-Stage`` / ``X-SIC-Elapsed-MS`` /
 in process, at first use, and run the port's runtime on ``device`` (CUDA
 unless named) in the compute dtype of ``--dtype`` or ``SIC_DTYPE`` (auto:
 bf16 on CUDA, fp32 on the CPU, as the JAX service runs bf16 on an
-accelerator; CLIP stays fp32); concurrent requests share batched device
+accelerator; CLIP stays fp32), W8A8 int8 with ``SIC_QUANT=int8`` (read by
+``load_runtime``, as the JAX service reads it); concurrent requests share batched device
 work through ``service/batcher.py``.  The environment is read as the JAX
 service reads it: ``BASE_CONFIG`` (a reference-layout YAML, which gives the
 model in place of ``--spec``), ``CKPT_PATH``, ``CLIP_CKPT``, ``INDEX_DIR``,

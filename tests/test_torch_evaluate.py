@@ -7,7 +7,7 @@ temporary directory: the same records and summary keys, ``bpp``,
 within 1e-3 dB and ``ms_ssim`` within 1e-4 (fp32 pixels within 1e-3 of each
 other).  ``main`` writes the same records, adds ``lpips`` with a
 calibration checkpoint (warning that the backbone is seeded), and refuses
-``--quant int8`` and ``--base_config`` beside ``--spec``.
+an unknown ``--quant`` mode and ``--base_config`` beside ``--spec``.
 """
 import io
 import json
@@ -99,7 +99,7 @@ def test_main_writes_the_records_and_lpips(images, port_records, tmp_path, capsy
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--quant", "int8"], "queue 1 item 9"),
+    (["--quant", "fp4"], "invalid choice"),
     (["--base_config", str(ROOT / "configs" / "config_small_r4.yaml"),
       "--spec", "tiny"], "--base_config and --spec"),
 ])

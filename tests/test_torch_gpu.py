@@ -1140,3 +1140,132 @@ def test_titok_decode_tokens_at_full_width_on_the_card(cuda):
     assert ops.head_dim_launch_counts()[64] == before + 24
     assert got.shape == (1, 256, 256, 3) and torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+# -- the int8 mode: cuBLASLt's int8 GEMM through torch._int_mm -------------------
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 12, 1024), (578, 1024, 3072), (8, 16, 8),
+                                   (1156, 4096, 1024), (17, 768, 2304)])
+def test_int8_mm_on_the_card(cuda, M, K, N):
+    """The int8 GEMM against its plain version, exactly, at padded shapes
+    (K = 12, the decoder_embed's depth; M = 8, fewer than 17 rows) and at
+    the flagship's Linear shapes; one launch counted each call."""
+    from sic_tpu_torch.ops.quant import int8_mm, int8_mm_plain
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), device=cuda, generator=g, dtype=torch.int8)
+    before = int8_mm.launches
+    acc = int8_mm(x, w)
+    torch.cuda.synchronize()
+    assert int8_mm.launches == before + 1
+    assert acc.dtype == torch.int32 and acc.shape == (M, N)
+    assert torch.equal(acc, int8_mm_plain(x, w))
+    assert torch.equal(acc.cpu(), int8_mm(x.cpu(), w.cpu()))
+
+
+def test_int8_mm_refuses_on_the_card(cuda):
+    """Operands the GEMM cannot take raise on the card; nothing launches and
+    nothing falls back to a float product."""
+    from sic_tpu_torch.ops.quant import MAX_DEPTH, int8_mm
+    before = int8_mm.launches
+    i8 = dict(device=cuda, dtype=torch.int8)
+    for x, w in ((torch.zeros(32, 16, device=cuda), torch.zeros(8, 16, **i8)),
+                 (torch.zeros(32, 16, **i8), torch.zeros(8, 24, **i8)),
+                 (torch.zeros(0, 16, **i8), torch.zeros(8, 16, **i8)),
+                 (torch.zeros(17, MAX_DEPTH + 1, **i8), torch.zeros(8, MAX_DEPTH + 1, **i8))):
+        with pytest.raises(ValueError):
+            int8_mm(x, w)
+    assert int8_mm.launches == before
+
+
+@pytest.mark.parametrize("shape,out", [((2, 4, 12), 1024), ((4, 289, 1024), 3072),
+                                       ((1, 32, 32, 768), 2304)])
+def test_quant_linear_on_the_card(cuda, shape, out):
+    """QuantLinear on the card against the same module on the CPU: x_q and
+    the int32 accumulator exactly (the card's division, rounding and
+    abs-max are IEEE, as the CPU's), the output within 1e-6 relative."""
+    import copy
+    from sic_tpu_torch.models.layers import Linear
+    from sic_tpu_torch.ops.quant import QuantLinear, int8_mm, quantize_rows
+    torch.manual_seed(0)
+    lin = Linear(shape[-1], out)
+    x = torch.randn(shape) * torch.rand(shape[:-1] + (1,)) * 4
+    q = QuantLinear.from_linear(lin)
+    qc = copy.deepcopy(q).to(cuda)
+    xq, _ = quantize_rows(x)
+    xq_c, _ = quantize_rows(x.to(cuda))
+    assert torch.equal(xq_c.cpu(), xq)
+    flat = xq.reshape(-1, shape[-1])
+    assert torch.equal(int8_mm(flat.to(cuda), qc.weight_q).cpu(), int8_mm(flat, q.weight_q))
+    got, want = qc(x.to(cuda)).cpu(), q(x)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def test_int8_runtime_on_the_card(cuda):
+    """load_runtime(quant="int8") on the card, fp32 and bf16: the golden
+    stream decodes to the fp32 runtime's h exactly and to pixels within the
+    bound derived from the JAX package's own int8-vs-fp32 gap
+    (fixtures/golden_int8.py); the int8 GEMM and kernels 1 and 2 launch; a
+    stream the int8 runtime writes decodes to its encoder's y_hat in the
+    fp32 runtime."""
+    import sys
+    from sic_tpu_torch.cli._common import load_runtime
+    from sic_tpu_torch.config import tiny_spec
+    from sic_tpu_torch.container import sanitize_enc_result_types, unpack_c2df
+    from sic_tpu_torch.ops.quant import int8_mm
+    sys.path.insert(0, str(GOLDEN.parents[1]))
+    from fixtures.golden.generate import golden_input
+    from fixtures.golden_int8 import GAP_MULTIPLE, JAX_GAP_MAX, JAX_GAP_MEAN
+    params = str(GOLDEN / "params.npz")
+    rt32 = load_runtime(params, tiny_spec(), device="cuda", stream_part=1,
+                        dtype="float32")
+    enc, header = unpack_c2df(GOLDEN / "golden.c2df")
+    enc = dict(sanitize_enc_result_types(enc), z_coder=header["z_coder"],
+               coding_batch=header["coding_batch"])
+    p32 = {}
+    x32 = rt32.decode_only(**enc, probe=p32)
+    try:
+        for dtype in ("float32", "bfloat16"):
+            rt = load_runtime(params, tiny_spec(), device="cuda", stream_part=1,
+                              dtype=dtype, quant="int8")
+            try:
+                ops.reset_launch_counts()
+                p = {}
+                x = rt.decode_only(**enc, probe=p)
+                counts = ops.launch_counts()
+                assert int8_mm.launches > 0
+                assert counts["seq_attention"] > 0 and counts["window_attention_nhwc"] > 0
+                assert torch.equal(p["h_hat"], p32["h_hat"])
+                diff = (x - x32).abs()
+                assert diff.max().item() <= GAP_MULTIPLE * JAX_GAP_MAX
+                assert diff.mean().item() <= GAP_MULTIPLE * JAX_GAP_MEAN
+                probe = {}
+                e = rt.encode_only(golden_input()[None], probe=probe)
+                out = {}
+                rt32.decode_only(**e, coding_batch=8, probe=out)
+                assert torch.equal(out["h_hat"], probe["y_hat"])
+            finally:
+                rt.close()
+    finally:
+        rt32.close()
+
+
+def test_factorized_tables_equal_on_the_card_and_the_cpu(cuda):
+    """The factorized coder's tables come from table_cdf's fixed f32
+    steps: the card's CDF equals the CPU's bit for bit, and so do the
+    tables."""
+    import copy
+    from sic_tpu_torch.entropy import FactorizedCoder
+    from sic_tpu_torch.entropy.factorized import BitEstimator, table_cdf
+    torch.manual_seed(3)
+    m = BitEstimator(16)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.mul_(50.0)
+    mc = copy.deepcopy(m).to(cuda)
+    x = torch.linspace(-60, 60, 1201)[:, None].repeat(1, 16)
+    assert torch.equal(table_cdf(mc, x.to(cuda)).cpu(), table_cdf(m, x))
+    a, b = FactorizedCoder(m), FactorizedCoder(mc)
+    assert np.array_equal(a.quantized_cdf, b.quantized_cdf)
+    assert np.array_equal(a.offset, b.offset)
