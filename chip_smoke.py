@@ -2,8 +2,9 @@
 """Chip check of the PyTorch port on one CUDA card: encode, decode, the
 (G, s, d) window-attention op, the HTTP service with search, the evaluate
 CLI, the concurrent runtime entry points, reference-format files and YAML
-configs, bf16 serving, int8 W8A8 serving, training, bf16 training, and
-TiTok tokenization with MaskGIT generation.
+configs, bf16 serving, int8 W8A8 serving, training, bf16 training, TiTok
+tokenization with MaskGIT generation, and two ranks compressing and
+training across processes on the one card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -178,13 +179,32 @@ Phases, each printing one JSON line with the card's name and power limit:
               relative, each leaf's gradient within 1e-3 of its norm; the
               pix step within 1e-3 and 5e-3, its adaptive weight being
               ill-conditioned in f32), the CPU's own spread (one thread
-              against all) reported beside them.
+              against all) reported beside them;
+15. multiprocess - two ranks on the one card (gloo), each this script
+              re-invoked as ``--rank-task compress|train <record.json>``
+              with WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT: the
+              compress CLI at world size 2 over val0..7 at batch 2, every
+              stream and the merged index equal to a one-process
+              compress_dir's; one feat and one pix step of the seeded
+              flagship at 256 px, global batch 2, data-parallel (one image
+              a rank) and as a two-stage pipeline (two microbatches), then
+              the one-process steps in rank 0 (rank 1 idle) as they run
+              ("global") and with every Linear and convolution on the
+              ranks' halves of the batch ("split"): data parallelism within
+              the card-vs-CPU training bounds of "split", the pipeline of
+              "global", every other distance reported (cuBLAS and cuDNN
+              sum otherwise at batch 1 than at 2); the train CLI with --pp 2
+              --pp_microbatch 2 at 256 px (the qp 0 preset cut to one feat
+              and one pix epoch), its deploy_params.npz through the compress
+              and decompress CLIs, h_hat against y_hat; step times and peak
+              memory a rank.
 
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
 serving, phase 8 for the surface, phase 9 for bf16 serving, phase 10 for
 int8 serving, phase 11 for training, phase 12 for bf16 training, phase 13
-for generation) and read just after, by wrapper, by bf16 entry and
+for generation, each rank of phase 15 at its start) and read just after
+(phase 15: by each rank, summed over the ranks), by wrapper, by bf16 entry and
 (kernel 1) by head dim, and phase 10's int8 GEMMs apart; every kernel of
 the path must have launched, and the (G, s, d) kernel on no model path.
 Every phase but 9, 10 and 12 runs fp32 and asks for it (the train CLI's
@@ -197,6 +217,8 @@ Work files go to ``WORK`` below.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import shutil
 import subprocess
@@ -213,6 +235,7 @@ WORK = ROOT / "chiprun_out" / "chip_smoke"
 # training checkpoints (gigabytes at flagship width): beside the checkout,
 # git-ignored, removed at the end
 TRAIN_WORK = ROOT / ".chip_smoke_train"
+MP_WORK = WORK / "multiprocess"      # the multiprocess phase's files and rank logs
 GOLDEN = ROOT / "tests" / "fixtures" / "golden"
 HELDOUT = ROOT / "artifacts_r05" / "heldout"
 
@@ -3193,12 +3216,7 @@ class Smoke:
         import gc
         torch = self.torch
 
-        from sic_tpu_torch.cli._common import load_runtime
-        from sic_tpu_torch.cli.compress import main as compress_main
-        from sic_tpu_torch.cli.decompress import main as decompress_main
         from sic_tpu_torch.cli.train import main as train_main
-        from sic_tpu_torch.config import flagship_spec
-        from sic_tpu_torch.data import load_image
         ckpt = TRAIN_WORK / "ckpt"
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3213,30 +3231,44 @@ class Smoke:
                "last_bytes": (ckpt / "last").stat().st_size}
         gc.collect()
         torch.cuda.empty_cache()
-        deploy = ckpt / "deploy_params.npz"
-        src = TRAIN_WORK / "one"
+        rec.update(self._deploy_round_trip(ckpt / "deploy_params.npz",
+                                           WORK / "encode_in" / "a_512x512.png"))
+        rec["ok"] = (out["global_step"] == 4 and "last" in rec["files"]
+                     and "deploy_params.npz" in rec["files"] and rec["round_trip_ok"])
+        return rec
+
+    def _deploy_round_trip(self, deploy, image):
+        """``image`` through the compress and decompress CLIs with the
+        params ``deploy`` (fp32), then its decode's h_hat against the
+        encoder's y_hat."""
+        import gc
+        torch = self.torch
+
+        from sic_tpu_torch.cli._common import load_runtime
+        from sic_tpu_torch.cli.compress import main as compress_main
+        from sic_tpu_torch.cli.decompress import main as decompress_main
+        from sic_tpu_torch.config import flagship_spec
+        from sic_tpu_torch.data import load_image
+        work = deploy.parent / "round_trip"
+        src = work / "in"
         src.mkdir(parents=True, exist_ok=True)
-        shutil.copy(WORK / "encode_in" / "a_512x512.png", src / "a_512x512.png")
+        shutil.copy(image, src / image.name)
+        common = ["--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda",
+                  "--dtype", "float32"]
         t0 = time.perf_counter()
-        compress_main(["--dataset_dir", str(src), "--save_dir", str(TRAIN_WORK / "c"),
-                       "--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda",
-                       "--dtype", "float32"])
-        n_dec = decompress_main(["--dataset_dir", str(TRAIN_WORK / "c" / "bitstreams"),
-                                 "--save_dir", str(TRAIN_WORK / "d"), "--ckpt_path",
-                                 str(deploy), "--spec", "flagship", "--device", "cuda",
-                                 "--dtype", "float32"])
-        rec["cli_round_trip_s"] = round(time.perf_counter() - t0, 3)
+        compress_main(["--dataset_dir", str(src), "--save_dir", str(work / "c"), *common])
+        n_dec = decompress_main(["--dataset_dir", str(work / "c" / "bitstreams"),
+                                 "--save_dir", str(work / "d"), *common])
+        rec = {"cli_round_trip_s": round(time.perf_counter() - t0, 3)}
         rt = load_runtime(str(deploy), flagship_spec(), device="cuda", stream_part=4,
                           dtype="float32")
         probe, dec = {}, {}
-        enc = rt.encode_only(load_image(src / "a_512x512.png")[None], probe=probe)
+        enc = rt.encode_only(load_image(src / image.name)[None], probe=probe)
         rt.decode_only(**enc, coding_batch=8, probe=dec)
         rt.close()
         rec["h_hat_equal_y_hat"] = bool(torch.equal(dec["h_hat"], probe["y_hat"]))
         rec["decoded_files"] = n_dec
-        rec["ok"] = (out["global_step"] == 4 and "last" in rec["files"]
-                     and "deploy_params.npz" in rec["files"] and n_dec == 1
-                     and rec["h_hat_equal_y_hat"])
+        rec["round_trip_ok"] = n_dec == 1 and rec["h_hat_equal_y_hat"]
         del rt
         gc.collect()
         torch.cuda.empty_cache()
@@ -3545,6 +3577,137 @@ class Smoke:
         enc["coding_batch"] = header["coding_batch"]
         return enc
 
+    # -- phase 15 ---------------------------------------------------------------
+    def multiprocess(self):
+        """Two ranks on this one card (gloo: ranks sharing a card), started
+        as ``python3 chip_smoke.py --rank-task ...`` with WORLD_SIZE, RANK,
+        MASTER_ADDR and MASTER_PORT, each driving the port's entry points:
+        (1) the compress CLI at world size 2 over the eight heldout 256x256
+        images, batch 2, against a one-process compress_dir (every stream
+        byte-equal, the merged index equal); (2) one feat step and one pix
+        step of the seeded flagship at 256 px over a global batch of two,
+        data-parallel (one image a rank) and as a two-stage pipeline (two
+        microbatches), each from a fresh state, then (rank 1 idle) the
+        one-process steps in rank 0 as references, within PERF.md §2's
+        card-vs-CPU training bounds of the reference that runs the rank's
+        layer shapes (:func:`_mp_references`), and data parallelism within
+        the larger of those bounds and 1.5x that reference's own gap of the
+        step as it runs (:func:`_mp_judge`); (3) the train CLI with --pp 2
+        --pp_microbatch 2 at 256 px, one step of feat and one of pix, whose
+        deploy_params.npz the compress and decompress CLIs load, h_hat
+        against the encoder's y_hat; both stages take one batch sequence.  The
+        launch counts are those of the ranks' multi-process runs, summed
+        (rank 0's one-process references are reported apart)."""
+        import gc
+
+        import numpy as np
+        torch = self.torch
+        from sic_tpu_torch.cli.compress import compress_dir
+        from sic_tpu_torch.retrieval import VectorIndex
+        shutil.rmtree(MP_WORK, ignore_errors=True)
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+        src = MP_WORK / "in"
+        src.mkdir(parents=True)
+        (MP_WORK / "pp_train").mkdir()
+        for i in range(8):
+            shutil.copy(HELDOUT / f"val{i}.png", src / f"val{i}.png")
+            if i < 2:
+                shutil.copy(HELDOUT / f"val{i}.png", MP_WORK / "pp_train" / f"val{i}.png")
+        t0 = time.perf_counter()
+        compress_dir(self.rt, self.clip, src, MP_WORK / "w1", batch_size=2)
+        rec = {"compress_world1_s": round(time.perf_counter() - t0, 3)}
+        self.rt.close()
+        self.rt = self.clip = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        args = ["--dataset_dir", str(src), "--save_dir", str(MP_WORK / "w2"),
+                "--spec", "flagship", "--dtype", "float32", "--batch_size", "2"]
+        comp = self._run_ranks("compress", args)
+        a = sorted((MP_WORK / "w1" / "bitstreams").glob("*.c2df"))
+        b = sorted((MP_WORK / "w2" / "bitstreams").glob("*.c2df"))
+        idx1, _ = VectorIndex.load(MP_WORK / "w1" / "faiss")
+        idx2, _ = VectorIndex.load(MP_WORK / "w2" / "faiss")
+        rec["compress"] = {
+            "ranks": comp, "streams": len(b),
+            "bytes_equal": len(a) == len(b) == 8 and [p.name for p in a] == [p.name for p in b]
+            and all(p.read_bytes() == q.read_bytes() for p, q in zip(a, b)),
+            "index_equal": bool(np.array_equal(idx1.vectors(), idx2.vectors()))
+            and [Path(p).name for p in idx1.ids] == [Path(p).name for p in idx2.ids]}
+        train = self._run_ranks("train", [])
+        rec["train"] = train
+        rec["deploy_round_trip"] = trip = self._deploy_round_trip(
+            TRAIN_WORK / "pp_ck" / "deploy_params.npz", src / "val0.png")
+        # the ranks' launches in their multi-process runs, summed over both
+        # tasks of both ranks (rank 0's one-process references apart)
+        counts, bf16, by_dim = {}, {}, {}
+        for r in comp + train:
+            for total, part in ((counts, r["counts"]), (bf16, r["bf16_counts"]),
+                                (by_dim, r["head_dim_counts"])):
+                for k, n in part.items():
+                    total[k] = total.get(k, 0) + n
+        self.counts["multiprocess"] = rec["launches"] = counts
+        self.bf16_counts["multiprocess"] = bf16
+        self.head_dim_counts["multiprocess"] = by_dim
+        rec["launches_compress_ranks"] = [r["counts"] for r in comp]
+        rec["launches_references"] = train[0]["reference_counts"]
+        checks = {
+            "compress_bytes_equal": rec["compress"]["bytes_equal"],
+            "compress_index_equal": rec["compress"]["index_equal"],
+            "compress_kernels": all(r["counts"].get(k, 0) >= 1 for r in comp
+                                    for k in ("seq_attention", "window_attention_nhwc")),
+            "dp_within_bounds": train[0]["dp"]["ok"],
+            "pp_within_bounds": train[0]["pp"]["ok"],
+            "train_kernels": all(r["counts"].get(k, 0) >= 1 for r in train
+                                 for k in ("seq_attention", "window_attention_nhwc",
+                                           "window_attention_nhwc_bwd")),
+            "pp_cli": all(r["cli"]["ok"] for r in train) and trip["round_trip_ok"],
+            "pp_cli_one_batch_sequence": bool(train[0]["cli"]["batches"])
+            and all(r["cli"]["batches"] == train[0]["cli"]["batches"] for r in train)}
+        rec["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"multiprocess check failed: {checks}")
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+        return rec
+
+    def _run_ranks(self, task, args, world=2, timeout=900):
+        """``task`` on ``world`` rank processes on this card; their JSON
+        records.  Any rank's failure fails the phase (the others are
+        stopped)."""
+        import socket
+        import os
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = []
+        for r in range(world):
+            # torchrun's variables; each rank its own string hash salt, so
+            # nothing the ranks must agree on may hang on it
+            env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       PYTHONHASHSEED=str(101 + r))
+            log = open(MP_WORK / f"{task}_rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-task", task,
+                 str(MP_WORK / f"{task}_rank{r}.json"), *args],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+        try:
+            for p, _ in procs:
+                p.wait(timeout=timeout)
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+        if bad:
+            tails = {r: (MP_WORK / f"{task}_rank{r}.log").read_text()[-3000:] for r in bad}
+            raise AssertionError(f"{task} ranks {bad} failed: {tails}")
+        return [json.loads((MP_WORK / f"{task}_rank{r}.json").read_text())
+                for r in range(world)]
+
     def kernels_line(self):
         names = {"seq_attention": ("sic_tpu_torch/csrc/seq_attention.cu",
                                    "sic_tpu/ops/seq_attention.py:35"),
@@ -3593,6 +3756,388 @@ class Smoke:
         return {"kernels": rows}
 
 
+# -- the multiprocess phase's rank processes ------------------------------------
+
+def _mp_batch():
+    """The global batch of the multiprocess phase's training checks: heldout
+    val0 and val1, center-cropped at 256 px, in [-1, 1]."""
+    from sic_tpu_torch.data import ImageDataset
+    return next(ImageDataset([HELDOUT / "val0.png", HELDOUT / "val1.png"], 256,
+                             train=False).batches(2))
+
+
+def _mp_state(device, data=None, pp=None):
+    """The seeded flagship's fp32 training state at the 256-px qp 0 preset
+    (uncalibrated LPIPS: no VGG16 weights here)."""
+    import warnings
+    from sic_tpu_torch.config import flagship_spec, qp_strategy
+    from sic_tpu_torch.train import create_train_state
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, state, steps = create_train_state(flagship_spec(), qp_strategy(0, 256), SEED,
+                                             device=device, data=data, pp=pp)
+    return state, steps
+
+
+def _mp_stages(state):
+    """Yield "feat", then "pix" with ``state`` back at its initial trainable
+    parameters, generator and optimizer: each step as from a fresh state
+    (a feat step leaves the discriminator as it was)."""
+    import torch
+    snap = [p.detach().to("cpu", copy=True) for _, p in state.trainable]
+    gen = state.generator.get_state()
+    yield "feat"
+    with torch.no_grad():
+        for (_, p), s in zip(state.trainable, snap):
+            p.copy_(s)
+    state.generator.set_state(gen)
+    state.opt_ae.state.clear()
+    state.global_step = 0
+    yield "pix"
+    with torch.no_grad():
+        for (_, p), s in zip(state.trainable, snap):
+            p.copy_(s)
+    state.generator.set_state(gen)
+    state.opt_ae.state.clear()
+    state.global_step = 0
+
+
+def _mp_reset_disc(state):
+    """The discriminator back at its seeded weights and statistics, its
+    optimizer fresh."""
+    import torch
+    state.disc.init_weights(torch.Generator(state.device).manual_seed(SEED + 1))
+    for n, b in state.disc.named_buffers():
+        b.fill_(1.0 if n.endswith("var") else 0.0)
+    state.disc.zero_grad(set_to_none=True)
+    state.opt_disc.state.clear()
+
+
+@contextlib.contextmanager
+def _per_rank_shapes(modules, parts):
+    """Run every Linear and convolution of ``modules`` (and the pix step's
+    re-applied last convolution) on ``parts`` equal chunks of its input's
+    leading (batch) dim in turn, concatenated: a data-parallel rank's
+    shapes, under which cuBLAS and cuDNN pick the kernels the ranks pick.
+    The same function; ``parts`` 1 changes nothing."""
+    import torch
+    from torch import nn
+    from sic_tpu_torch.train import steps as steps_mod
+    if parts == 1:
+        yield
+        return
+    patched = []
+    for root in modules:
+        for m in root.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                m.forward = functools.partial(_chunked, m.forward, parts)
+                patched.append(m)
+    last = steps_mod._last_conv_apply
+    steps_mod._last_conv_apply = lambda h, w, b: torch.cat(
+        [last(c, w, b) for c in h.chunk(parts)])
+    try:
+        yield
+    finally:
+        for m in patched:
+            del m.forward
+        steps_mod._last_conv_apply = last
+
+
+def _chunked(forward, parts, x, *args, **kwargs):
+    import torch
+    return torch.cat([forward(c, *args, **kwargs) for c in x.chunk(parts)])
+
+
+def _mp_grads(state, keep="cpu"):
+    """Copies on ``keep``: the trainable leaves' gradients by JAX key, the
+    discriminator's by name, and its batch statistics."""
+    import torch
+
+    def host(t):
+        return t.detach().to(keep, torch.float32, copy=True)
+    out = {"/".join(path): host(p.grad) for path, p in state.trainable}
+    out.update({"disc." + n: host(p.grad)
+                for n, p in state.disc.named_parameters() if p.grad is not None})
+    out.update({"stats." + n: host(b) for n, b in state.disc.named_buffers()})
+    return out
+
+
+def _mp_run_steps(state, steps, x, shapes=1, keep="cpu"):
+    """A feat step, then a pix step from the same initial state: each
+    one's time, logs and gradients (copies on ``keep``); ``shapes`` 2 runs
+    every Linear and convolution on a data-parallel rank's shapes."""
+    import torch
+    out = {}
+    for stage in _mp_stages(state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _per_rank_shapes((state.model, state.disc, state.lpips), shapes):
+            logs = getattr(steps, f"{stage}_step")(state, x)
+        torch.cuda.synchronize()
+        out[stage] = {"step_ms": (time.perf_counter() - t) * 1e3,
+                      "logs": {k: float(v) for k, v in logs.items()},
+                      "grads": _mp_grads(state, keep)}
+    return out
+
+
+def _mp_errors(got, ref, stage, device):
+    """One step's logs and gradients against a reference step's (on
+    ``device``): the largest loss error (relative), leaf error (past the
+    floor of 1e-6 of the whole gradient's norm, relative to the leaf's
+    norm) and statistics error (relative to the largest), and whether they
+    lie within PERF.md §2's card-vs-CPU training bounds."""
+    import torch
+    loss = max(abs(got["logs"][k] - v) / abs(v) for k, v in ref["logs"].items()
+               if abs(v) > 1e-6)
+    norm = float(torch.sqrt(sum(g.double().square().sum()
+                                for k, g in ref["grads"].items()
+                                if not k.startswith("stats."))))
+    leaf, stats, worst = 0.0, 0.0, None
+    for k, g in got["grads"].items():
+        a = g.to(device, torch.float64)
+        want = ref["grads"][k].to(device, torch.float64)
+        if k.startswith("stats."):
+            stats = max(stats, float((a - want).abs().max()
+                                     / want.abs().max().clamp_min(1e-30)))
+            continue
+        err = (float((a - want).norm()) - 1e-6 * norm) / max(float(want.norm()), 1e-30)
+        if err > leaf:
+            leaf, worst = err, k
+    loss_tol, grad_tol = ((TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) if stage == "feat"
+                          else (PIX_LOSS_TOL, PIX_GRAD_TOL))
+    return {"max_loss_rel_err": loss, "max_leaf_grad_rel_err": leaf, "worst_leaf": worst,
+            "stats_rel_err": stats, "leaves": len(got["grads"]),
+            "ok": loss <= loss_tol and leaf <= grad_tol and stats <= loss_tol}
+
+
+def _mp_rank_steps(device, x, data=None, pp=None):
+    """This rank's feat and pix steps (``data``: its rows of the global
+    batch; ``pp``: its pipeline stage), each from a fresh state.  Returns
+    (record, results): the results, on rank 0 only, hold the whole
+    model's gradients (a pipeline's stage 1 sends its cells' to rank 0,
+    and the norms of its other leaves, which must equal stage 0's)."""
+    import gc
+    import torch
+    from sic_tpu_torch.models.hybrid import is_cell_leaf
+    from sic_tpu_torch.parallel import gather_to_first
+    from sic_tpu_torch.train import steps as steps_mod
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, steps = _mp_state(device, data, pp)
+    rec = {"init_s": round(time.perf_counter() - t0, 3)}
+    # the steps' gradient all-reduces, timed on the host's clock
+    reduce, spent = steps_mod.reduce_grads, []
+
+    def timed_reduce(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduce(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+
+    steps_mod.reduce_grads = timed_reduce
+    try:
+        res = _mp_run_steps(state, steps, torch.as_tensor(x, device=device))
+    finally:
+        steps_mod.reduce_grads = reduce
+    rec.update({f"{stage}_step_ms": r["step_ms"] for stage, r in res.items()})
+    # feat: one all-reduce (the codec's); pix: the codec's, then the
+    # discriminator's
+    rec["allreduce_s"] = spent
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rank = data.index if data is not None else pp.stage
+    if pp is not None:
+        for stage, r in res.items():
+            mine = {k: g for k, g in r["grads"].items() if is_cell_leaf(k)}
+            rest = {k: float(g.double().norm()) for k, g in r["grads"].items()
+                    if not is_cell_leaf(k)}
+            parts = gather_to_first((mine, rest), pp.group)
+            if parts is not None:
+                r["grads"].update(parts[1][0])
+                other = parts[1][1]
+                rec[f"{stage}_replicated_norm_rel_diff"] = max(
+                    abs(other[k] - v) / max(v, 1e-30) for k, v in rest.items())
+    del state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, (res if rank == 0 else None)
+
+
+def _mp_references(device, x):
+    """Rank 0's one-process references of the global batch: the steps as
+    they run ("global"), and with every Linear and convolution on the two
+    ranks' halves of its batch in turn ("split": cuBLAS and cuDNN pick
+    other kernels at another batch size, and their sums differ)."""
+    import gc
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = _mp_state(device)
+    xt = torch.as_tensor(x, device=device)
+    refs = {}
+    for name, shapes in (("global", 1), ("split", 2)):
+        refs[name] = _mp_run_steps(state, steps, xt, shapes, keep=device)
+        _mp_reset_disc(state)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs, peak
+
+
+def _mp_judge(dp, pp, refs, device):
+    """Every comparison of the ranks' steps with the references.  Data
+    parallelism is judged against "split", whose layers run the ranks'
+    shapes, within PERF.md §2's bounds, and against "global" within the
+    larger of those bounds and 1.5x "split"'s own gap to "global" (the
+    card's spread between the two shapes); the pipeline against "global"
+    (its replicated layers run the whole batch, its trunk cells
+    microbatches).  The references'
+    gradients are on the card; the ranks' are moved there."""
+    for res in (dp, pp):
+        for r in res.values():
+            r["grads"] = {k: g.to(device) for k, g in r["grads"].items()}
+    rec = {}
+    for stage in ("feat", "pix"):
+        for who, res in (("dp", dp), ("pp", pp)):
+            for ref in ("global", "split"):
+                rec[f"{who}_vs_{ref}_{stage}"] = _mp_errors(res[stage], refs[ref][stage],
+                                                            stage, device)
+        rec[f"split_vs_global_{stage}"] = _mp_errors(refs["split"][stage],
+                                                     refs["global"][stage], stage, device)
+        # data parallelism against the step as it runs: no farther than
+        # the bounds or 1.5x the split's own gap, whichever is larger
+        gap, got = rec[f"split_vs_global_{stage}"], rec[f"dp_vs_global_{stage}"]
+        loss_tol, grad_tol = ((TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) if stage == "feat"
+                              else (PIX_LOSS_TOL, PIX_GRAD_TOL))
+        limits = {"max_loss_rel_err": max(loss_tol, 1.5 * gap["max_loss_rel_err"]),
+                  "max_leaf_grad_rel_err": max(grad_tol,
+                                               1.5 * gap["max_leaf_grad_rel_err"]),
+                  "stats_rel_err": max(loss_tol, 1.5 * gap["stats_rel_err"])}
+        rec[f"dp_vs_global_{stage}_limits"] = limits
+        rec[f"dp_vs_global_{stage}_ok"] = all(got[k] <= v for k, v in limits.items())
+    rec["dp_ok"] = all(rec[f"dp_vs_split_{s}"]["ok"] and rec[f"dp_vs_global_{s}_ok"]
+                       for s in ("feat", "pix"))
+    rec["pp_ok"] = all(rec[f"pp_vs_global_{s}"]["ok"] for s in ("feat", "pix"))
+    return rec
+
+
+def _rank_pp_cli(rank):
+    """The train CLI with --pp 2 --pp_microbatch 2 at 256 px over val0 and
+    val1: the qp 0 preset cut to one epoch of feat, then one of pix."""
+    import dataclasses
+    import torch
+    from sic_tpu_torch import config
+    from sic_tpu_torch.cli.train import main as train_main
+    from sic_tpu_torch.train.trainer import Trainer
+    base = config.qp_strategy(0, 256)
+    cut = dataclasses.replace(base, stages=tuple(
+        dataclasses.replace(st, epoch_num=n) for st, n in zip(base.stages, (0, 1, 1))))
+    config.qp_strategy = lambda qp=0, train_px=256: cut
+    ckpt = TRAIN_WORK / "pp_ck"
+    # the digest of every global batch the trainer takes: one sequence on
+    # both stages (the last stage's loss reads its own x)
+    seen, take = [], Trainer._batch
+
+    def recording(self, batch):
+        import hashlib
+        import numpy as np
+        seen.append(hashlib.sha256(np.ascontiguousarray(batch, np.float32)).hexdigest())
+        return take(self, batch)
+
+    Trainer._batch = recording
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_main(["--qp", "0", "--train_px", "256", "--epochs", "2",
+                      "--batch_size", "2", "--train_dir", str(MP_WORK / "pp_train"),
+                      "--ckpt_dir", str(ckpt), "--pp", "2", "--pp_microbatch", "2"])
+    Trainer._batch = take
+    rec = {"train_s": round(time.perf_counter() - t0, 3), "result": out,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "batches": seen}
+    if rank == 0:
+        rec["files"] = sorted(p.name for p in ckpt.iterdir())
+    rec["ok"] = out["global_step"] == 2 and out["pp"] == 2 and (
+        rank != 0 or {"last", "deploy_params.npz", "feat_epo_for_strategy_0"}
+        <= set(rec["files"]))
+    return rec
+
+
+def _rank_train(args):
+    import gc
+    import os
+    import torch
+    from sic_tpu_torch.models.hybrid import PPConfig
+    from sic_tpu_torch.parallel import (barrier, grid_groups, rank_device,
+                                        setup_distributed, take_rows)
+    rank, world = setup_distributed(device=rank_device(int(os.environ["RANK"])))
+    device = rank_device(rank)
+    x = _mp_batch()
+    data, _ = grid_groups(1)
+    rec = {"rank": rank}
+    rec["dp"], dp = _mp_rank_steps(device, take_rows(x, data), data=data)
+    _, pipe = grid_groups(world)
+    rec["pp"], pp = _mp_rank_steps(device, x, pp=PPConfig(pipe, 2))
+    barrier("ranks_done")
+    steps_launches = _rank_launches()
+    if rank == 0:          # the one-process references, rank 1 idle
+        refs, rec["reference_peak_gb"] = _mp_references(device, x)
+        rec["reference_step_ms"] = {f"{name}_{stage}": r[stage]["step_ms"]
+                                    for name, r in refs.items() for stage in r}
+        rec["compare"] = cmp = _mp_judge(dp, pp, refs, device)
+        # the pipeline's replicated leaves: the same on both stages
+        rec["dp"]["ok"], rec["pp"]["ok"] = cmp["dp_ok"], cmp["pp_ok"] and all(
+            rec["pp"][f"{s}_replicated_norm_rel_diff"] <= TRAIN_GRAD_TOL
+            for s in ("feat", "pix"))
+        del refs
+    del dp, pp
+    gc.collect()
+    torch.cuda.empty_cache()
+    barrier("references_done")
+    rec["reference_counts"] = _rank_launches()["counts"]    # not the path's
+    rec["cli"] = _rank_pp_cli(rank)
+    rec.update(_rank_launches(steps_launches))
+    return rec
+
+
+def _rank_compress(args):
+    import torch
+    from sic_tpu_torch.cli.compress import main as compress_main
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = compress_main(args)
+    return {"result": out, "seconds": round(time.perf_counter() - t0, 3),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30, **_rank_launches()}
+
+
+def _rank_launches(before=None):
+    """The launch counts since the last reset (``counts``, ``bf16_counts``,
+    ``head_dim_counts``), added to ``before``'s; the counters reset."""
+    from sic_tpu_torch import ops
+    now = {"counts": ops.launch_counts(), "bf16_counts": ops.bf16_launch_counts(),
+           "head_dim_counts": {str(k): v
+                               for k, v in ops.head_dim_launch_counts().items()}}
+    ops.reset_launch_counts()
+    for view, part in (before or {}).items():
+        for k, n in part.items():
+            now[view][k] = now[view].get(k, 0) + n
+    return now
+
+
+def rank_main(argv) -> int:
+    """``chip_smoke.py --rank-task <compress|train> <record.json> [args]``:
+    one rank of the multiprocess phase (WORLD_SIZE, RANK, MASTER_ADDR and
+    MASTER_PORT in the environment); writes its record and the launch
+    counts of its multi-process runs (not of rank 0's one-process
+    references)."""
+    from sic_tpu_torch import ops
+    from sic_tpu_torch.models import configure_numerics
+    configure_numerics()
+    task, out, args = argv[0], Path(argv[1]), argv[2:]
+    ops.reset_launch_counts()
+    rec = {"compress": _rank_compress, "train": _rank_train}[task](args)
+    out.write_text(json.dumps(rec, default=float))
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "sic_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3603,6 +4148,8 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs only on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--rank-task"]:
+        return rank_main(sys.argv[2:])
     from sic_tpu_torch.models import configure_numerics
     configure_numerics()
     WORK.mkdir(parents=True, exist_ok=True)
@@ -3626,6 +4173,8 @@ def main() -> int:
     smoke.phase("generate", smoke.generate)
     if not {"encode", "flagship"} & set(smoke.failed):
         smoke.phase("cpu", smoke.cpu_compare)
+    if "encode" not in smoke.failed:
+        smoke.phase("multiprocess", smoke.multiprocess)
     if getattr(smoke, "rt", None) is not None:
         smoke.rt.close()
     shutil.rmtree(TRAIN_WORK, ignore_errors=True)

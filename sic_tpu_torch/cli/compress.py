@@ -5,12 +5,25 @@
         [--base_config CONFIG.yaml | --spec flagship|small|tiny]
         [--device cuda | --gpu_idx N] [--dtype auto|float32|bfloat16]
         [--quant none|int8] [--batch_size 8] [--stream_part 4] [--bpe_path merges.txt.gz]
+        [--world_size N --rank R --coordinator HOST:PORT]
 
 Same output layout as the reference's compress script (reference:
 src/compress.py:203-333): per image pad to 256 (replicate),
 ``encode_only_batched`` per padded-shape bucket, CLIP embed + u8/zstd pack,
 ``pack_c2df`` into ``OUT/bitstreams``, raw clip vecs into ``OUT/clip_vecs``
 and a flat-IP index in both FAISS layouts into ``OUT/faiss``.
+
+Across processes (``--world_size``, ``--rank``, ``--coordinator``, by
+default ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR:MASTER_PORT``; the
+reference's torchrun variables) each rank encodes its share into the
+shared ``OUT``, and after a barrier rank 0 builds the index from every
+rank's files.  The share is a set of whole device batches: every rank
+plans the one-process run's batches (padded-shape buckets, in image
+order) and takes every ``world``-th, so each batch, and each stream's
+bytes, is what one process would make (a batched network pass rounds
+differently at another batch size or membership).  The JAX CLI splits by
+image instead (``shard_list``), which its batch-invariant device passes
+allow.
 """
 from __future__ import annotations
 
@@ -23,7 +36,7 @@ import numpy as np
 import torch
 
 from ..container import pack_c2df
-from ..data import list_images, load_image, shard_list
+from ..data import list_images, load_image
 from ..models import get_padding_size, pad_replicate
 from ..retrieval import VectorIndex
 from ._common import (add_device_args, add_dtype_arg, add_quant_arg, cli_config,
@@ -75,59 +88,65 @@ def build_index_from_saved(save_dir, model_id: str = "") -> int:
     return count
 
 
+def plan_batches(paths, tile_px: int = 256, batch_size: int = 8):
+    """The device batches of a run over ``paths``, in the order it encodes
+    them: images join the bucket of their padded shape in path order; a
+    full bucket is a batch; the partial buckets follow, in the order they
+    were opened.  Reads image sizes only."""
+    from PIL import Image
+    buckets, batches = {}, []
+    for path in paths:
+        with Image.open(path) as im:
+            W, H = im.size
+        _, r, _, b = get_padding_size(H, W, tile_px)
+        shape = (H + b, W + r)
+        buckets.setdefault(shape, []).append(path)
+        if len(buckets[shape]) >= batch_size:
+            batches.append(buckets.pop(shape))
+    return batches + list(buckets.values())
+
+
 def compress_dir(rt, clip_codec, dataset_dir, save_dir, tile_px: int = 256,
-                 batch_size: int = 8, shard=(0, 1)):
+                 batch_size: int = 8, shard=(0, 1), build_index: bool = True):
     """Encode every image of ``dataset_dir``: images are bucketed by padded
     shape and encoded in device batches of up to ``batch_size`` (one pass,
     per-image bitstreams).  ``shard=(rank, world)`` takes every
-    ``world``-th image from ``rank``.  Returns the number of images."""
+    ``world``-th batch of :func:`plan_batches`, from ``rank``; pass
+    ``build_index=False`` across processes and let rank 0 call
+    :func:`build_index_from_saved` after a barrier.  Returns the number of
+    images this call encoded."""
     save_dir = Path(save_dir)
     bit_dir = save_dir / "bitstreams"
     clip_dir = save_dir / "clip_vecs"
     for d in (bit_dir, clip_dir, save_dir / "faiss"):
         d.mkdir(parents=True, exist_ok=True)
-    paths = shard_list(list_images(dataset_dir), *shard)
+    rank, world = shard
+    batches = plan_batches(list_images(dataset_dir), tile_px,
+                           batch_size)[rank::world]
     count = 0
-    buckets = {}
-
-    def flush(shape):
-        nonlocal count
-        batch = buckets.pop(shape, [])
-        if not batch:
-            return
-        enc_results = rt.encode_only_batched(torch.cat([b[2] for b in batch]))
-        for (path, img, _), enc_result in zip(batch, enc_results):
-            H, W = img.shape[:2]
-            pads = get_padding_size(H, W, tile_px)
+    for batch in progress(batches, desc="compress"):
+        imgs = [load_image(path) for path in batch]   # (H, W, 3) in [-1, 1]
+        pads = [get_padding_size(img.shape[0], img.shape[1], tile_px)
+                for img in imgs]
+        x = torch.cat([pad_replicate(torch.from_numpy(img)[None], p)
+                       for img, p in zip(imgs, pads)])
+        enc_results = rt.encode_only_batched(x)
+        for path, img, p, enc_result in zip(batch, imgs, pads, enc_results):
             clip_vec = clip_codec.image_to_unit_vec(img)
             clip_stream, clip_meta = clip_codec.quantize_u8_and_compress(clip_vec)
             enc_result["clip_stream"] = clip_stream
             enc_result["clip_meta"] = clip_meta
-            header = c2df_header(rt, clip_meta, (H, W), pads)
+            header = c2df_header(rt, clip_meta, img.shape[:2], p)
             (bit_dir / f"{path.stem}.c2df").write_bytes(pack_c2df(enc_result, header))
             np.save(clip_dir / f"{path.stem}.npy", clip_vec)
             count += 1
-
-    for path in progress(paths, desc="compress"):
-        img = load_image(path)                       # (H, W, 3) in [-1, 1]
-        pads = get_padding_size(img.shape[0], img.shape[1], tile_px)
-        x = pad_replicate(torch.from_numpy(img)[None], pads)
-        shape = tuple(x.shape[1:3])
-        buckets.setdefault(shape, []).append((path, img, x))
-        if len(buckets[shape]) >= batch_size:
-            flush(shape)
-    for shape in list(buckets):
-        flush(shape)
-    build_index_from_saved(save_dir, model_id=clip_codec.model_id)
+    if build_index:
+        build_index_from_saved(save_dir, model_id=clip_codec.model_id)
     return count
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(
-        description="sic_tpu_torch compress",
-        epilog="Not offered yet: the multi-process flags (--world_size, "
-               "--rank, --coordinator; ROADMAP queue 1 item 10): this runs "
-               "one process on one device.")
+    parser = argparse.ArgumentParser(description="sic_tpu_torch compress")
     parser.add_argument("--dataset_dir", required=True,
                         help="directory of images (searched recursively)")
     parser.add_argument("--save_dir", required=True)
@@ -149,24 +168,47 @@ def main(argv=None):
     add_device_args(parser)
     add_dtype_arg(parser)
     add_quant_arg(parser)
+    parser.add_argument("--world_size", type=int, default=None,
+                        help="number of processes (default: WORLD_SIZE env)")
+    parser.add_argument("--rank", type=int, default=None,
+                        help="this process's rank (default: RANK env)")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0 "
+                             "(default: MASTER_ADDR:MASTER_PORT env)")
     args = parser.parse_args(argv)
 
+    from ..parallel import barrier, rank_device, setup_distributed, shutdown
+    from ..parallel.multihost import resolve_world
     init_func()
     t0 = time.time()
     spec = cli_config(parser, args).spec
+    rank, world, _ = resolve_world(args.rank, args.world_size, args.coordinator)
     device = cli_device(args)
+    if world > 1:
+        explicit = device is not None
+        device = rank_device(rank, device)
+        rank, world = setup_distributed(rank, world, args.coordinator, device,
+                                        placed=not explicit)
     rt = load_runtime(args.ckpt_path, spec, device=device,
                       stream_part=args.stream_part, dtype=args.dtype,
                       quant=args.quant)
     try:
         clip_codec = load_clip_codec(args.clip_ckpt, args.bpe_path, device)
         n = compress_dir(rt, clip_codec, args.dataset_dir, args.save_dir,
-                         tile_px=spec.tile_px, batch_size=args.batch_size)
+                         tile_px=spec.tile_px, batch_size=args.batch_size,
+                         shard=(rank, world), build_index=(world == 1))
     finally:
         rt.close()
-    print(f"[OK] compressed {n} images in {time.time() - t0:.1f}s "
-          f"-> {args.save_dir}", file=sys.stderr)
-    return {"images": n, "encode_path_counts": dict(rt.encode_path_counts)}
+    if world > 1:
+        barrier("compress_done")        # every rank's files on disk
+        if rank == 0:
+            build_index_from_saved(args.save_dir, model_id=clip_codec.model_id)
+        barrier("index_done")           # no rank leaves before the merge
+        shutdown()
+    print(f"[OK] rank {rank}/{world} compressed {n} images in "
+          f"{time.time() - t0:.1f}s -> {args.save_dir}", file=sys.stderr)
+    return {"images": n, "rank": rank, "world": world,
+            "encode_path_counts": dict(rt.encode_path_counts)}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""train CLI: the three-stage schedule on one device.
+"""train CLI: the three-stage schedule, in one process or several.
 
     python -m sic_tpu_torch.cli.train --train_dir IMGS [--val_dir IMGS]
         [--base_config CONFIG.yaml | --qp 0..3 [--tiny]]
@@ -7,6 +7,19 @@
         [--perceptual lpips|msssim|none] [--lpips_lin vgg.pth]
         [--lpips_vgg vgg16.pth] [--tiny] [--insert_pos ...] [--seed 0]
         [--device cuda] [--log_dir LOGS] [--f32_frozen] [--no_donate]
+        [--world_size N --rank R --coordinator HOST:PORT]
+        [--pp P [--pp_microbatch M]]
+
+Across processes (``--world_size``, ``--rank``, ``--coordinator``, by
+default ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR:MASTER_PORT``) the
+processes form a (world/pp, pp) grid: data parallelism over the first axis
+(each rank takes its contiguous block of every batch; batch means and
+statistics are the global batch's), GPipe over the second (``--pp``: the
+hybrid trunks' cells split into pipeline stages, ``--pp_microbatch``
+microbatches, one a stage by default; a partial final batch is dropped).
+Only rank 0 logs and writes files.  Each rank runs on
+``cuda:(LOCAL_RANK or rank) % device_count`` unless ``--device`` names
+one; ranks sharing a card talk over gloo, one card a rank over NCCL.
 
 Drives ``feat_wo_bpp`` -> ``feat`` -> ``pix`` from a reference-layout YAML
 (its spec, training strategy, loss configs, ``tune_titok`` and
@@ -16,7 +29,10 @@ validation-bpp lambda controller, writes
 ``torch.save`` checkpoints into ``--ckpt_dir`` at every stage change and at
 the end (``last``), and finally ``deploy_params.npz``: the codec's
 parameters in the flat ``params/...`` layout (f32) that the compress and
-decompress CLIs read with ``--ckpt_path``.
+decompress CLIs read with ``--ckpt_path`` (under ``--pp`` gathered from
+the stages, in the same named layout; not written by a run that is only
+data-parallel across processes, as the JAX CLI writes it from every run
+but a multi-host data-parallel one).
 
 On CUDA it trains as the JAX CLI trains on an accelerator: Adam's first
 moments and the frozen backbones stored in bf16 (``--f32_frozen`` keeps
@@ -34,9 +50,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_NOT_YET = ("Not offered yet (ROADMAP queue 1 item 10): --world_size/--rank/"
-            "--coordinator, --tp/--tile/--fsdp/--pp: this trains in one "
-            "process on one device.")
+_NOT_YET = ("Not offered yet (ROADMAP queue 1 item 10b, the next slice): "
+            "--tp/--tile/--fsdp, the JAX package's GSPMD shardings.")
 
 
 def accelerator_dtypes(device, f32_frozen: bool = False):
@@ -91,14 +106,39 @@ def main(argv=None):
     ap.add_argument("--f32_frozen", action="store_true",
                     help="keep the frozen backbones in f32 (default bf16 "
                          "on CUDA)")
+    ap.add_argument("--world_size", type=int, default=None,
+                    help="processes (default: WORLD_SIZE env)")
+    ap.add_argument("--rank", type=int, default=None,
+                    help="this process's rank (default: RANK env)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 "
+                         "(default: MASTER_ADDR:MASTER_PORT env)")
+    for flag in ("--tp", "--tile"):
+        ap.add_argument(flag, type=int, default=1,
+                        help="refused: not offered yet (see the epilogue)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="refused: not offered yet (see the epilogue)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages: the hybrid trunks' cells split "
+                         "over --pp processes (GPipe); the rest of the "
+                         "processes carry data parallelism")
+    ap.add_argument("--pp_microbatch", type=int, default=None,
+                    help="pipeline microbatches (default: pp stages)")
     args = ap.parse_args(argv)
+    if args.pp > 1 and (args.tp > 1 or args.tile > 1):
+        ap.error("--pp composes with data parallelism; not with --tp/--tile")
+    if args.tp > 1 or args.tile > 1 or args.fsdp:
+        ap.error(_NOT_YET)
 
     from ..config import flagship_spec, load_config, qp_strategy, tiny_spec
     from ..data import ImageDataset
+    from ..models.hybrid import PPConfig, cell_partition
+    from ..parallel import (barrier, codec_params_canonicalize, grid_groups,
+                            rank_device, setup_distributed, shutdown)
+    from ..parallel.multihost import resolve_world
     from ..train import (FeatLossCfg, ImgLossCfg, Trainer, create_train_state,
                          load_checkpoint)
-    from ..train.trainer import reset_schedule
-    from ..weights import export_flax_params, load_npz
+    from ..train.trainer import gathered_flax_params, reset_schedule
 
     if args.base_config:
         if args.tiny or args.qp is not None:
@@ -118,6 +158,44 @@ def main(argv=None):
                                    insert_pos_dec=tuple(args.insert_pos))
     if args.perceptual is not None:
         img_cfg = dataclasses.replace(img_cfg, perceptual=args.perceptual)
+
+    # the process grid: (world/pp data) x (pp pipe), checked before any
+    # rank waits for the others
+    rank, world, _ = resolve_world(args.rank, args.world_size, args.coordinator)
+    data_ways = world
+    if args.pp > 1:
+        # both trunks must partition: a YAML may set in_pos_dec apart from
+        # in_pos_enc
+        n_cells = None
+        for side, ipos in (("encoder", spec.insert_pos_enc),
+                           ("decoder", spec.insert_pos_dec)):
+            n = spec.titok.num_layers // cell_partition(spec.titok.num_layers,
+                                                        ipos)
+            if n % args.pp:
+                ap.error(f"{side} trunk has {n} pipeline cells; --pp must "
+                         f"divide it (got {args.pp})")
+            n_cells = n if side == "encoder" else n_cells
+        if world % args.pp:
+            ap.error(f"{world} processes not divisible by pp={args.pp}")
+        data_ways = world // args.pp
+        mb = args.pp_microbatch or args.pp
+        per_mb = args.batch_size // mb if args.batch_size % mb == 0 else 0
+        if not per_mb or per_mb % data_ways:
+            ap.error(f"--batch_size {args.batch_size} must be a multiple of "
+                     f"microbatches*data = {mb}*{data_ways} "
+                     "(each microbatch shards over the data axis)")
+    elif world > 1 and args.batch_size % world:
+        ap.error(f"--batch_size {args.batch_size} must divide by "
+                 f"world_size {world}")
+    device = args.device if world == 1 else rank_device(rank, args.device)
+    rank, world = setup_distributed(rank, world, args.coordinator, device,
+                                    placed=args.device is None)
+    data, pipe = grid_groups(args.pp)
+    pp_cfg = None
+    if args.pp > 1:
+        pp_cfg = PPConfig(pipe, args.pp_microbatch)
+        print(f"[train] pipeline parallel: {args.pp} stages x "
+              f"{data_ways} data, {n_cells} cells", file=sys.stderr)
     print(f"[train] perceptual mode: {img_cfg.perceptual}"
           + ("" if img_cfg.perceptual != "lpips" or args.lpips_vgg
              else " (UNCALIBRATED: no --lpips_vgg)"), file=sys.stderr)
@@ -134,19 +212,21 @@ def main(argv=None):
     elif args.val_dir:
         val_ds = ImageDataset.from_dir(args.val_dir, args.train_px, False)
 
-    mu_dtype, frozen_dtype = accelerator_dtypes(args.device, args.f32_frozen)
+    mu_dtype, frozen_dtype = accelerator_dtypes(device, args.f32_frozen)
+    warm = None
+    if args.resume and str(args.resume).endswith(".npz"):
+        # params-only warm start: optimizer and schedule start fresh; a
+        # stacked trunk_cells npz (a JAX --pp run's) is converted first
+        with np.load(args.resume) as z:
+            warm = codec_params_canonicalize({k: z[k] for k in z.files}, spec)
     model, state, steps = create_train_state(
         spec, strategy, args.seed, feat_cfg=feat_cfg, img_cfg=img_cfg,
-        device=args.device, lpips_lin=args.lpips_lin, lpips_vgg=args.lpips_vgg,
-        tune_titok=tune_titok, mu_dtype=mu_dtype, frozen_dtype=frozen_dtype,
-        donate=not args.no_donate)
+        codec_params=warm, device=device, lpips_lin=args.lpips_lin,
+        lpips_vgg=args.lpips_vgg, tune_titok=tune_titok, mu_dtype=mu_dtype,
+        frozen_dtype=frozen_dtype, donate=not args.no_donate, data=data,
+        pp=pp_cfg)
     if args.resume:
-        if str(args.resume).endswith(".npz"):
-            # params-only warm start: optimizer and schedule start fresh
-            stray = load_npz(model, args.resume)
-            if stray:
-                raise ValueError(f"{len(stray)} leaves of {args.resume} fit "
-                                 "no parameter")
+        if warm is not None:
             print(f"[train] params-only warm start from {args.resume}",
                   file=sys.stderr)
         else:
@@ -155,7 +235,7 @@ def main(argv=None):
             reset_schedule(state, strategy)
 
     writer = None
-    if args.log_dir:
+    if args.log_dir and rank == 0:
         from ..utils.tb_writer import MetricsWriter
         writer = MetricsWriter(args.log_dir)
         tb_log = writer.as_log_fn()
@@ -166,25 +246,47 @@ def main(argv=None):
         if writer is not None:
             tb_log(d)
 
+    # the logs are global means on every rank; rank 0 alone prints them
     trainer = Trainer(model, state, steps, strategy, ckpt_dir=args.ckpt_dir,
-                      log_fn=log_fn)
+                      log_fn=log_fn if rank == 0 else (lambda d: None))
+
+    # a pipeline splits every batch into equal microbatches: a partial final
+    # batch is dropped, as GPipe schedulers drop it
+    def full(batches):
+        return (b for b in batches
+                if pp_cfg is None or len(b) == args.batch_size)
 
     def train_data():
-        return train_ds.batches(args.batch_size, epoch=state.epoch_for_strategy)
+        return full(train_ds.batches(args.batch_size,
+                                     epoch=state.epoch_for_strategy))
 
     def val_data():
-        return val_ds.batches(args.batch_size, shuffle=False)
+        return full(val_ds.batches(args.batch_size, shuffle=False))
 
     try:
         trainer.fit(train_data, val_data if val_ds else None, epochs=args.epochs)
     finally:
         if writer is not None:
             writer.close()
-    deploy = Path(args.ckpt_dir) / "deploy_params.npz"
-    np.savez(deploy, **export_flax_params(model))
-    print(f"[train] deployment params -> {deploy}", file=sys.stderr)
-    print(f"[OK] training done; checkpoints in {args.ckpt_dir}", file=sys.stderr)
-    return {"ckpt_dir": str(args.ckpt_dir), "deploy_params": str(deploy),
+    deploy = None
+    if world == 1 or args.pp > 1:
+        # as the JAX CLI: from every run but a multi-host data-parallel one
+        # (its --pp runs are one process); the named layout the deploy CLIs
+        # load, gathered from the first pipeline's stages
+        flat = gathered_flax_params(state) if data is None or data.index == 0 else None
+        if rank == 0:
+            deploy = Path(args.ckpt_dir) / "deploy_params.npz"
+            np.savez(deploy, **flat)
+            print(f"[train] deployment params -> {deploy}", file=sys.stderr)
+    # align the ranks before exit: rank 0's trailing writes must land first
+    barrier("end_of_training")
+    shutdown()
+    if rank == 0:
+        print(f"[OK] training done; checkpoints in {args.ckpt_dir}",
+              file=sys.stderr)
+    return {"ckpt_dir": str(args.ckpt_dir),
+            "deploy_params": None if deploy is None else str(deploy),
+            "rank": rank, "world": world, "pp": args.pp,
             "global_step": state.global_step,
             "epoch_for_strategy": state.epoch_for_strategy,
             "mu_dtype": str(mu_dtype), "frozen_dtype": str(frozen_dtype),

@@ -16,6 +16,8 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".webp", ".bmp")
+# the epoch shuffle's seed stream, apart from the crops' (seed, index)
+_EPOCH_STREAM = 0x65706F63
 
 
 def list_images(root, exts: Sequence[str] = IMG_EXTS) -> List[Path]:
@@ -98,16 +100,17 @@ class ImageDataset:
     def batches(self, batch_size: int, shuffle: Optional[bool] = None,
                 epoch: int = 0, drop_last: Optional[bool] = None
                 ) -> Iterator[np.ndarray]:
-        """Yield (B, size, size, 3) float32 batches.  The epoch shuffle is
-        the JAX package's expression; its tuple holds a string, whose hash
-        changes from process to process, so orders are not compared."""
+        """Yield (B, size, size, 3) float32 batches.  The epoch's order is
+        a function of (seed, epoch) alone, the same in every process: the
+        ranks of a multi-process run walk one batch sequence and take their
+        rows of each batch.  (The JAX package seeds it with the hash of a
+        tuple that holds a string, which Python salts per process.)"""
         n = len(self.paths)
         order = np.arange(n)
         shuffle = self.train if shuffle is None else shuffle
         drop_last = self.train if drop_last is None else drop_last
         if shuffle:
-            np.random.default_rng((self.seed, "epoch", epoch).__hash__()
-                                  & 0x7FFFFFFF).shuffle(order)
+            np.random.default_rng((self.seed, _EPOCH_STREAM, epoch)).shuffle(order)
         for s in range(0, n, batch_size):
             idx = order[s:s + batch_size]
             if drop_last and len(idx) < batch_size:

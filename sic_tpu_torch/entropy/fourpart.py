@@ -29,9 +29,15 @@ def add_uniform_noise(x: torch.Tensor, generator: Optional[torch.Generator] = No
     """``x`` plus U(-level, level) noise, drawn from ``generator`` or given
     as ``noise`` (so a test can feed another framework's draw)."""
     if noise is None:
-        noise = (torch.rand(x.shape, generator=generator, device=x.device,
-                            dtype=x.dtype) * 2.0 - 1.0) * level
+        noise = uniform_noise(x.shape, generator, x.device, x.dtype, level)
     return x + noise
+
+
+def uniform_noise(shape, generator: Optional[torch.Generator], device,
+                  dtype=torch.float32, level: float = 0.5) -> torch.Tensor:
+    """The U(-level, level) draw of :func:`add_uniform_noise`."""
+    return (torch.rand(shape, generator=generator, device=device,
+                       dtype=dtype) * 2.0 - 1.0) * level
 
 
 def checkerboard_masks(height: int, width: int) -> tuple:

@@ -112,20 +112,33 @@ class Codec(nn.Module):
     parameters and the codebooks compute in f32, and so does the coding
     chain (the JAX bottleneck takes no dtype).  ``spec.remat`` (a YAML's
     ``save_mem``) recomputes the trunk blocks, the cross blocks and the
-    detail refiners in the backward, as the JAX package's ``nn.remat``."""
+    detail refiners in the backward, as the JAX package's ``nn.remat``.
 
-    def __init__(self, spec: CodecSpec, dtype: Optional[torch.dtype] = None):
+    ``pp``: a :class:`~.hybrid.PPConfig` runs both hybrid trunks as GPipe
+    stages over its process group (the JAX package's ``Codec(spec, dtype,
+    pp)``); the model is built whole, so that a seeded initialisation or a
+    named checkpoint loads as it would without ``pp``, and
+    :meth:`prune_to_stage` then keeps this stage's trunk cells only."""
+
+    def __init__(self, spec: CodecSpec, dtype: Optional[torch.dtype] = None,
+                 pp=None):
         super().__init__()
         s = spec
         self.spec = spec
         self.hybrid_codec = HybridCodec(s.titok, s.insert_pos_enc,
                                         s.insert_pos_dec, s.feat_width,
-                                        s.quant_dim, s.num_attns, s.remat)
+                                        s.quant_dim, s.num_attns, s.remat, pp)
         self.vqgan = VQGAN(s.vqgan)
         self.prior_fusion = FeatMerge(s.titok.width, s.feat_width,
                                       s.vqgan.n_embed, s.merge_inner_width)
         if dtype is not None:
             self.set_compute_dtype(dtype)
+
+    def prune_to_stage(self) -> "Codec":
+        """Drop the other pipeline stages' trunk cells (no-op without
+        ``pp``)."""
+        self.hybrid_codec.prune_to_stage()
+        return self
 
     def set_compute_dtype(self, dtype: torch.dtype,
                           cast_weights: bool = False) -> "Codec":

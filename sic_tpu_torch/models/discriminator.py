@@ -7,6 +7,12 @@ batch statistics, and only when asked (``update_stats=True``) folds them
 into the running statistics as ``0.9 * running + 0.1 * batch`` with the
 *biased* batch variance.  The training steps ask only on the discriminator's
 own update (real, then fake), as the JAX steps keep only those statistics.
+
+Under data parallelism (:meth:`NLayerDiscriminator.set_data_group`) the
+batch statistics are the global batch's: each rank's mean and mean square
+are averaged over the data group, in the forward and (through
+``parallel.global_mean``) in the backward, and the running statistics move
+by the global ones, the same on every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.multihost import global_mean
 
 
 class BatchNorm(nn.Module):
@@ -29,15 +37,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("mean", torch.zeros(ch))
         self.register_buffer("var", torch.ones(ch))
+        self.data = None    # the data group whose global batch is normalised
 
     def forward(self, x: torch.Tensor, train: bool,
                 update_stats: bool = False) -> torch.Tensor:
         if not train:
             mean, var = self.mean, self.var
         else:
-            mean = x.mean(dim=(0, 1, 2))
+            mean = global_mean(x.mean(dim=(0, 1, 2)), self.data)
             # flax's fast variance: E[x^2] - E[x]^2, floored at 0
-            var = torch.clamp_min((x * x).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
+            msq = global_mean((x * x).mean(dim=(0, 1, 2)), self.data)
+            var = torch.clamp_min(msq - mean * mean, 0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -81,6 +91,12 @@ class NLayerDiscriminator(nn.Module):
                     p.normal_(1.0, 0.02, generator=generator)
                 else:
                     p.normal_(0.0, 0.02, generator=generator)
+
+    def set_data_group(self, data) -> None:
+        """Normalise with the statistics of the global batch split over the
+        data group ``data`` (None: this process's batch)."""
+        for n in range(1, self.n_layers + 1):
+            getattr(self, f"bn_{n}").data = data
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = False) -> torch.Tensor:

@@ -5,10 +5,24 @@ src/models/codec_sq_fixbpp.py:48-439): the TiTok ViT encoder and decoder,
 each interleaved with the detail branch's cross-attention and refiners, and
 FeatMerge, the prior fusion into VQGAN codebook logits.  Images are tiled
 into 256-px tiles that form one batch axis.
+
+Both trunks run as *cells* (``cell_partition``): a cell is ``k`` ViT
+layers whose last is an insert position (or no insert at all), then that
+position's cross block and refiner.  Run in order, the cells are the
+sequential layer loop.  With a :class:`PPConfig` the cells are pipeline
+stages (GPipe, ``parallel/pipeline.py``): stage ``p`` of ``P`` owns cells
+``[p * C / P, (p + 1) * C / P)``, and :meth:`HybridCodec.prune_to_stage`
+drops the modules of the other stages' cells.  The port keeps its named
+layout (``transformer.<i>``, ``inter_blocks.<i>``, ``feat_blocks.<i>``)
+in both modes; the JAX package's stacked ``trunk_cells``, with zeroed
+interaction parameters behind a 0-gate in insert-free cells, is a layout
+of ``nn.scan`` that only ``parallel.pipeline``'s converters know.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import re
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,16 +76,134 @@ def _scaled_normal(shape, scale: float) -> nn.Parameter:
     return nn.Parameter(scale * torch.randn(shape))
 
 
-class HybridEncoder(nn.Module):
+# -- pipeline-parallel trunk cells ---------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PPConfig:
+    """Pipeline-parallel execution of the hybrid trunks: ``group`` is this
+    process's ``pipe`` group (:class:`~sic_tpu_torch.parallel.multihost.Group`:
+    the stages' global ranks, this rank's stage), ``n_microbatch`` the
+    microbatch count (default: one a stage).  The JAX package's
+    ``PPConfig(mesh, axis, batch_axis, n_microbatch)``: the mesh axis is the
+    group, and data parallelism is the data group beside it."""
+    group: Any = None
+    n_microbatch: Optional[int] = None
+
+    @property
+    def n_stages(self) -> int:
+        return self.group.size if self.group is not None else 1
+
+    @property
+    def stage(self) -> int:
+        return self.group.index if self.group is not None else 0
+
+
+def cell_partition(num_layers: int, insert_pos: Tuple[int, ...]) -> int:
+    """Largest cell size ``k`` dividing ``num_layers`` with every insert
+    position at a cell end (layer ``c*k + k-1``).  The shipped geometries
+    partition exactly: 24 layers / inserts (3,7,11,15,19) -> k=4 (6 cells,
+    1 insert-free); 8 layers / inserts (1,3,5,7) -> k=2 (4 cells)."""
+    live = [p for p in insert_pos if p < num_layers]  # positions beyond the
+    # trunk never fire in the sequential loop; ignore them here too
+    for k in range(num_layers, 0, -1):
+        if num_layers % k == 0 and all(p % k == k - 1 for p in live):
+            return k
+    raise ValueError(f"no cell partition for L={num_layers}, {insert_pos}")
+
+
+def cell_gates(num_layers: int, insert_pos: Tuple[int, ...]):
+    """Per-cell 0/1 interaction gates: 1.0 where the cell ends on an
+    insert position."""
+    k = cell_partition(num_layers, insert_pos)
+    live = {p for p in insert_pos if p < num_layers}
+    return [1.0 if (c * k + k - 1) in live else 0.0
+            for c in range(num_layers // k)]
+
+
+# a leaf of a trunk cell, in torch names (``hybrid_codec.encoder.transformer.3.``)
+# or the JAX package's keys (``hybrid_codec/encoder/inter_blocks_3/``)
+_CELL_LEAF = re.compile(r"hybrid_codec[./](encoder|decoder)[./]"
+                        r"(transformer|inter_blocks|feat_blocks)[._]\d+[./]")
+
+
+def is_cell_leaf(name: str) -> bool:
+    """True for a parameter (or its state) of a trunk cell: what a pipeline
+    stage holds alone; every other leaf is on every stage."""
+    return _CELL_LEAF.search(name) is not None
+
+
+def stage_cells(num_layers: int, insert_pos, pp: Optional[PPConfig]):
+    """(cell size k, first cell, end cell) of this process's stage: every
+    cell without ``pp``."""
+    k = cell_partition(num_layers, insert_pos)
+    n = num_layers // k
+    P = pp.n_stages if pp is not None else 1
+    if n % P:
+        raise ValueError(f"{n} pipeline cells not divisible by {P} stages")
+    p = pp.stage if pp is not None else 0
+    return k, p * n // P, (p + 1) * n // P
+
+
+class _Trunk(nn.Module):
+    """The cell structure shared by the encoder's and decoder's trunks:
+    ``transformer`` layers, with ``inter_blocks`` and ``feat_blocks`` at
+    the insert positions."""
+
+    def _cell(self, c: int, k: int, x, feat, stack_shape):
+        for i in range(c * k, c * k + k):
+            x = _run(self.remat, self.transformer[i], x)
+        end = c * k + k - 1
+        if end in self.insert_pos:
+            feat, x = _run(self.remat, self.inter_blocks[str(end)], feat, x,
+                           stack_shape)
+            feat = _run(self.remat, self.feat_blocks[str(end)], feat)
+        return x, feat
+
+    def _trunk(self, x, feat, stack_shape):
+        k, first, end = stage_cells(self.spec.num_layers, self.insert_pos,
+                                    self.pp)
+
+        def stage(carry):
+            x, feat = carry
+            for c in range(first, end):
+                x, feat = self._cell(c, k, x, feat, stack_shape)
+            return x, feat
+
+        if self.pp is None:
+            return stage((x, feat))
+        from ..parallel.pipeline import spmd_pipeline
+        return spmd_pipeline(stage, (x, feat), self.pp.group,
+                             self.pp.n_microbatch)
+
+    def prune_to_stage(self) -> None:
+        """Drop the layers and blocks of the other stages' cells (their
+        ``transformer`` entries become parameter-free placeholders, so the
+        owned layers keep their names)."""
+        if self.pp is None:
+            return
+        k, first, end = stage_cells(self.spec.num_layers, self.insert_pos,
+                                    self.pp)
+        for i in range(self.spec.num_layers):
+            if not first * k <= i < end * k:
+                self.transformer[i] = nn.Identity()
+        for pos in list(self.inter_blocks):
+            if not first * k <= int(pos) < end * k:
+                del self.inter_blocks[pos]
+                del self.feat_blocks[pos]
+
+
+class HybridEncoder(_Trunk):
     """TiTok ViT encoder interleaved with the detail branch
     (reference: codec_sq_fixbpp.py:48-183)."""
 
     def __init__(self, spec: TiTokSpec, insert_pos: Tuple[int, ...],
-                 feat_width: int, num_attns: int = 2, remat: bool = False):
+                 feat_width: int, num_attns: int = 2, remat: bool = False,
+                 pp: Optional[PPConfig] = None):
         super().__init__()
         s = spec
         self.spec = spec
         self.remat = remat
+        self.pp = pp
         self.insert_pos = tuple(p for p in insert_pos if p < s.num_layers)
         scale = s.width ** -0.5
         self.patch_embed = Conv2d(3, s.width, s.patch_size, stride=s.patch_size)
@@ -118,13 +250,7 @@ class HybridEncoder(nn.Module):
         x = torch.cat([x, lat], dim=1)                    # (BT, 1+256+n, width)
 
         feat = self.feat_in(feat_emb)
-        x = self.ln_pre(x)
-        for i, blk in enumerate(self.transformer):
-            x = _run(self.remat, blk, x)
-            if i in self.insert_pos:
-                feat, x = _run(self.remat, self.inter_blocks[str(i)], feat, x,
-                               stack_shape)
-                feat = _run(self.remat, self.feat_blocks[str(i)], feat)
+        x, feat = self._trunk(self.ln_pre(x), feat, stack_shape)
 
         z = self.ln_post(x[:, 1 + s.grid_size ** 2:])
         # TiTok's "fake 2D" projection: the torch original reshapes
@@ -138,16 +264,18 @@ class HybridEncoder(nn.Module):
         return z, self.feat_out_fc(self.feat_out_ln(feat)), stack_shape
 
 
-class HybridDecoder(nn.Module):
+class HybridDecoder(_Trunk):
     """TiTok ViT decoder + detail-branch upsampler
     (reference: codec_sq_fixbpp.py:186-300)."""
 
     def __init__(self, spec: TiTokSpec, insert_pos: Tuple[int, ...],
-                 feat_width: int, num_attns: int = 2, remat: bool = False):
+                 feat_width: int, num_attns: int = 2, remat: bool = False,
+                 pp: Optional[PPConfig] = None):
         super().__init__()
         s = spec
         self.spec = spec
         self.remat = remat
+        self.pp = pp
         # a position past the trunk never fires (flax then creates no
         # parameters for it, e.g. the tiny spec's 2 layers)
         self.insert_pos = tuple(p for p in insert_pos if p < s.num_layers)
@@ -191,14 +319,7 @@ class HybridDecoder(nn.Module):
         # the decoded (f32) h enters the compute dtype in feat_up_conv
         feat = pixel_shuffle(self.feat_up_conv(h_quantized), 2)
         feat = self.feat_up_swin(feat)
-
-        x = self.ln_pre(x)
-        for i, blk in enumerate(self.transformer):
-            x = _run(self.remat, blk, x)
-            if i in self.insert_pos:
-                feat, x = _run(self.remat, self.inter_blocks[str(i)], feat, x,
-                               stack_shape)
-                feat = _run(self.remat, self.feat_blocks[str(i)], feat)
+        x, feat = self._trunk(self.ln_pre(x), feat, stack_shape)
 
         x = self.ln_post(x[:, 1:1 + s.grid_size ** 2])
         return tokens_to_tile_nhwc(x, stack_shape, s.grid_size), feat
@@ -237,12 +358,13 @@ class HybridCodec(nn.Module):
 
     def __init__(self, spec: TiTokSpec, insert_pos_enc: Tuple[int, ...],
                  insert_pos_dec: Tuple[int, ...], feat_width: int,
-                 quant_dim: int, num_attns: int = 2, remat: bool = False):
+                 quant_dim: int, num_attns: int = 2, remat: bool = False,
+                 pp: Optional[PPConfig] = None):
         super().__init__()
         self.encoder = HybridEncoder(spec, insert_pos_enc, feat_width,
-                                     num_attns, remat)
+                                     num_attns, remat, pp)
         self.decoder = HybridDecoder(spec, insert_pos_dec, feat_width,
-                                     num_attns, remat)
+                                     num_attns, remat, pp)
         self.latent_tokens = _scaled_normal((spec.num_latent_tokens, spec.width),
                                             spec.width ** -0.5)
         self.quantize = L2VectorQuantizer(spec.codebook_size, spec.token_size,
@@ -273,3 +395,8 @@ class HybridCodec(nn.Module):
 
     def decode_z_indices(self, indices: torch.Tensor) -> torch.Tensor:
         return self.quantize.decode_indices(indices)
+
+    def prune_to_stage(self) -> None:
+        """Keep only this pipeline stage's trunk cells, in both trunks."""
+        self.encoder.prune_to_stage()
+        self.decoder.prune_to_stage()

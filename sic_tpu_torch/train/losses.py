@@ -57,14 +57,18 @@ def adopt_weight(weight: float, global_step: int, threshold: int = 0,
 
 def adaptive_d_weight(last_kernel: torch.Tensor, nll_of_kernel: Callable,
                       g_of_kernel: Callable, *, disc_weight: float,
-                      max_weight: float = 1e4) -> torch.Tensor:
+                      max_weight: float = 1e4,
+                      reduce_grad: Callable = lambda g: g) -> torch.Tensor:
     """d_weight = ||grad_W nll|| / (||grad_W g|| + 1e-4), clamped and
     detached (reference: vqperceptual.py:67-78).  ``last_kernel`` is a
-    leaf copy of the last convolution's weight."""
+    leaf copy of the last convolution's weight.  ``reduce_grad`` takes each
+    rank's gradient to the global batch's (the mean over a data group)
+    before the norms are taken."""
     with torch.enable_grad():
         w = last_kernel.detach().requires_grad_(True)
         (nll_grads,) = torch.autograd.grad(nll_of_kernel(w), w)
         (g_grads,) = torch.autograd.grad(g_of_kernel(w), w)
+    nll_grads, g_grads = reduce_grad(nll_grads), reduce_grad(g_grads)
     d_weight = (torch.linalg.vector_norm(nll_grads)
                 / (torch.linalg.vector_norm(g_grads) + 1e-4))
     return torch.clamp(d_weight, 0.0, max_weight).detach() * disc_weight

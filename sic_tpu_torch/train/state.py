@@ -28,7 +28,7 @@ The JAX package's single-chip memory options have their counterparts here:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 import numpy as np
 import torch
@@ -192,7 +192,14 @@ def make_optimizer(params, learning_rate: float, mu_dtype=None):
 @dataclasses.dataclass
 class TrainState:
     """Everything a training step reads or updates.  Steps update it in
-    place (modules, optimizers, counters, the generator)."""
+    place (modules, optimizers, counters, the generator).
+
+    ``data``: the data group the global batch is split over
+    (:class:`~sic_tpu_torch.parallel.multihost.Group`; None in one
+    process).  ``pipe``: the model's :class:`~sic_tpu_torch.models.hybrid.PPConfig`
+    when its trunks run as pipeline stages; ``full_trainable`` then names
+    the whole model's trainable leaves in :func:`partition`'s order (a
+    checkpoint gathers the stages' in that order)."""
     model: nn.Module
     disc: nn.Module
     lpips: nn.Module
@@ -205,6 +212,9 @@ class TrainState:
     lmbda_idx: int = 0
     lmbda_list: Tuple[float, ...] = (1.0,)
     rate_floor: float = 0.0
+    data: Any = None
+    pipe: Any = None
+    full_trainable: Tuple[str, ...] = ()
 
     @property
     def device(self) -> torch.device:

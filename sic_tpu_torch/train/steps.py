@@ -12,6 +12,17 @@ pass, then fake pass): the generator-side passes, the adaptive weight's two
 included, normalise with batch statistics and keep nothing, as the JAX
 steps discard what their ``mutable`` passes produce.
 
+Under data parallelism (``state.data``, a data group: each rank holds a
+contiguous equal block of the global batch) a step computes what the
+one-process step computes on the whole batch, as the JAX package's global
+arrays do: the rate noise is the global batch's draw from the shared
+generator, of which each rank takes its rows; the rate hinge's indicator
+reads the global mean rate; the adaptive weight takes the norms of the
+global gradients at the last convolution; the discriminator normalises
+with the global batch statistics; gradients are averaged over the group
+before each update; and the returned logs are global means, the same on
+every rank.
+
 Under a bf16 compute dtype (``create_train_state(dtype=torch.bfloat16)``)
 the steps take the JAX steps' dtypes: the alignment terms (MSE, CE) of the
 bf16 latent and logits are bf16 and the sums that meet an f32 term (the VQ
@@ -27,6 +38,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..entropy.fourpart import uniform_noise
+from ..parallel.multihost import (all_mean, global_mean, reduce_grads,
+                                  take_rows)
 from .losses import (adaptive_d_weight, adopt_weight, feat_align_loss,
                      hinge_d_loss, vanilla_d_loss)
 from .state import TrainState, stage_grad_mask
@@ -87,8 +101,28 @@ def _last_conv_apply(h_pre, w, b):
                     padding=1).permute(0, 2, 3, 1)
 
 
-def _detach(logs: Dict) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).detach() for k, v in logs.items()}
+def _detach(logs: Dict, data=None, device=None) -> Dict[str, torch.Tensor]:
+    """The logs as detached tensors; with a data group, each the mean over
+    its ranks (one all-reduce, on ``device``)."""
+    logs = {k: torch.as_tensor(v).detach() for k, v in logs.items()}
+    if data is None:
+        return logs
+    keys = sorted(logs)
+    vec = all_mean(torch.stack([logs[k].float().to(device) for k in keys]), data)
+    return {k: vec[i] for i, k in enumerate(keys)}
+
+
+# the eval step's logs, in one order on every rank
+EVAL_LOGS = ("val/align_loss", "val/bpp", "val/nll_loss", "val/p_loss",
+             "val/rec_loss", "val/saved_loss")
+
+
+def rate_noise_shape(spec, x_shape):
+    """Shape of the bottleneck's rate noise for an (B, H, W, 3) image batch:
+    the detail latent, at stride 2 * patch_size, with quant_dim channels."""
+    B, H, W, _ = x_shape
+    stride = 2 * spec.titok.patch_size
+    return (B, H // stride, W // stride, spec.quant_dim)
 
 
 class TrainSteps:
@@ -117,7 +151,17 @@ class TrainSteps:
         return rec + self.img_cfg.perceptual_weight * p, rec, p
 
     @staticmethod
-    def _noise_args(state: TrainState, noise: Optional[torch.Tensor]):
+    def _noise_args(state: TrainState, x: torch.Tensor,
+                    noise: Optional[torch.Tensor]):
+        """The rate noise: ``noise``; else, under data parallelism, this
+        rank's rows of the global batch's draw from ``state.generator``
+        (every rank draws it, so the generators stay equal); else the
+        model draws it from ``state.generator``."""
+        if noise is None and state.data is not None:
+            B, *rest = rate_noise_shape(state.model.spec, x.shape)
+            full = uniform_noise((B * state.data.size, *rest), state.generator,
+                                 x.device)
+            noise = take_rows(full, state.data)
         return {"noise": noise, "generator": None if noise is not None
                 else state.generator}
 
@@ -130,12 +174,13 @@ class TrainSteps:
         with torch.no_grad():
             teacher_latent, teacher_idx = model.encode_to_vqgan(x)
         out = model(x, need_full_decode=False, training=True,
-                    **self._noise_args(state, noise))
+                    **self._noise_args(state, x, noise))
         loss, logs = feat_align_loss(
             out["vqgan_latent"], out["logits"], teacher_latent, teacher_idx,
             out["vq_loss"], out["bpp_loss"], mse_weight=cfg.mse_weight,
             ce_weight=cfg.ce_weight, vq_weight=cfg.vq_weight, sq_weight=lmbda)
-        rate_push = cfg.rate_push_w * F.relu(state.rate_floor - out["bpp_loss"])
+        rate_push = cfg.rate_push_w * F.relu(
+            state.rate_floor - global_mean(out["bpp_loss"], state.data))
         loss = loss + rate_push
         logs.update({"train/rate_push": rate_push, "train/align_loss": loss,
                      "train/bpp": out["bpp_loss"],
@@ -144,9 +189,10 @@ class TrainSteps:
         state.opt_ae.zero_grad(set_to_none=True)
         loss.backward()
         stage_grad_mask(state.trainable, "feat")
+        reduce_grads([p for _, p in state.trainable], state.data)
         state.opt_ae.step()
         state.global_step += 1
-        return _detach(logs)
+        return _detach(logs, state.data, state.device)
 
     # -- stage pix: generator + discriminator ---------------------------------
     def pix_step(self, state: TrainState, x: torch.Tensor,
@@ -165,7 +211,7 @@ class TrainSteps:
 
         disc.requires_grad_(False)      # the generator loss moves no disc weight
         out = model(x, need_full_decode=True, training=True,
-                    return_pre_out=True, **self._noise_args(state, noise))
+                    return_pre_out=True, **self._noise_args(state, x, noise))
         x_hat = out["x_hat"]
         nll, rec, p = self._nll(state, x, x_hat)
         g_loss = g_of(x_hat)
@@ -175,10 +221,12 @@ class TrainSteps:
             conv_out.weight,
             lambda w: self._nll(state, x, _last_conv_apply(h_pre, w, b_last))[0],
             lambda w: g_of(_last_conv_apply(h_pre, w, b_last)),
-            disc_weight=cfg.disc_weight, max_weight=cfg.adaptive_disc_max)
+            disc_weight=cfg.disc_weight, max_weight=cfg.adaptive_disc_max,
+            reduce_grad=lambda g: all_mean(g, state.data))
         loss = (nll + d_weight * disc_factor * g_loss
                 + cfg.codebook_weight * out["vq_loss"] + lmbda * out["bpp_loss"])
-        rate_push = cfg.rate_push_w * F.relu(state.rate_floor - out["bpp_loss"])
+        rate_push = cfg.rate_push_w * F.relu(
+            state.rate_floor - global_mean(out["bpp_loss"], state.data))
         loss = loss + rate_push
         logs = {}
         if cfg.align_weight > 0.0:
@@ -199,6 +247,7 @@ class TrainSteps:
         state.opt_ae.zero_grad(set_to_none=True)
         loss.backward()
         stage_grad_mask(state.trainable, "pix")
+        reduce_grads([p for _, p in state.trainable], state.data)
         state.opt_ae.step()
         disc.requires_grad_(True)
 
@@ -210,12 +259,13 @@ class TrainSteps:
         d_loss = disc_factor * self.d_loss_fn(logits_real, logits_fake)
         state.opt_disc.zero_grad(set_to_none=True)
         d_loss.backward()
+        reduce_grads(disc.parameters(), state.data)
         state.opt_disc.step()
         logs.update({"train/disc_loss": d_loss,
                      "train/logits_real": torch.mean(logits_real),
                      "train/logits_fake": torch.mean(logits_fake)})
         state.global_step += 1
-        return _detach(logs)
+        return _detach(logs, state.data, state.device)
 
     # -- validation -----------------------------------------------------------
     @torch.no_grad()

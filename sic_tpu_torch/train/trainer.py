@@ -7,6 +7,14 @@ checkpoints and the final ``last``.  Checkpoints are ``torch.save`` files
 under the JAX package's names (``<stage>_epo_for_strategy_<epoch>``,
 ``last``) holding the models, both optimizers, the schedule and the noise
 generator.
+
+Across processes (``create_train_state(data=..., pp=...)``) the trainer is
+the JAX package's multi-host one: every rank walks the same batch
+sequence and takes its contiguous block of each batch (``data``);
+validation and the lambda controller see the global batch's means, so
+every rank makes the same decisions; checkpoints are written by global
+rank 0 between barriers (under ``pp`` gathered from the stages into the
+whole model's layout first); a barrier closes every epoch.
 """
 from __future__ import annotations
 
@@ -22,10 +30,14 @@ import torch
 from ..config import CodecSpec
 from ..models.codec import Codec, configure_numerics, resolve_device
 from ..models.discriminator import NLayerDiscriminator
+from ..models.hybrid import is_cell_leaf
 from ..models.lpips import LPIPS, load_lpips_weights
-from ..weights import init_seeded, load_flax_params
-from .state import TrainState, cast_frozen_params, make_optimizer, partition
-from .steps import FeatLossCfg, ImgLossCfg, TrainSteps
+from ..parallel.multihost import (barrier, gather_to_first, global_rank,
+                                  take_rows)
+from ..weights import export_flax_params, init_seeded, load_flax_params
+from .state import (TrainState, cast_frozen_params, is_frozen_path,
+                    make_optimizer, named_codec_params, partition)
+from .steps import EVAL_LOGS, FeatLossCfg, ImgLossCfg, TrainSteps
 from .strategy import TrainingStrategy
 
 
@@ -37,7 +49,7 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
                        dtype: Optional[torch.dtype] = None,
                        mu_dtype: Optional[torch.dtype] = None,
                        frozen_dtype: Optional[torch.dtype] = None,
-                       donate: bool = False):
+                       donate: bool = False, data=None, pp=None):
     """Models, optimizers and steps, on ``device`` (CUDA unless named).
 
     ``codec_params``: a flat ``params/...`` dict for the codec (default: the
@@ -54,13 +66,21 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
     ``frozen_dtype`` the storage dtype of the frozen leaves
     (:func:`~.state.cast_frozen_params`).  ``donate`` is accepted and does
     nothing: PyTorch updates the state in place already, which is what
-    JAX's buffer donation buys.  Returns (model, state, steps)."""
+    JAX's buffer donation buys.
+
+    Across processes: ``data`` is the data group
+    (:class:`~sic_tpu_torch.parallel.multihost.Group`) the global batch is
+    split over, which the steps and the discriminator's statistics reduce
+    over; ``pp`` a :class:`~sic_tpu_torch.models.hybrid.PPConfig`, whose
+    stage keeps only its trunk cells (their parameters, gradients and Adam
+    moments) after the whole model is initialised or loaded.  Returns
+    (model, state, steps)."""
     del donate
     steps = TrainSteps(feat_cfg, img_cfg)     # a bad flag fails before the build
     dev = resolve_device(device)
     configure_numerics()
     with torch.device(dev):
-        model = Codec(spec, dtype)
+        model = Codec(spec, dtype, pp)
         disc = NLayerDiscriminator(img_cfg.disc_ndf, img_cfg.disc_num_layers)
         lpips = LPIPS()
     if codec_params is None:
@@ -70,8 +90,14 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
         if stray:
             raise ValueError(f"{len(stray)} leaves fit no parameter, e.g. "
                              f"{sorted(stray)[:3]}")
+    full_trainable = ()
+    if pp is not None:
+        full_trainable = tuple("/".join(path) for path, _ in named_codec_params(model)
+                               if not is_frozen_path(path, tune_titok))
+        model.prune_to_stage()
     gens = [torch.Generator(device=dev).manual_seed(seed + i) for i in (1, 2, 3)]
     disc.init_weights(gens[0])
+    disc.set_data_group(data)
     lpips.init_weights(gens[1])
     load_lpips_weights(lpips, lpips_lin, lpips_vgg)
     lpips.requires_grad_(False)
@@ -92,21 +118,107 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
         opt_disc=make_optimizer(disc.parameters(), strategy.learning_rate),
         generator=gens[2], epoch_for_strategy=strategy.start_epoch,
         lmbda_idx=stage0.init_lmbda_idx, lmbda_list=tuple(stage0.lmbda_list),
-        rate_floor=float(np.float32(stage0.bpp_lower)))
+        rate_floor=float(np.float32(stage0.bpp_lower)),
+        data=data, pipe=pp, full_trainable=full_trainable)
     return model, state, steps
 
 
+def _cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def _own_names(state: TrainState):
+    return ["/".join(path) for path, _ in state.trainable]
+
+
+def _gather_cells(mine, state: TrainState):
+    """The stages' own cells' leaves (``mine`` maps name -> leaf), merged
+    into stage 0's ``mine`` on stage 0 (None on the others): the other
+    stages send their trunk cells' leaves, on the host; the rest of a
+    stage is the same on every stage.  Collective over the stages."""
+    part = None if state.pipe.stage == 0 else \
+        {k: _cpu(v) for k, v in mine.items() if is_cell_leaf(k)}
+    parts = gather_to_first(part, state.pipe.group)
+    if parts is None:
+        return None
+    for p in parts[1:]:
+        mine.update(p)
+    return mine
+
+
+def gathered_state_dict(state: TrainState) -> Optional[dict]:
+    """``state.state_dict()``; under ``pp`` the whole model's, on the first
+    stage (None on the others): every stage's model leaves, and Adam's
+    state re-indexed to the whole model's trainable order, so the file
+    loads into a run with or without ``pp``.  Collective over the stages."""
+    sd = state.state_dict()
+    if state.pipe is None:
+        return sd
+    names = _own_names(state)
+    model = _gather_cells(sd["model"], state)
+    opt = _gather_cells({names[i]: st for i, st in sd["opt_ae"]["state"].items()},
+                        state)
+    if model is None:
+        return None
+    full = state.full_trainable
+    sd["model"] = model
+    sd["opt_ae"] = {
+        "state": {i: opt[n] for i, n in enumerate(full) if n in opt},
+        "param_groups": [dict(g, params=list(range(len(full))))
+                         for g in sd["opt_ae"]["param_groups"]]}
+    return sd
+
+
+def gathered_flax_params(state: TrainState) -> Optional[dict]:
+    """The codec's flat ``params/...`` dict (:func:`export_flax_params`);
+    under ``pp`` every stage's leaves, on the first stage (None on the
+    others).  Collective over the stages."""
+    flat = export_flax_params(state.model)
+    return flat if state.pipe is None else _gather_cells(flat, state)
+
+
 def save_checkpoint(ckpt_dir, state: TrainState, name: str) -> str:
+    """Write ``state`` as ``<ckpt_dir>/<name>``.  Across processes every
+    rank calls it: the first data index's stages gather their state, global
+    rank 0 writes, and all wait at a barrier until it has."""
     path = Path(ckpt_dir).resolve() / name
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(state.state_dict(), path)
+    sd = None
+    if state.data is None or state.data.index == 0:
+        sd = gathered_state_dict(state)
+    if global_rank() == 0:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(sd, path)
+    barrier(f"checkpoint {name}")
     return str(path)
 
 
+def _stage_view(ck: dict, state: TrainState) -> dict:
+    """A whole model's checkpoint cut to this stage's leaves."""
+    own = state.model.state_dict()
+    ck = dict(ck, model={k: v for k, v in ck["model"].items() if k in own})
+    index = {n: i for i, n in enumerate(_own_names(state))}
+    opt = ck["opt_ae"]
+    ck["opt_ae"] = {
+        "state": {index[n]: opt["state"][i] for i, n in enumerate(state.full_trainable)
+                  if n in index and i in opt["state"]},
+        "param_groups": [dict(g, params=list(range(len(index))))
+                         for g in opt["param_groups"]]}
+    return ck
+
+
 def load_checkpoint(path, state: TrainState) -> TrainState:
-    """Restore a :func:`save_checkpoint` file into ``state`` (in place)."""
-    state.load_state_dict(torch.load(path, map_location=state.device,
-                                     weights_only=False))
+    """Restore a :func:`save_checkpoint` file into ``state`` (in place);
+    under ``pp`` this stage's part of it."""
+    if state.pipe is None:
+        state.load_state_dict(torch.load(path, map_location=state.device,
+                                         weights_only=False))
+    else:
+        ck = torch.load(path, map_location="cpu", weights_only=False)
+        state.load_state_dict(_stage_view(ck, state))
     return state
 
 
@@ -125,7 +237,9 @@ class Trainer:
     log_every: int = 50
 
     def _batch(self, batch) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(batch, np.float32), device=self.state.device)
+        """This rank's rows of a global batch, on the device."""
+        rows = take_rows(np.asarray(batch, np.float32), self.state.data)
+        return torch.as_tensor(rows, device=self.state.device)
 
     def train_epoch(self, train_data: Iterable) -> str:
         """One epoch at the current schedule position; returns stage name."""
@@ -140,12 +254,26 @@ class Trainer:
         return stage
 
     def validate(self, val_data: Iterable) -> Dict[str, float]:
-        sums: Dict[str, float] = {}
+        """Means over the batches of each batch's eval logs.  Across
+        processes a batch's log is the mean over its rows (each rank's
+        batch mean weighted by its share of the rows), summed over the
+        ranks once at the end: every rank gets the one-process means."""
+        st = self.state
+        sums = dict.fromkeys(EVAL_LOGS, 0.0)
         n = 0
         for batch in val_data:
-            for k, v in self.steps.eval_step(self.state, self._batch(batch)).items():
-                sums[k] = sums.get(k, 0.0) + float(v)
+            x = self._batch(batch)
+            if len(x):
+                w = len(x) / len(batch)
+                for k, v in self.steps.eval_step(st, x).items():
+                    sums[k] += w * float(v)
             n += 1
+        if st.data is not None:
+            import torch.distributed as dist
+            vec = torch.tensor([sums[k] for k in EVAL_LOGS], dtype=torch.float64,
+                               device=st.device)
+            dist.all_reduce(vec, group=st.data.group)
+            sums = dict(zip(EVAL_LOGS, vec.tolist()))
         means = {k: v / max(n, 1) for k, v in sums.items()}
         stage, _ = self.strategy.stage_at(self.state.epoch_for_strategy)
         if stage != "pix":  # only final-stage checkpoints can win the monitor
@@ -190,6 +318,9 @@ class Trainer:
             self.log_fn({"epoch_done": self.state.epoch_for_strategy - 1,
                          "stage": stage, "epoch_s": time.time() - t0,
                          **({f"mean_{k}": v for k, v in val.items()} if val else {})})
+            # re-align the ranks: rank 0's checkpoints and logs must not let
+            # the others run minutes ahead into a collective's timeout
+            barrier(f"epoch_{self.state.epoch_for_strategy}")
         if self.ckpt_dir:
             save_checkpoint(self.ckpt_dir, self.state, "last")
 

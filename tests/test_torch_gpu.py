@@ -1269,3 +1269,70 @@ def test_factorized_tables_equal_on_the_card_and_the_cpu(cuda):
     a, b = FactorizedCoder(m), FactorizedCoder(mc)
     assert np.array_equal(a.quantized_cdf, b.quantized_cdf)
     assert np.array_equal(a.offset, b.offset)
+
+
+# -- data and pipeline parallelism: two ranks on the one card (gloo) -----------
+
+# PERF.md §2's card-vs-CPU training bounds: splitting a batch over ranks or
+# microbatches changes the GEMMs' shapes, and so the summation order
+CARD_LIMITS = {"feat": (1e-4, 1e-3), "pix": (1e-3, 5e-3)}
+
+
+@pytest.fixture(scope="module")
+def card_workers(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from sic_tpu_torch.models import configure_numerics
+    configure_numerics()
+    import _torch_dist_workers as W
+    W.DEVICE = "cuda:0"        # where the helpers build in this process
+    yield W, tmp_path_factory.mktemp("ranks")
+    W.DEVICE = "cpu"
+
+
+@pytest.fixture(scope="module")
+def card_dp(card_workers):
+    W, tmp = card_workers
+    x = W.global_batch()
+    floor = W.rate_floor(x)
+    ranks = W.run_task("dp", tmp, SIC_TEST_RATE_FLOOR=repr(floor),
+                       SIC_TEST_DEVICE="cuda:0")
+    ref = {}
+    for stage in ("feat", "pix"):
+        _, state, steps = W.train_state()
+        state.rate_floor = floor
+        logs = getattr(steps, f"{stage}_step")(state, torch.from_numpy(x).to("cuda:0"))
+        ref[stage] = ({k: float(v) for k, v in logs.items()}, W.grads_of(state))
+    return W, ranks, ref
+
+
+@pytest.mark.parametrize("stage", ["feat", "pix"])
+def test_two_ranks_on_the_card_equal_the_global_step(card_dp, stage):
+    """Kernels 1, 2 and 5 in both ranks' steps; each rank's logs and
+    gradients against the one-process step over the whole batch."""
+    W, ranks, ref = card_dp
+    loss_tol, grad_tol = CARD_LIMITS[stage]
+    want_logs, want = ref[stage]
+    grads = [k for k in want if not k.startswith("stats.")]
+    for res in ranks:
+        logs, got = res[stage]
+        for k, v in want_logs.items():
+            assert abs(logs[k] - v) <= loss_tol * abs(v) + 1e-7, (k, logs[k], v)
+        err, key = W.worst_leaf({k: got[k] for k in grads}, {k: want[k] for k in grads})
+        assert err <= grad_tol, (key, err)
+    c = ranks[1]["controls"]
+    assert float((c["noise"][0] - c["noise"][1]).norm()) > 0     # rows, not a local draw
+
+
+def test_two_stage_pipeline_on_the_card_equals_the_sequential_trunks(card_workers):
+    W, tmp = card_workers
+    ranks = W.run_task("pipeline", tmp, SIC_TEST_DEVICE="cuda:0")
+    x = W.global_batch(4, seed=11)
+    loss, x_hat, grads = W.codec_grads(W.pp_codec(), x, W.pp_noise(x))
+    for m in (2, 4):
+        for res in ranks:
+            got_loss, got_x, got = res[f"codec_m{m}"]
+            assert abs(got_loss - loss) <= 1e-4 * abs(loss)
+            assert float((got_x - x_hat).abs().max()) <= 1e-3
+            err, key = W.worst_leaf(got, {k: grads[k] for k in got})
+            assert err <= 1e-3, (m, key, err)
