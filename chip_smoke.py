@@ -3,10 +3,12 @@
 (G, s, d) window-attention op, the HTTP service with search, the evaluate
 CLI, the concurrent runtime entry points, reference-format files and YAML
 configs, bf16 serving, int8 W8A8 serving, training, bf16 training, TiTok
-tokenization with MaskGIT generation, and two ranks compressing and
-training across processes on the one card.
+tokenization with MaskGIT generation, two ranks compressing and training
+across processes on the one card, and two ranks training and encoding
+under the mesh shardings (FSDP, tensor parallelism, the width split).
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --phases kernels,mesh   # the build and those alone
 
 Phases, each printing one JSON line with the card's name and power limit:
 
@@ -198,14 +200,36 @@ Phases, each printing one JSON line with the card's name and power limit:
               and one pix epoch), its deploy_params.npz through the compress
               and decompress CLIs, h_hat against y_hat; step times and peak
               memory a rank.
+16. mesh    - the JAX package's mesh shardings across processes, two ranks
+              on the one card (gloo), each this script (--rank-task mesh):
+              a feat and a pix step of the seeded flagship at 256 px,
+              global batch 2, under --fsdp equal to the data-parallel step
+              bit for bit (each rank's bytes at rest: the DP rank's less
+              one chunk of every planned leaf); the same steps at --tp 2
+              and at --tile 2 (val0 and val1 side by side, 1 x 256 x 512)
+              against rank 0's one-process step run with the ranks' shapes
+              ("split": the TP-split Linears as the ranks' blocks, the
+              convolutions, pointwise Linears and GroupNorms as the ranks'
+              slabs) within PERF.md §2's bounds, and against the step as it
+              runs within the larger of those bounds and 1.5x "split"'s own
+              gap; CodecRuntime(mesh=) at tile 2 over val0 and val1, its
+              streams decoding in a one-process runtime to its y_hat bit
+              for bit; the train CLI with --tp 2 and with --fsdp (the qp 0
+              preset cut to one feat and one pix epoch), each one's
+              deploy_params.npz through the compress and decompress CLIs.
+              Kernels 1, 2 and 5 must launch in every rank of the TP and
+              tile runs, kernel 1 at 8 and 6 local heads, kernels 2 and 5
+              at 6 and 8.
 
 Each path's launch counts are set to 0 just before it is driven (phase 4
 for the encode, phase 5 for the decode, phase 6 for the op, phase 7 for
 serving, phase 8 for the surface, phase 9 for bf16 serving, phase 10 for
 int8 serving, phase 11 for training, phase 12 for bf16 training, phase 13
-for generation, each rank of phase 15 at its start) and read just after
-(phase 15: by each rank, summed over the ranks), by wrapper, by bf16 entry and
-(kernel 1) by head dim, and phase 10's int8 GEMMs apart; every kernel of
+for generation, each rank of phase 15 at its start, each rank of phase 16
+around each of its sharded runs) and read just after (phases 15 and 16: by
+each rank, summed over the ranks), by wrapper, by bf16 entry and (kernel
+1) by head dim (phase 16 also by head count), and phase 10's int8 GEMMs
+apart; every kernel of
 the path must have launched, and the (G, s, d) kernel on no model path.
 Every phase but 9, 10 and 12 runs fp32 and asks for it (the train CLI's
 moments and frozen storage aside).  Then a ``{"kernels":
@@ -236,6 +260,7 @@ WORK = ROOT / "chiprun_out" / "chip_smoke"
 # git-ignored, removed at the end
 TRAIN_WORK = ROOT / ".chip_smoke_train"
 MP_WORK = WORK / "multiprocess"      # the multiprocess phase's files and rank logs
+MESH_WORK = WORK / "mesh"            # the mesh phase's
 GOLDEN = ROOT / "tests" / "fixtures" / "golden"
 HELDOUT = ROOT / "artifacts_r05" / "heldout"
 
@@ -277,6 +302,9 @@ SEED = 0
 SEQ_SHAPES = {"trunk": (4, 289, 1024, 16), "cross": (4, 545, 768, 12),
               "clip": (1, 50, 768, 12), "maskgit": (4, 33, 768, 16),
               "tiny_generator": (2, 9, 64, 2)}
+# a --tp 2 rank's: the trunk's and the cross blocks' local heads (8, 6);
+# kernel 2's rows at 6 and 8 local heads are in the kernels phase's loop
+TP_SEQ_SHAPES = {"trunk_tp2": (4, 289, 512, 8), "cross_tp2": (4, 545, 384, 6)}
 # card vs CPU, the full-width MaskGIT generator's logits and TiTok's
 # decode_tokens pixels, relative to their largest magnitude (f32
 # summation order only)
@@ -309,6 +337,7 @@ class Smoke:
         self.counts = {}      # path -> launch counts of its main-path run
         self.bf16_counts = {}  # path -> launches of the bf16 entries in that run
         self.head_dim_counts = {}  # path -> kernel 1's launches by head dim
+        self.heads_counts = {}     # path -> the packed-qkv kernels' launches by head count
         self.requests = {}    # stem -> decode_only kwargs + the encoder's y_hat
 
     def phase(self, name, fn):
@@ -527,9 +556,12 @@ class Smoke:
         # CLI's tiny one (head dim 32), whose inputs come from a generator
         # of their own, so that every other row's stay as they were
         g_narrow = torch.Generator(device=dev).manual_seed(SEED + 1)
-        for tag, (B, S, C, heads) in SEQ_SHAPES.items():
+        # the rows at --tp 2's local heads draw from a generator of their own
+        g_tp = torch.Generator(device=dev).manual_seed(SEED + 2)
+        for tag, (B, S, C, heads) in (SEQ_SHAPES | TP_SEQ_SHAPES).items():
             qkv = torch.randn((B, S, 3 * C), device=dev,
-                              generator=g if C // heads == 64 else g_narrow)
+                              generator=g_tp if tag in TP_SEQ_SHAPES else
+                              g if C // heads == 64 else g_narrow)
             scale = (C // heads) ** -0.5
             k_out = ops.seq_attention(qkv, scale, heads)
             p_out = ops.seq_attention_plain(qkv, scale, heads)
@@ -566,9 +598,9 @@ class Smoke:
         # kernel 2: the 512x512 feature map (32x32, 2x2 windows of 16x16),
         # widths 768 and 1024, shared bias (nB = 1) and shifted (nB = nW)
         ws, s = 16, 256
-        for C, heads in ((768, 12), (1024, 16)):
-            qkv = torch.randn((1, 32, 32, 3 * C), device=dev, generator=g)
-            rel = torch.randn((1, s, s), device=dev, generator=g)
+        for C, heads, gen in ((768, 12, g), (1024, 16, g), (384, 6, g_tp), (512, 8, g_tp)):
+            qkv = torch.randn((1, 32, 32, 3 * C), device=dev, generator=gen)
+            rel = torch.randn((1, s, s), device=dev, generator=gen)
             for nB in (1, 4):
                 bias = rel if nB == 1 else (rel + torch.from_numpy(
                     _full_shift_mask(2, 2, ws)).to(dev)).contiguous()
@@ -3238,41 +3270,7 @@ class Smoke:
         return rec
 
     def _deploy_round_trip(self, deploy, image):
-        """``image`` through the compress and decompress CLIs with the
-        params ``deploy`` (fp32), then its decode's h_hat against the
-        encoder's y_hat."""
-        import gc
-        torch = self.torch
-
-        from sic_tpu_torch.cli._common import load_runtime
-        from sic_tpu_torch.cli.compress import main as compress_main
-        from sic_tpu_torch.cli.decompress import main as decompress_main
-        from sic_tpu_torch.config import flagship_spec
-        from sic_tpu_torch.data import load_image
-        work = deploy.parent / "round_trip"
-        src = work / "in"
-        src.mkdir(parents=True, exist_ok=True)
-        shutil.copy(image, src / image.name)
-        common = ["--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda",
-                  "--dtype", "float32"]
-        t0 = time.perf_counter()
-        compress_main(["--dataset_dir", str(src), "--save_dir", str(work / "c"), *common])
-        n_dec = decompress_main(["--dataset_dir", str(work / "c" / "bitstreams"),
-                                 "--save_dir", str(work / "d"), *common])
-        rec = {"cli_round_trip_s": round(time.perf_counter() - t0, 3)}
-        rt = load_runtime(str(deploy), flagship_spec(), device="cuda", stream_part=4,
-                          dtype="float32")
-        probe, dec = {}, {}
-        enc = rt.encode_only(load_image(src / image.name)[None], probe=probe)
-        rt.decode_only(**enc, coding_batch=8, probe=dec)
-        rt.close()
-        rec["h_hat_equal_y_hat"] = bool(torch.equal(dec["h_hat"], probe["y_hat"]))
-        rec["decoded_files"] = n_dec
-        rec["round_trip_ok"] = n_dec == 1 and rec["h_hat_equal_y_hat"]
-        del rt
-        gc.collect()
-        torch.cuda.empty_cache()
-        return rec
+        return _deploy_round_trip(deploy, image)
 
     # -- phase 10 ---------------------------------------------------------------
     # -- phase 12 ---------------------------------------------------------------
@@ -3670,10 +3668,10 @@ class Smoke:
         shutil.rmtree(TRAIN_WORK, ignore_errors=True)
         return rec
 
-    def _run_ranks(self, task, args, world=2, timeout=900):
+    def _run_ranks(self, task, args, world=2, timeout=900, work=MP_WORK):
         """``task`` on ``world`` rank processes on this card; their JSON
-        records.  Any rank's failure fails the phase (the others are
-        stopped)."""
+        records and logs in ``work``.  Any rank's failure fails the phase
+        (the others are stopped)."""
         import socket
         import os
         with socket.socket() as s:
@@ -3687,10 +3685,10 @@ class Smoke:
                        LOCAL_WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                        PYTHONHASHSEED=str(101 + r))
-            log = open(MP_WORK / f"{task}_rank{r}.log", "w")
+            log = open(work / f"{task}_rank{r}.log", "w")
             procs.append((subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-task", task,
-                 str(MP_WORK / f"{task}_rank{r}.json"), *args],
+                 str(work / f"{task}_rank{r}.json"), *args],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log))
         try:
             for p, _ in procs:
@@ -3703,10 +3701,82 @@ class Smoke:
                 log.close()
         bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
         if bad:
-            tails = {r: (MP_WORK / f"{task}_rank{r}.log").read_text()[-3000:] for r in bad}
+            tails = {r: (work / f"{task}_rank{r}.log").read_text()[-3000:] for r in bad}
             raise AssertionError(f"{task} ranks {bad} failed: {tails}")
-        return [json.loads((MP_WORK / f"{task}_rank{r}.json").read_text())
+        return [json.loads((work / f"{task}_rank{r}.json").read_text())
                 for r in range(world)]
+
+    # -- phase 16 ---------------------------------------------------------------
+    def mesh(self):
+        """The JAX package's mesh shardings across processes: two ranks on
+        this one card (gloo), each ``python3 chip_smoke.py --rank-task
+        mesh``, fp32 flagship, seeded: (1) one feat step and one pix step at
+        256 px, global batch 2 (val0, val1), data-parallel and under
+        ``--fsdp``, equal leaf for leaf, each rank's bytes at rest and peak;
+        (2) the same steps at ``--tp 2`` and (3) at ``--tile 2`` on val0 and
+        val1 side by side (1 x 256 x 512), each against rank 0's one-process
+        step with the ranks' shapes ("split") within PERF.md §2's bounds
+        and against the step as it runs within the larger of those bounds
+        and 1.5x "split"'s own gap; (4) ``CodecRuntime(mesh=)`` at tile 2
+        over val0 and val1, its streams decoding in a one-process runtime
+        to its y_hat bit for bit; (5) the train CLI with ``--tp 2`` and with
+        ``--fsdp`` (the qp 0 preset cut to one feat and one pix epoch), each
+        one's deploy_params.npz through the compress and decompress CLIs.
+        Kernels 1, 2 and 5 must launch in every rank of the TP and tile
+        runs, kernel 1 at 8 and 6 local heads and kernel 2 (and 5) at 6 and
+        8 under TP.  The launches are read around the sharded runs only."""
+        shutil.rmtree(MESH_WORK, ignore_errors=True)
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+        (MESH_WORK / "train").mkdir(parents=True)
+        for i in range(2):
+            shutil.copy(HELDOUT / f"val{i}.png", MESH_WORK / "train" / f"val{i}.png")
+        ranks = self._run_ranks("mesh", [], work=MESH_WORK)
+        r0 = ranks[0]
+        rec = {"ranks": [{k: v for k, v in r.items() if k not in ("launches", "compare")}
+                         for r in ranks],
+               "compare": r0.get("compare"),
+               "reference_launches": r0.get("reference_launches")}
+        counts, bf16, by_dim, by_heads = {}, {}, {}, {}
+        for r in ranks:
+            for run in r["launches"].values():
+                for total, part in ((counts, run["counts"]), (bf16, run["bf16_counts"]),
+                                    (by_dim, run["head_dim_counts"])):
+                    for k, n in part.items():
+                        total[k] = total.get(k, 0) + n
+                for k, part in run["heads_counts"].items():
+                    for h, n in part.items():
+                        by_heads.setdefault(k, {})
+                        by_heads[k][h] = by_heads[k].get(h, 0) + n
+        self.counts["mesh"] = rec["launches"] = counts
+        self.bf16_counts["mesh"] = bf16
+        self.head_dim_counts["mesh"] = by_dim
+        self.heads_counts["mesh"] = rec["launches_by_heads"] = by_heads
+        rec["launches_by_rank_run"] = [r["launches"] for r in ranks]
+        kernels = ("seq_attention", "window_attention_nhwc", "window_attention_nhwc_bwd")
+
+        def heads(run, k):
+            return set(run["heads_counts"].get(k, {}))
+
+        checks = {
+            "fsdp_equals_dp": all(r["fsdp"]["ok"] for r in ranks),
+            "tp_within_bounds": bool(r0["compare"]["tp_ok"]),
+            "tile_within_bounds": bool(r0["compare"]["tile_ok"]),
+            "runtime_decodes": bool(r0["runtime"].get("ok")),
+            "kernels_every_tp_and_tile_rank": all(
+                r["launches"][run]["counts"].get(k, 0) >= 1
+                for r in ranks for run in ("tp", "tile") for k in kernels),
+            "tp_local_heads": all(
+                {"8", "6"} <= heads(r["launches"]["tp"], "seq_attention")
+                and {"6", "8"} <= heads(r["launches"]["tp"], "window_attention_nhwc")
+                and {"6", "8"} <= heads(r["launches"]["tp"], "window_attention_nhwc_bwd")
+                for r in ranks),
+            "cli": all(r["cli_tp"]["ok"] and r["cli_fsdp"]["ok"]
+                       and r["round_trip"]["round_trip_ok"] for r in ranks)}
+        rec["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"mesh check failed: {checks}")
+        shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+        return rec
 
     def kernels_line(self):
         names = {"seq_attention": ("sic_tpu_torch/csrc/seq_attention.cu",
@@ -3746,6 +3816,9 @@ class Smoke:
                          "library_device_ms": k.get("library_device_ms"),
                          "deterministic": k.get("deterministic"),
                          "library_ms": k.get("library_ms")})
+            if not entry and name in self.heads_counts.get("mesh", {}):
+                # the mesh phase's launches by (local) head count
+                rows[-1]["launches_by_heads_mesh"] = self.heads_counts["mesh"][name]
             if name + entry == "seq_attention":
                 # kernel 1's launches by head dim, both entries together
                 by = {}
@@ -3754,6 +3827,44 @@ class Smoke:
                         by[str(d)] = by.get(str(d), 0) + n
                 rows[-1]["launches_by_head_dim"] = by
         return {"kernels": rows}
+
+
+def _deploy_round_trip(deploy, image):
+    """``image`` through the compress and decompress CLIs with the params
+    ``deploy`` (fp32; one process, whatever the environment's
+    ``WORLD_SIZE``), then its decode's h_hat against the encoder's y_hat."""
+    import gc
+    import torch
+    from sic_tpu_torch.cli._common import load_runtime
+    from sic_tpu_torch.cli.compress import main as compress_main
+    from sic_tpu_torch.cli.decompress import main as decompress_main
+    from sic_tpu_torch.config import flagship_spec
+    from sic_tpu_torch.data import load_image
+    work = deploy.parent / "round_trip"
+    src = work / "in"
+    src.mkdir(parents=True, exist_ok=True)
+    shutil.copy(image, src / image.name)
+    common = ["--ckpt_path", str(deploy), "--spec", "flagship", "--device", "cuda",
+              "--dtype", "float32"]
+    t0 = time.perf_counter()
+    compress_main(["--dataset_dir", str(src), "--save_dir", str(work / "c"),
+                   "--world_size", "1", "--rank", "0", *common])
+    n_dec = decompress_main(["--dataset_dir", str(work / "c" / "bitstreams"),
+                             "--save_dir", str(work / "d"), *common])
+    rec = {"cli_round_trip_s": round(time.perf_counter() - t0, 3)}
+    rt = load_runtime(str(deploy), flagship_spec(), device="cuda", stream_part=4,
+                      dtype="float32")
+    probe, dec = {}, {}
+    enc = rt.encode_only(load_image(src / image.name)[None], probe=probe)
+    rt.decode_only(**enc, coding_batch=8, probe=dec)
+    rt.close()
+    rec["h_hat_equal_y_hat"] = bool(torch.equal(dec["h_hat"], probe["y_hat"]))
+    rec["decoded_files"] = n_dec
+    rec["round_trip_ok"] = n_dec == 1 and rec["h_hat_equal_y_hat"]
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- the multiprocess phase's rank processes ------------------------------------
@@ -3920,26 +4031,29 @@ def _mp_rank_steps(device, x, data=None, pp=None):
     import torch
     from sic_tpu_torch.models.hybrid import is_cell_leaf
     from sic_tpu_torch.parallel import gather_to_first
-    from sic_tpu_torch.train import steps as steps_mod
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, steps = _mp_state(device, data, pp)
     rec = {"init_s": round(time.perf_counter() - t0, 3)}
     # the steps' gradient all-reduces, timed on the host's clock
-    reduce, spent = steps_mod.reduce_grads, []
+    from sic_tpu_torch.parallel import multihost
+    reduce, spent = multihost.reduce_grads, []
 
-    def timed_reduce(*a, **k):
+    def timed_reduce(params, group):
+        params = list(params)
+        if group is None:
+            return
         torch.cuda.synchronize()
         t = time.perf_counter()
-        reduce(*a, **k)
+        reduce(params, group)
         torch.cuda.synchronize()
         spent.append(time.perf_counter() - t)
 
-    steps_mod.reduce_grads = timed_reduce
+    multihost.reduce_grads = timed_reduce
     try:
         res = _mp_run_steps(state, steps, torch.as_tensor(x, device=device))
     finally:
-        steps_mod.reduce_grads = reduce
+        multihost.reduce_grads = reduce
     rec.update({f"{stage}_step_ms": r["step_ms"] for stage, r in res.items()})
     # feat: one all-reduce (the codec's); pix: the codec's, then the
     # discriminator's
@@ -4122,8 +4236,450 @@ def _rank_launches(before=None):
     return now
 
 
+# -- the mesh phase's rank processes ---------------------------------------------
+
+def _mesh_wide(x):
+    """val0 and val1 side by side: the (1, 256, 512, 3) image of the width
+    split's steps (two 256-px tiles, one a rank)."""
+    import numpy as np
+    return np.concatenate([x[0:1], x[1:2]], axis=2)
+
+
+def _mesh_record(state, keep, whole=True):
+    """The trainable leaves' gradients and the discriminator's, copies on
+    ``keep``, by name: in the one-process layout (a split leaf gathered
+    through the state's layout, a collective), or with ``whole`` False as
+    the rank holds them, beside ``fsdp_dims``, the dim of each FSDP
+    chunk."""
+    import torch
+    layout = state.layout
+    names = {id(p): "model." + n for n, p in state.model.named_parameters()}
+    names.update({id(p): "disc." + n for n, p in state.disc.named_parameters()})
+    params = [("/".join(path), p) for path, p in state.trainable] + [
+        ("disc." + n, p) for n, p in state.disc.named_parameters() if p.grad is not None]
+    out, dims = {}, {}
+    for key, p in params:
+        g, name = p.grad.detach(), names[id(p)]
+        if layout and name in layout.fsdp:
+            dims[key] = layout.fsdp[name]
+        if whole and layout and (name in layout.tp or name in layout.fsdp):
+            g = layout.full(name, g)
+        out[key] = g.to(keep, torch.float32, copy=True)
+    out.update({"stats." + n: b.detach().to(keep, torch.float32, copy=True)
+                for n, b in state.disc.named_buffers()})
+    return out, dims
+
+
+def _mesh_steps(device, mesh, x, fsdp=False, keep="cpu", whole=True):
+    """A feat step and a pix step, each from a fresh seeded flagship state
+    on ``mesh``: times, logs, gradients (on ``keep``; see
+    :func:`_mesh_record`), and the rank's bytes at rest and peak."""
+    import gc
+    import torch
+    from sic_tpu_torch.parallel import shard_batch, state_bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    xl = torch.as_tensor(shard_batch(x, mesh), device=device)
+    for stage in ("feat", "pix"):
+        t0 = time.perf_counter()
+        state, steps = _mp_state_mesh(device, mesh, fsdp)
+        init_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = getattr(steps, f"{stage}_step")(state, xl)
+        torch.cuda.synchronize()
+        out[stage] = {"step_ms": (time.perf_counter() - t) * 1e3,
+                      "init_s": round(init_s, 3),
+                      "logs": {k: float(v) for k, v in logs.items()},
+                      "bytes_at_rest": state_bytes([state.model, state.disc],
+                                                   [state.opt_ae, state.opt_disc]),
+                      # the FSDP chunks' bytes (parameters and moments)
+                      "chunk_bytes": sum(
+                          t.numel() * t.element_size() for f in state.fsdp.values()
+                          for _, p, _ in f.leaves
+                          for t in [p] + [v for opt in (state.opt_ae, state.opt_disc)
+                                          for v in opt.state.get(p, {}).values()
+                                          if isinstance(v, torch.Tensor) and v.dim()])}
+        out[stage]["grads"], out[stage]["fsdp_dims"] = _mesh_record(state, keep, whole)
+        del state, steps
+        gc.collect()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    return out, peak
+
+
+def _mp_state_mesh(device, mesh, fsdp):
+    import warnings
+    from sic_tpu_torch.config import flagship_spec, qp_strategy
+    from sic_tpu_torch.train import create_train_state
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, state, steps = create_train_state(flagship_spec(), qp_strategy(0, 256), SEED,
+                                             device=device, mesh=mesh, fsdp=fsdp)
+    return state, steps
+
+
+def _mesh_fsdp(device, grid, x):
+    """FSDP against data parallelism at world 2: this rank's chunk of each
+    planned leaf's gradient equal to the same chunk of the DP step's, and
+    the unplanned leaves' equal; bytes at rest and peaks."""
+    import torch
+    from sic_tpu_torch.parallel import make_mesh
+    from sic_tpu_torch.parallel.collectives import chunk_of
+    mesh = make_mesh((2, 1, 1), grid)
+    # each FSDP chunk against the same chunk of the DP step's gradient (the
+    # records on the host, out of the peaks)
+    dp, dp_peak = _mesh_steps(device, mesh, x)
+    fs, fs_peak = _mesh_steps(device, mesh, x, fsdp=True, whole=False)
+    rec = {"dp_peak_gb": dp_peak, "fsdp_peak_gb": fs_peak}
+    for stage in ("feat", "pix"):
+        a, b = fs[stage], dp[stage]
+        dims = a["fsdp_dims"]
+        rec[f"{stage}_planned_leaves"] = len(dims)
+        rec[f"{stage}_logs_equal"] = a["logs"] == b["logs"]
+        rec[f"{stage}_grads_equal"] = set(a["grads"]) == set(b["grads"]) and all(
+            torch.equal(g, b["grads"][k] if k not in dims
+                        else chunk_of(b["grads"][k], mesh.data, dims[k]))
+            for k, g in a["grads"].items())
+        rec[f"{stage}_step_ms"] = {"fsdp": a["step_ms"], "dp": b["step_ms"]}
+        rec[f"{stage}_bytes_at_rest"] = {"fsdp": a["bytes_at_rest"], "dp": b["bytes_at_rest"]}
+        # at rest: half of each planned leaf (and of its moments), the rest
+        # whole: the DP state's bytes less one chunk of each planned leaf
+        rec[f"{stage}_at_rest_as_planned"] = \
+            a["bytes_at_rest"] == b["bytes_at_rest"] - a["chunk_bytes"]
+    rec["ok"] = all(rec[f"{s}_{k}"] for s in ("feat", "pix")
+                    for k in ("logs_equal", "grads_equal", "at_rest_as_planned"))
+    return rec
+
+
+def _mesh_runtime(device, grid):
+    """``CodecRuntime(mesh=)`` at tile 2 over val0 and val1: both ranks get
+    the same streams; rank 0 decodes them in a one-process runtime, h_hat
+    against the mesh runtime's y_hat, bit for bit."""
+    import gc
+    import torch
+    from sic_tpu_torch.config import flagship_spec
+    from sic_tpu_torch.models import Codec, CodecRuntime
+    from sic_tpu_torch.parallel import gather_to_first, make_mesh
+    from sic_tpu_torch.weights import init_seeded
+    mesh = make_mesh((1, 2), ("data", "tile"))
+    x = _mp_batch()
+    with torch.device(device):
+        model = Codec(flagship_spec())
+    init_seeded(model, SEED)
+    rt = CodecRuntime(flagship_spec(), model, mesh=mesh, stream_part=4)
+    probe = {}
+    _mesh_launches()
+    t0 = time.perf_counter()
+    encs = rt.encode_only_batched(x, probe=probe)
+    rec = {"encode_s": round(time.perf_counter() - t0, 3), "h_path": probe["h_path"],
+           "paths": dict(rt.encode_path_counts), "launches": _mesh_launches()}
+    rt.close()
+    streams = [e["h_bit_stream"] + e["z_bit_stream"] for e in encs]
+    every = gather_to_first(streams, mesh.tile)
+    if every is not None:
+        one = CodecRuntime(flagship_spec(), model, stream_part=4)
+        dec = {}
+        one.decode_only_batched(encs, probe=dec)
+        one.close()
+        rec["reference_launches"] = _mesh_launches()    # the check's, not the path's
+        rec["streams_equal_on_ranks"] = all(s == every[0] for s in every)
+        rec["h_hat_equal_y_hat"] = bool(torch.equal(dec["h_hat"], probe["y_hat"]))
+        rec["ok"] = rec["streams_equal_on_ranks"] and rec["h_hat_equal_y_hat"] \
+            and rec["h_path"] == "host"
+    del rt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def _tp_split_shapes(model, n=2):
+    """Every Linear the TP plan splits runs as the ``n`` ranks run it, in
+    one process: a column projection as the ranks' row blocks (of each of
+    q, k, v) side by side, a row projection as the ranks' partial products
+    summed, then the bias.  The same function; the ranks' shapes."""
+    import torch
+    import torch.nn.functional as F
+    from sic_tpu_torch.parallel.mesh import _tp_split, _tp_units
+    from sic_tpu_torch.parallel.multihost import Group
+    ranks = [Group(None, tuple(range(n)), r) for r in range(n)]
+    patched = []
+
+    def column(lin, parts, x):
+        w, b = lin.weight, lin.bias
+        ys = [F.linear(x, _tp_split(w, 0, parts, g),
+                       None if b is None else _tp_split(b, 0, parts, g)) for g in ranks]
+        k = ys[0].shape[-1] // parts
+        return torch.stack([y.unflatten(-1, (parts, k)) for y in ys], -2).flatten(-3)
+
+    def row(lin, x):
+        w, k = lin.weight, lin.weight.shape[1] // n
+        y = sum(F.linear(x[..., r * k:(r + 1) * k], w[:, r * k:(r + 1) * k])
+                for r in range(n))
+        return y if lin.bias is None else y + lin.bias
+
+    for _, mod, col, rw, parts, _ in _tp_units(model, n):
+        c, r = getattr(mod, col), getattr(mod, rw)
+        c.forward = functools.partial(column, c, parts)
+        r.forward = functools.partial(row, r)
+        patched += [c, r]
+    try:
+        yield
+    finally:
+        for m in patched:
+            del m.forward
+
+
+@contextlib.contextmanager
+def _tile_split_shapes(modules, n=2):
+    """Every convolution and pointwise Linear of ``modules`` outside the
+    gathered regions (the bottleneck, the discriminator) runs as the ``n``
+    width slabs' ranks run it, in one process: each slab with its halo
+    (zeros past the image's edges), the results side by side; tokens of
+    whole tiles in the ranks' tile groups.  The same function; the ranks'
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+    from sic_tpu_torch.models import layers, vqgan
+    from sic_tpu_torch.models.bottleneck import CompressiveBottleneck
+    from sic_tpu_torch.train import steps as steps_mod
+
+    def halves(x, left, right):
+        W = x.shape[2] // n
+        pad = F.pad(x, (0, 0, left, right))
+        return [pad[:, :, r * W:(r + 1) * W + left + right] for r in range(n)]
+
+    def conv(m, x):
+        kw, sw = m.kernel_size[1], m.stride[1]
+        if m.kernel_size == (1, 1) and m.stride == (1, 1) and m.groups == 1:
+            return pointwise(m, x)
+        if sw == 1:
+            p = kw // 2
+            return torch.cat([m.conv_local(h, padding=(m.padding[0], 0))
+                              for h in halves(x, p, p)], 2)
+        return torch.cat([m.conv_local(h) for h in halves(x, 0, 0)], 2)
+
+    def pointwise(m, x):
+        if x.dim() == 4:
+            W = x.shape[2] // n
+            return torch.cat([m.__class__.forward(m, x[:, :, r * W:(r + 1) * W].contiguous())
+                              for r in range(n)], 2)
+        if x.dim() == 3 and x.shape[0] % n == 0:
+            return torch.cat([m.__class__.forward(m, c.contiguous()) for c in x.chunk(n)])
+        return m.__class__.forward(m, x)
+
+    def down(m, x):
+        x = F.pad(x, (0, 0, 0, 0, 0, 1))
+        return torch.cat([m.conv.conv_local(h) for h in halves(x, 0, 1)], 2)
+
+    def group_norm(m, x):
+        # the ranks' two passes, each slab's sums added as the all-reduce adds
+        B, H, W, C = x.shape
+        G = m.num_groups
+        xs = [h.float().reshape(B, H, W // n, G, C // G) for h in halves(x, 0, 0)]
+        cnt = H * W * (C // G)
+        mean = sum(h.sum(dim=(1, 2, 4)) for h in xs) / cnt
+        ds = [h - mean[:, None, None, :, None] for h in xs]
+        var = sum((d * d).sum(dim=(1, 2, 4)) for d in ds) / cnt
+        inv = torch.rsqrt(var + m.eps)[:, None, None, :, None]
+        y = torch.cat([(d * inv).reshape(B, H, W // n, C) for d in ds], 2)
+        return (y * m.weight.float() + m.bias.float()).to(x.dtype)
+
+    skip = set()
+    for root in modules:
+        for mod in root.modules():
+            if isinstance(mod, CompressiveBottleneck) or mod.__class__.__name__ == "NLayerDiscriminator":
+                skip |= {id(m) for m in mod.modules()}
+    patched = []
+    for root in modules:
+        for m in root.modules():
+            if id(m) in skip:
+                continue
+            if isinstance(m, layers.Conv2d):
+                m.forward = functools.partial(conv, m)
+            elif isinstance(m, nn.Linear):
+                m.forward = functools.partial(pointwise, m)
+            elif isinstance(m, vqgan.Downsample):
+                m.forward = functools.partial(down, m)
+            elif isinstance(m, layers.GroupNorm):
+                m.forward = functools.partial(group_norm, m)
+            else:
+                continue
+            patched.append(m)
+    last = steps_mod._last_conv_apply
+    steps_mod._last_conv_apply = lambda h, w, b: torch.cat(
+        [F.conv2d(c.permute(0, 3, 1, 2), w, b, padding=(1, 0)).permute(0, 2, 3, 1)
+         for c in halves(h.to(w.dtype), 1, 1)], 2)
+    try:
+        yield
+    finally:
+        for m in patched:
+            del m.forward
+        steps_mod._last_conv_apply = last
+
+
+def _mesh_references(device, x, wide):
+    """Rank 0's one-process references: the steps as they run ("global")
+    and with the ranks' shapes ("split"), for TP on the 256-px batch and
+    for the width split on the 512-px-wide image."""
+    import gc
+    import torch
+    state, steps = _mp_state(device)
+    refs = {}
+    for name, xs in (("tp", x), ("tile", wide)):
+        xt = torch.as_tensor(xs, device=device)
+        for kind in ("global", "split"):
+            ctx = (contextlib.nullcontext() if kind == "global" else
+                   _tp_split_shapes(state.model) if name == "tp" else
+                   _tile_split_shapes((state.model, state.lpips)))
+            with ctx:
+                refs[f"{name}_{kind}"] = _mp_run_steps(state, steps, xt, keep=device)
+            _mp_reset_disc(state)
+    del state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _mesh_judge(runs, refs, device):
+    """TP and the width split against their "split" references within
+    PERF.md §2's bounds, and against "global" within the larger of those
+    bounds and 1.5x "split"'s own gap to "global"."""
+    rec = {}
+    for name in ("tp", "tile"):
+        for r in runs[name].values():
+            r["grads"] = {k: g.to(device) for k, g in r["grads"].items()}
+        for stage in ("feat", "pix"):
+            got = runs[name][stage]
+            split, glob = refs[f"{name}_split"][stage], refs[f"{name}_global"][stage]
+            rec[f"{name}_vs_split_{stage}"] = _mp_errors(got, split, stage, device)
+            gap = rec[f"split_vs_global_{name}_{stage}"] = _mp_errors(split, glob, stage, device)
+            g = rec[f"{name}_vs_global_{stage}"] = _mp_errors(got, glob, stage, device)
+            loss_tol, grad_tol = ((TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) if stage == "feat"
+                                  else (PIX_LOSS_TOL, PIX_GRAD_TOL))
+            limits = {"max_loss_rel_err": max(loss_tol, 1.5 * gap["max_loss_rel_err"]),
+                      "max_leaf_grad_rel_err": max(grad_tol, 1.5 * gap["max_leaf_grad_rel_err"]),
+                      "stats_rel_err": max(loss_tol, 1.5 * gap["stats_rel_err"])}
+            rec[f"{name}_vs_global_{stage}_limits"] = limits
+            rec[f"{name}_vs_global_{stage}_ok"] = all(g[k] <= v for k, v in limits.items())
+        rec[f"{name}_ok"] = all(rec[f"{name}_vs_split_{s}"]["ok"]
+                                and rec[f"{name}_vs_global_{s}_ok"] for s in ("feat", "pix"))
+    return rec
+
+
+def _mesh_cli(flags, ckpt_name, last=False):
+    """The train CLI with ``flags`` at world size 2 at 256 px over val0 and
+    val1 (the qp 0 preset cut to one feat epoch and one pix epoch); the
+    process group is kept for the next run unless ``last``."""
+    import dataclasses
+    import torch
+    from sic_tpu_torch import config, parallel
+    from sic_tpu_torch.cli.train import main as train_main
+    base = config.qp_strategy(0, 256)
+    cut = dataclasses.replace(base, stages=tuple(
+        dataclasses.replace(st, epoch_num=k) for st, k in zip(base.stages, (0, 1, 1))))
+    keep = config.qp_strategy, parallel.shutdown
+    config.qp_strategy = lambda qp=0, train_px=256: cut
+    if not last:
+        parallel.shutdown = lambda: None
+    ckpt = TRAIN_WORK / ckpt_name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = train_main(["--qp", "0", "--train_px", "256", "--epochs", "2",
+                          "--batch_size", "2", "--train_dir", str(MESH_WORK / "train"),
+                          "--ckpt_dir", str(ckpt), *flags])
+    finally:
+        config.qp_strategy, parallel.shutdown = keep
+    return {"train_s": round(time.perf_counter() - t0, 3), "result": out,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "deploy": str(ckpt / "deploy_params.npz"),
+            "ok": out["global_step"] == 2 and (ckpt / "deploy_params.npz").exists()}
+
+
+def _mesh_launches():
+    """The launch counts since the last reset, by wrapper, bf16 entry, head
+    dim and head count; the counters reset."""
+    from sic_tpu_torch import ops
+    heads = {k: {str(h): n for h, n in v.items()}
+             for k, v in ops.heads_launch_counts().items()}
+    return dict(_rank_launches(), heads_counts=heads)
+
+
+def _rank_mesh(args):
+    """One rank of the mesh phase: FSDP against DP, TP, the width split,
+    the mesh runtime, then (rank 0, rank 1 idle) the one-process
+    references and the judgement, then the train CLI with --tp 2 and with
+    --fsdp.  The launches of each sharded run are read around it."""
+    import os
+    import torch
+    from sic_tpu_torch.parallel import barrier, make_mesh, rank_device, setup_distributed
+    rank, world = setup_distributed(device=rank_device(int(os.environ["RANK"])))
+    device = rank_device(rank)
+    grid = ("data", "model", "tile")
+    x = _mp_batch()
+    wide = _mesh_wide(x)
+    rec = {"rank": rank, "launches": {}}
+    partial = MESH_WORK / f"mesh_rank{rank}.partial.json"
+
+    def keep():         # what the rank has so far, for a run that fails later
+        partial.write_text(json.dumps(rec, default=float))
+
+    t0 = time.perf_counter()
+    rec["block_s"] = blocks = {}
+
+    def lap(name):
+        nonlocal t0
+        blocks[name] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+
+    _mesh_launches()
+    rec["fsdp"] = _mesh_fsdp(device, grid, x)
+    rec["launches"]["fsdp"] = _mesh_launches()
+    lap("fsdp")
+    keep()
+    runs = {}
+    for name, shape, xs in (("tp", (1, 2, 1), x), ("tile", (1, 1, 2), wide)):
+        runs[name], peak = _mesh_steps(device, make_mesh(shape, grid), xs)
+        rec["launches"][name] = _mesh_launches()
+        rec[name] = {"peak_gb": peak, **{
+            f"{s}_{k}": runs[name][s][k] for s in ("feat", "pix")
+            for k in ("step_ms", "init_s", "bytes_at_rest")}}
+        lap(name)
+        keep()
+    rec["runtime"] = _mesh_runtime(device, grid)
+    rec["launches"]["runtime"] = rec["runtime"].pop("launches")
+    lap("runtime")
+    keep()
+    barrier("mesh_runs_done")
+    if rank == 0:
+        refs = _mesh_references(device, x, wide)
+        rec["reference_launches"] = _mesh_launches()    # not the path's
+        rec["compare"] = _mesh_judge(runs, refs, device)
+        rec["reference_step_ms"] = {k: {s: v[s]["step_ms"] for s in v} for k, v in refs.items()}
+        del refs
+        keep()
+    del runs
+    torch.cuda.empty_cache()
+    barrier("mesh_references_done")
+    lap("references")
+    rec["cli_tp"] = _mesh_cli(["--tp", "2"], "tp_ck")
+    rec["cli_fsdp"] = _mesh_cli(["--fsdp"], "fsdp_ck", last=True)
+    rec["launches"]["cli"] = _mesh_launches()
+    lap("clis")
+    # each rank one run's deployment parameters through the deploy CLIs
+    deploy = Path(rec["cli_tp" if rank == 0 else "cli_fsdp"]["deploy"])
+    rec["round_trip"] = _deploy_round_trip(deploy, HELDOUT / "val0.png")
+    lap("round_trip")
+    return rec
+
+
 def rank_main(argv) -> int:
-    """``chip_smoke.py --rank-task <compress|train> <record.json> [args]``:
+    """``chip_smoke.py --rank-task <compress|train|mesh> <record.json> [args]``:
     one rank of the multiprocess phase (WORLD_SIZE, RANK, MASTER_ADDR and
     MASTER_PORT in the environment); writes its record and the launch
     counts of its multi-process runs (not of rank 0's one-process
@@ -4133,7 +4689,8 @@ def rank_main(argv) -> int:
     configure_numerics()
     task, out, args = argv[0], Path(argv[1]), argv[2:]
     ops.reset_launch_counts()
-    rec = {"compress": _rank_compress, "train": _rank_train}[task](args)
+    rec = {"compress": _rank_compress, "train": _rank_train,
+           "mesh": _rank_mesh}[task](args)
     out.write_text(json.dumps(rec, default=float))
     return 0
 
@@ -4155,29 +4712,42 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
 
     smoke = Smoke(torch)
+    # ``--phases a,b``: those phases alone (a check while working on one;
+    # no kernels or result line)
+    only = sys.argv[sys.argv.index("--phases") + 1].split(",") \
+        if "--phases" in sys.argv else None
+
+    def run(name, fn):
+        if only is None or name in only:
+            smoke.phase(name, fn)
+
     smoke.phase("build", smoke.build)
     if smoke.failed:
         return 1
-    smoke.phase("kernels", smoke.kernel_checks)
-    smoke.phase("golden", smoke.golden)
-    smoke.phase("encode", smoke.encode)
+    run("kernels", smoke.kernel_checks)
+    run("golden", smoke.golden)
+    run("encode", smoke.encode)
     if "encode" not in smoke.failed:
-        smoke.phase("flagship", smoke.flagship)
-        smoke.phase("op", smoke.op)
-        smoke.phase("serve", smoke.serve)
-        smoke.phase("surface", smoke.surface)
-        smoke.phase("bf16", smoke.bf16)
-        smoke.phase("int8", smoke.int8)
-        smoke.phase("train", smoke.train)
-        smoke.phase("train_bf16", smoke.train_bf16)
-    smoke.phase("generate", smoke.generate)
+        run("flagship", smoke.flagship)
+        run("op", smoke.op)
+        run("serve", smoke.serve)
+        run("surface", smoke.surface)
+        run("bf16", smoke.bf16)
+        run("int8", smoke.int8)
+        run("train", smoke.train)
+        run("train_bf16", smoke.train_bf16)
+    run("generate", smoke.generate)
     if not {"encode", "flagship"} & set(smoke.failed):
-        smoke.phase("cpu", smoke.cpu_compare)
+        run("cpu", smoke.cpu_compare)
     if "encode" not in smoke.failed:
-        smoke.phase("multiprocess", smoke.multiprocess)
+        run("multiprocess", smoke.multiprocess)
+    run("mesh", smoke.mesh)
     if getattr(smoke, "rt", None) is not None:
         smoke.rt.close()
     shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    if only is not None:
+        print(f"phases run: {['build'] + only}; failed: {smoke.failed}", file=sys.stderr)
+        return 1 if smoke.failed else 0
     print(json.dumps(smoke.kernels_line()), flush=True)
     if smoke.failed:
         print(f"failed phases: {smoke.failed}", file=sys.stderr)

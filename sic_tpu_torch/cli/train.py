@@ -8,7 +8,7 @@
         [--lpips_vgg vgg16.pth] [--tiny] [--insert_pos ...] [--seed 0]
         [--device cuda] [--log_dir LOGS] [--f32_frozen] [--no_donate]
         [--world_size N --rank R --coordinator HOST:PORT]
-        [--pp P [--pp_microbatch M]]
+        [--pp P [--pp_microbatch M]] [--tp T] [--tile S] [--fsdp]
 
 Across processes (``--world_size``, ``--rank``, ``--coordinator``, by
 default ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR:MASTER_PORT``) the
@@ -17,6 +17,14 @@ processes form a (world/pp, pp) grid: data parallelism over the first axis
 statistics are the global batch's), GPipe over the second (``--pp``: the
 hybrid trunks' cells split into pipeline stages, ``--pp_microbatch``
 microbatches, one a stage by default; a partial final batch is dropped).
+With ``--tp`` / ``--tile`` the grid is (world/(tp*tile) data) x (tp model)
+x (tile tile), the JAX CLI's mesh over processes: ``--tp`` splits the
+attention and MLP blocks head-aligned over ``model``, ``--tile`` the
+images' width over ``tile`` (``parallel/mesh.py``); ``--fsdp`` keeps each
+data rank's chunks of the large leaves and their Adam moments, with or
+without ``--pp``.  Unlike the JAX CLI, whose mesh is one process's
+devices, these flags compose with ``--world_size``: the ranks are
+processes, one card each or sharing one.
 Only rank 0 logs and writes files.  Each rank runs on
 ``cuda:(LOCAL_RANK or rank) % device_count`` unless ``--device`` names
 one; ranks sharing a card talk over gloo, one card a rank over NCCL.
@@ -29,10 +37,10 @@ validation-bpp lambda controller, writes
 ``torch.save`` checkpoints into ``--ckpt_dir`` at every stage change and at
 the end (``last``), and finally ``deploy_params.npz``: the codec's
 parameters in the flat ``params/...`` layout (f32) that the compress and
-decompress CLIs read with ``--ckpt_path`` (under ``--pp`` gathered from
-the stages, in the same named layout; not written by a run that is only
-data-parallel across processes, as the JAX CLI writes it from every run
-but a multi-host data-parallel one).
+decompress CLIs read with ``--ckpt_path`` (under ``--pp``, ``--tp``,
+``--tile`` and ``--fsdp`` gathered into the one-process layout; not
+written by a run that is only data-parallel across processes, as the JAX
+CLI writes it from every run but a multi-host data-parallel one).
 
 On CUDA it trains as the JAX CLI trains on an accelerator: Adam's first
 moments and the frozen backbones stored in bf16 (``--f32_frozen`` keeps
@@ -50,10 +58,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_NOT_YET = ("Not offered yet (ROADMAP queue 1 item 10b, the next slice): "
-            "--tp/--tile/--fsdp, the JAX package's GSPMD shardings.")
-
-
 def accelerator_dtypes(device, f32_frozen: bool = False):
     """(mu_dtype, frozen_dtype) of the JAX CLI's rule (``on_tpu =
     platform != "cpu"``): bf16 Adam moments and bf16 frozen storage on an
@@ -66,7 +70,7 @@ def accelerator_dtypes(device, f32_frozen: bool = False):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="sic_tpu_torch train", epilog=_NOT_YET)
+    ap = argparse.ArgumentParser(description="sic_tpu_torch train")
     ap.add_argument("--base_config", default=None,
                     help="reference-layout training YAML (spec, strategy, "
                          "loss configs, tune_titok); excludes --qp and --tiny")
@@ -113,11 +117,15 @@ def main(argv=None):
     ap.add_argument("--coordinator", default=None,
                     help="host:port of process 0 "
                          "(default: MASTER_ADDR:MASTER_PORT env)")
-    for flag in ("--tp", "--tile"):
-        ap.add_argument(flag, type=int, default=1,
-                        help="refused: not offered yet (see the epilogue)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: the attention and MLP "
+                         "blocks split head-aligned over a 'model' axis")
+    ap.add_argument("--tile", type=int, default=1,
+                    help="spatial-parallel ranks: the images' width split "
+                         "over a 'tile' axis (convolution halos exchanged)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="refused: not offered yet (see the epilogue)")
+                    help="ZeRO-shard the large leaves and their Adam moments "
+                         "over the data axis (gathered for each step)")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages: the hybrid trunks' cells split "
                          "over --pp processes (GPipe); the rest of the "
@@ -127,14 +135,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.pp > 1 and (args.tp > 1 or args.tile > 1):
         ap.error("--pp composes with data parallelism; not with --tp/--tile")
-    if args.tp > 1 or args.tile > 1 or args.fsdp:
-        ap.error(_NOT_YET)
 
     from ..config import flagship_spec, load_config, qp_strategy, tiny_spec
     from ..data import ImageDataset
     from ..models.hybrid import PPConfig, cell_partition
     from ..parallel import (barrier, codec_params_canonicalize, grid_groups,
-                            rank_device, setup_distributed, shutdown)
+                            make_mesh, rank_device, setup_distributed, shutdown)
     from ..parallel.multihost import resolve_world
     from ..train import (FeatLossCfg, ImgLossCfg, Trainer, create_train_state,
                          load_checkpoint)
@@ -184,13 +190,31 @@ def main(argv=None):
             ap.error(f"--batch_size {args.batch_size} must be a multiple of "
                      f"microbatches*data = {mb}*{data_ways} "
                      "(each microbatch shards over the data axis)")
+    elif args.tp > 1 or args.tile > 1:
+        ways = args.tp * args.tile
+        if world % ways:
+            ap.error(f"{world} processes not divisible by tp*tile={ways}")
+        data_ways = world // ways
+        if args.batch_size % data_ways:
+            ap.error(f"--batch_size {args.batch_size} must divide by the "
+                     f"data-axis size {data_ways}")
+        if args.train_px % args.tile:
+            ap.error(f"--train_px {args.train_px} must divide by --tile "
+                     f"{args.tile}")
     elif world > 1 and args.batch_size % world:
         ap.error(f"--batch_size {args.batch_size} must divide by "
                  f"world_size {world}")
     device = args.device if world == 1 else rank_device(rank, args.device)
     rank, world = setup_distributed(rank, world, args.coordinator, device,
                                     placed=args.device is None)
-    data, pipe = grid_groups(args.pp)
+    mesh = None
+    if args.pp > 1 or not (args.tp > 1 or args.tile > 1 or args.fsdp):
+        data, pipe = grid_groups(args.pp)
+    else:
+        mesh = make_mesh((data_ways, args.tp, args.tile), ("data", "model", "tile"))
+        data, pipe = mesh.data, None
+        print(f"[train] mesh {dict(mesh.shape)}"
+              + (" + ZeRO over data" if args.fsdp else ""), file=sys.stderr)
     pp_cfg = None
     if args.pp > 1:
         pp_cfg = PPConfig(pipe, args.pp_microbatch)
@@ -224,7 +248,7 @@ def main(argv=None):
         codec_params=warm, device=device, lpips_lin=args.lpips_lin,
         lpips_vgg=args.lpips_vgg, tune_titok=tune_titok, mu_dtype=mu_dtype,
         frozen_dtype=frozen_dtype, donate=not args.no_donate, data=data,
-        pp=pp_cfg)
+        pp=pp_cfg, mesh=mesh, fsdp=args.fsdp)
     if args.resume:
         if warm is not None:
             print(f"[train] params-only warm start from {args.resume}",
@@ -269,11 +293,11 @@ def main(argv=None):
         if writer is not None:
             writer.close()
     deploy = None
-    if world == 1 or args.pp > 1:
+    if world == 1 or args.pp > 1 or mesh is not None:
         # as the JAX CLI: from every run but a multi-host data-parallel one
-        # (its --pp runs are one process); the named layout the deploy CLIs
-        # load, gathered from the first pipeline's stages
-        flat = gathered_flax_params(state) if data is None or data.index == 0 else None
+        # (its --pp and mesh runs are one process); the named layout the
+        # deploy CLIs load, gathered from the stages, heads and chunks
+        flat = gathered_flax_params(state)
         if rank == 0:
             deploy = Path(args.ckpt_dir) / "deploy_params.npz"
             np.savez(deploy, **flat)
@@ -286,7 +310,8 @@ def main(argv=None):
               file=sys.stderr)
     return {"ckpt_dir": str(args.ckpt_dir),
             "deploy_params": None if deploy is None else str(deploy),
-            "rank": rank, "world": world, "pp": args.pp,
+            "rank": rank, "world": world, "pp": args.pp, "tp": args.tp,
+            "tile": args.tile, "fsdp": args.fsdp,
             "global_step": state.global_step,
             "epoch_for_strategy": state.epoch_for_strategy,
             "mu_dtype": str(mu_dtype), "frozen_dtype": str(frozen_dtype),

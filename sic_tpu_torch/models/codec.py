@@ -27,6 +27,9 @@ from ..config import CodecSpec
 from ..entropy import EntropyCoder
 from ..entropy.torchac_compat import UniformTorchacCodec
 from ..ops.quant import quantize_linears, resolve_quant
+from ..parallel.collectives import (all_gather_cat, chunk_of, no_tile,
+                                    tile_gather, tile_group, tile_parallel,
+                                    tile_scatter)
 from ..utils.profiling import timed_stage
 from .bottleneck import BottleneckCoder
 from .hybrid import FeatMerge, HybridCodec
@@ -152,10 +155,22 @@ class Codec(nn.Module):
 
     def encode_stage(self, x01):
         """[0, 1] padded image -> (z token indices (BT, n_latent), detail
-        latent (B, H/32, W/32, feat_width), stack_shape)."""
+        latent (B, H/32, W/32, feat_width), stack_shape).  Under the width
+        split ``x01`` is this rank's slab and the results are the whole
+        image's (gathered), the same on every rank."""
         hc = self.hybrid_codec
+        group = tile_group()
+        if group is not None and x01.shape[2] % self.spec.tile_px:
+            with no_tile():     # a tile straddles ranks: the whole width
+                return self.encode_stage(tile_gather(x01, group))
         z, h, stack_shape = hc.encoder(x01, hc.latent_tokens)
-        return hc.quantize.encode_indices(z), h, stack_shape
+        idx = hc.quantize.encode_indices(z)
+        if group is None:
+            return idx, h, stack_shape
+        nH, nW = stack_shape
+        idx = tile_gather(idx.reshape(-1, nH, nW, idx.shape[-1]), group)
+        return (idx.reshape(-1, idx.shape[-1]), tile_gather(h, group),
+                (nH, nW * group.size))
 
     def encode_to_vqgan(self, x):
         """x in [-1, 1] -> (teacher latent, teacher indices) from the frozen
@@ -197,10 +212,27 @@ class Codec(nn.Module):
                 "logits": logits, "vqgan_latent": latent}
 
     def decode_stage(self, z_indices, h_hat, stack_shape):
-        """Token indices + decoded detail latent -> [-1, 1] image."""
-        z_hat = self.hybrid_codec.decode_z_indices(z_indices)
-        titok_hat, feat_hat = self.hybrid_codec.decoder(z_hat, h_hat,
-                                                        tuple(stack_shape))
+        """Token indices + decoded detail latent -> [-1, 1] image.  Under
+        the width split the inputs are the whole image's and the result is
+        this rank's slab: the hybrid decoder runs on the rank's own tiles
+        (on every tile, the same on each rank, when they do not split
+        evenly)."""
+        hc = self.hybrid_codec
+        z_hat = hc.decode_z_indices(z_indices)
+        stack_shape = tuple(stack_shape)
+        group = tile_group()
+        if group is None:
+            titok_hat, feat_hat = hc.decoder(z_hat, h_hat, stack_shape)
+        elif stack_shape[1] % group.size == 0:
+            nH, nW = stack_shape
+            z_hat = chunk_of(z_hat.reshape(-1, nH, nW, *z_hat.shape[1:]), group, 2)
+            titok_hat, feat_hat = hc.decoder(
+                z_hat.reshape(-1, *z_hat.shape[3:]), chunk_of(h_hat, group, 2),
+                (nH, nW // group.size))
+        else:
+            with no_tile():
+                titok_hat, feat_hat = hc.decoder(z_hat, h_hat, stack_shape)
+            titok_hat, feat_hat = (tile_scatter(t, group) for t in (titok_hat, feat_hat))
         latent, _ = self.decode_to_latent(titok_hat, feat_hat)
         return torch.clamp(self.decode_to_image(latent), -1.0, 1.0)
 
@@ -344,11 +376,24 @@ class CodecRuntime:
 
     Several threads may share one runtime (``decode_only_many``,
     ``round_trip_pipelined``, ``encode_decode_many``, the service): the
-    coders are pooled, and the router and the path counts take a lock."""
+    coders are pooled, and the router and the path counts take a lock.
+
+    ``mesh``: a process grid over ``data`` and ``tile``
+    (:func:`~sic_tpu_torch.parallel.mesh.make_mesh`), the JAX package's
+    ``CodecRuntime(mesh=)``: every rank builds the runtime and calls it
+    with the whole batch; the parameters are replicated (broadcast from
+    rank 0); the network passes split the batch's rows over ``data`` (a
+    multiple of its size) and the width over ``tile``, and their results
+    are gathered, so every rank gets the same result back.  The coding
+    chain (the prior, the CDF indexes at the header's ``coding_batch``,
+    fp32) runs unsplit on the gathered latent, so a stream encoded under a
+    mesh decodes in a one-process runtime; the encode takes the host coder,
+    as the JAX runtime's does under a mesh."""
 
     def __init__(self, spec: CodecSpec, model: Codec, stream_part: int = 1,
                  device_entropy: str = "auto", z_format: str = "rans",
-                 dtype: Optional[torch.dtype] = None, quant: Optional[str] = None):
+                 dtype: Optional[torch.dtype] = None, quant: Optional[str] = None,
+                 mesh=None):
         if device_entropy not in ("auto", "host", "device"):
             raise ValueError(f"device_entropy: {device_entropy}")
         if z_format not in Z_CODERS:
@@ -370,6 +415,13 @@ class CodecRuntime:
             if self.dtype != torch.float32:
                 self.net.set_compute_dtype(self.dtype, cast_weights=True)
             self.net.eval()
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.model is not None or mesh.size("pipe") > 1:
+                raise ValueError("a runtime's mesh splits data and tile only")
+            from ..parallel.mesh import shard_state
+            shard_state([self.net] if self.net is self.model
+                        else [self.model, self.net])
         self.stream_part = stream_part
         self.device_entropy = device_entropy
         self.h_coder = BottleneckCoder(model.hybrid_codec.quantize_feat,
@@ -457,8 +509,9 @@ class CodecRuntime:
         """Route an encode batch: the device coder when the predicted
         kernel walk beats the packed-plane fetch at the realized host cost
         (on CUDA), or when forced.  A plane that does not split into the
-        substreams goes to the host coder before anything launches."""
-        if self.device_entropy == "host":
+        substreams goes to the host coder before anything launches; under
+        a mesh, every batch does."""
+        if self.device_entropy == "host" or self.mesh is not None:
             return False
         if not self.h_coder.can_compress_on_device(latent_shape):
             return False
@@ -481,15 +534,46 @@ class CodecRuntime:
             raise ValueError(f"bad coding_batch: {cb}")
         return cb
 
+    def _rows(self, B: int) -> int:
+        """This rank's rows of a B-image batch under the mesh."""
+        n = self.mesh.size("data")
+        if B % n:
+            raise ValueError(f"a batch of {B} images does not split over "
+                             f"{n} data ranks")
+        return B // n
+
     @torch.no_grad()
     def _decode_pixels(self, z_indices, h_hat, stack_shape, output: str):
-        x = self.net.decode_stage(z_indices, h_hat, stack_shape)
+        if self.mesh is None:
+            x = self.net.decode_stage(z_indices, h_hat, stack_shape)
+        else:
+            mesh, B = self.mesh, h_hat.shape[0]
+            per = self._rows(B)
+            i = mesh.data.index if mesh.data is not None else 0
+            nt = z_indices.shape[0] // B
+            with tile_parallel(mesh.tile):
+                x = self.net.decode_stage(z_indices[i * per * nt:(i + 1) * per * nt],
+                                          h_hat[i * per:(i + 1) * per], stack_shape)
+                x = tile_gather(x)
+            x = all_gather_cat(x, mesh.data, 0)
         return to_u8(x) if output == "u8" else x.float()
 
     def _encode_stage(self, x: torch.Tensor):
-        """(z indices, h) of images in [-1, 1]; h in f32 for the coder."""
-        z_indices, h, _ = self.net.encode_stage(x * 0.5 + 0.5)
-        return z_indices, h.float()
+        """(z indices, h) of images in [-1, 1]; h in f32 for the coder.
+        Under the mesh: this rank's rows and slab through the networks,
+        the results gathered."""
+        if self.mesh is None:
+            z_indices, h, _ = self.net.encode_stage(x * 0.5 + 0.5)
+            return z_indices, h.float()
+        from ..parallel.mesh import shard_batch
+        mesh = self.mesh
+        self._rows(x.shape[0])
+        xl = shard_batch(x, mesh)
+        with tile_parallel(mesh.tile):
+            z, h, _ = self.net.encode_stage(xl * 0.5 + 0.5)
+        n = z.shape[-1]
+        z = all_gather_cat(z.reshape(xl.shape[0], -1, n), mesh.data, 0)
+        return z.reshape(-1, n), all_gather_cat(h, mesh.data, 0).float()
 
     # -- decode entry points ----------------------------------------------------
     def decode_only(self, z_bit_stream, h_bit_stream, img_shape, feat_shape,
@@ -591,7 +675,7 @@ class CodecRuntime:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result()).to(self.device)
         with timed_stage(timer, "decode_device"):
-            if not per_stream_networks:
+            if not per_stream_networks or self.mesh is not None:
                 return self._decode_pixels(z, h_hat, first["stack_shape"], output)
             nt = z.shape[0] // len(enc_results)
             outs = []
@@ -663,8 +747,8 @@ class CodecRuntime:
     def _encode_networks(self, x: torch.Tensor, per_stream: bool):
         """(z_indices, h) of a batch: one pass, or with ``per_stream`` one
         pass an image (a repeated image, a padded lane, reuses its
-        result)."""
-        if not per_stream:
+        result; not under a mesh, whose pass splits the batch)."""
+        if not per_stream or self.mesh is not None:
             return self._encode_stage(x)
         outs = []
         for b in range(x.shape[0]):

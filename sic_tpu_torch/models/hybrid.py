@@ -17,6 +17,15 @@ layout (``transformer.<i>``, ``inter_blocks.<i>``, ``feat_blocks.<i>``)
 in both modes; the JAX package's stacked ``trunk_cells``, with zeroed
 interaction parameters behind a 0-gate in insert-free cells, is a layout
 of ``nn.scan`` that only ``parallel.pipeline``'s converters know.
+
+Under the width split (``parallel.collectives.tile_parallel``) a rank whose
+slab holds whole 256-px tiles runs the encoder and decoder on its own
+tiles (the ViT, the cross blocks and the detail branch; the Swin stacks on
+the slab, the quantizer's losses averaged over the ranks), and the detail
+bottleneck, whose prior and rate couple the whole latent, runs on the
+gathered latent.  Where a tile straddles two ranks (the 256-px training
+crop at ``--tile 2``) the hybrid branch runs on the gathered width, the
+same on every rank, and hands each rank its slab of the decoded maps.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import TiTokSpec
+from ..parallel.collectives import (no_tile, tile_gather, tile_group,
+                                    tile_mean, tile_scatter)
 from .bottleneck import CompressiveBottleneck
 from .convnext import ConvNeXtBlock
 from .cross import (InteractiveCrossAttn, tile_nhwc_to_tokens,
@@ -375,12 +386,25 @@ class HybridCodec(nn.Module):
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None):
         """x: (B, H, W, 3) in [0, 1] -> both quantized latents and their
-        result dicts (``noise``/``generator``: the bottleneck's rate noise)."""
+        result dicts (``noise``/``generator``: the bottleneck's rate noise).
+        On width slabs of whole tiles: this rank's tiles' tokens and the
+        slab of the detail latent; the rate and the quantizer's losses are
+        the whole image's."""
         z, h, stack_shape = self.encoder(x, self.latent_tokens)
         z_quantized, z_result = self.quantize(z)
-        h_quantized, h_result = self.quantize_feat(
-            h, (x.shape[1], x.shape[2]), q_idx=0, training=training,
-            noise=noise, generator=generator)
+        group = tile_group()
+        img_hw = (x.shape[1], x.shape[2])
+        if group is not None:
+            for k in ("quantizer_loss", "commitment_loss", "codebook_loss"):
+                z_result[k] = tile_mean(z_result[k], group)
+            img_hw = (x.shape[1], x.shape[2] * group.size)
+            h = tile_gather(h, group)
+        with no_tile():
+            h_quantized, h_result = self.quantize_feat(
+                h, img_hw, q_idx=0, training=training, noise=noise,
+                generator=generator)
+        if group is not None:
+            h_quantized = tile_scatter(h_quantized, group)
         return {"z_quantized": z_quantized, "z_result_dict": z_result,
                 "h_quantized": h_quantized, "h_result_dict": h_result,
                 "stack_shape": stack_shape}
@@ -388,6 +412,15 @@ class HybridCodec(nn.Module):
     def forward(self, x, training: bool = False,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
+        group = tile_group()
+        if group is not None and x.shape[2] % self.encoder.spec.tile_px:
+            # a tile straddles ranks: the whole width, the same on each
+            with no_tile():
+                out = self.forward(tile_gather(x, group), training, noise,
+                                   generator)
+            for k in ("titok_hat", "feat_hat"):
+                out[k] = tile_scatter(out[k], group)
+            return out
         out = self.encode(x, training, noise, generator)
         out["titok_hat"], out["feat_hat"] = self.decoder(
             out["z_quantized"], out["h_quantized"], out["stack_shape"])

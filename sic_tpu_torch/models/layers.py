@@ -21,6 +21,15 @@ parameters upcast, whatever their storage, and return the input's dtype,
 as flax's norms compute their statistics and affine in f32.  Elementwise
 steps run in the activation's dtype; positional parameters are cast to it
 where the JAX module casts them.  In fp32 every rule is the identity.
+
+Across processes (``parallel/``): a :class:`Linear` split by tensor
+parallelism (``tp``: its group and ``"column"`` or ``"row"``) holds this
+rank's rows (a column-parallel projection: output features) or columns (a
+row-parallel one: input features; its bias is added once, after the
+all-reduce); :class:`MultiheadSelfAttention` then runs its local heads.
+Under the width split (:func:`~sic_tpu_torch.parallel.collectives.tile_parallel`)
+a :class:`Conv2d` exchanges its halo columns with the neighbouring ranks
+and a :class:`GroupNorm` takes its statistics over the whole width.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from torch import nn
 
 from ..ops import seq_attention
 from ..ops.quant import QuantLinear
+from ..parallel.collectives import (copy_to_model, reduce_from_model,
+                                    tile_group, tile_halo, tile_sum)
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype):
@@ -51,6 +62,7 @@ class Linear(nn.Linear):
     (``ops.quant.quantize_linears`` skips it)."""
 
     compute_dtype = torch.float32
+    tp = None       # (model Group, "column" | "row") under tensor parallelism
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  sensitive: bool = False):
@@ -59,7 +71,20 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        if self.tp is None:
+            return F.linear(x, w, b)
+        group, mode = self.tp
+        if mode == "column":
+            return F.linear(copy_to_model(x, group), w, b)
+        return _row_parallel(x, w, b, group)
+
+
+def _row_parallel(x, w, b, group):
+    """A row-parallel projection: the ranks' partial products summed, then
+    the bias, once."""
+    y = reduce_from_model(F.linear(x, w), group)
+    return y if b is None else y + b
 
 
 class LayerNorm(nn.LayerNorm):
@@ -115,18 +140,67 @@ class Conv2d(nn.Conv2d):
         if self.kernel_size == (1, 1) and self.stride == (1, 1) \
                 and self.groups == 1:
             return F.linear(x, w[:, :, 0, 0], b)
-        y = self._conv_forward(x.permute(0, 3, 1, 2), w, b)
+        if tile_group() is None:
+            return self.conv_local(x, w, b)
+        kw, sw = self.kernel_size[1], self.stride[1]
+        if sw == 1:
+            # 'same': the neighbours' k//2 columns, then no pad on the width
+            p = kw // 2
+            return self.conv_local(tile_halo(x, p, p), w, b,
+                                   padding=(self.padding[0], 0))
+        if self.padding == (0, 0) and kw == sw and x.shape[2] % sw == 0:
+            return self.conv_local(x, w, b)      # patches within the slab
+        raise ValueError(f"no width split for a {self.kernel_size} conv at "
+                         f"stride {self.stride} on a {x.shape[2]}-wide slab")
+
+    def conv_local(self, x, w=None, b=None, padding=None) -> torch.Tensor:
+        """The convolution of the NHWC tensor ``x`` as it stands (no halo),
+        in the compute dtype (``w``/``b``: already cast)."""
+        dt = self.compute_dtype
+        if w is None:
+            x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride,
+                     self.padding if padding is None else padding,
+                     self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+def conv_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
+    """A stride-1, zero-padded ('same') convolution of the NHWC tensor
+    ``x`` with the OIHW kernel ``w`` (odd), on slabs under the width split."""
+    ph, pw = w.shape[2] // 2, w.shape[3] // 2
+    if tile_group() is not None:        # the halo stands in for the pad
+        x, pw = tile_halo(x, pw, pw), 0
+    return F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                    padding=(ph, pw)).permute(0, 2, 3, 1)
+
+
+def _norm_group():
+    """The group a GroupNorm takes its statistics over (the tile group)."""
+    return tile_group()
 
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over the channel axis of an NHWC tensor, in f32 with its
-    parameters upcast, returning the input's dtype."""
+    parameters upcast, returning the input's dtype.  On width slabs its
+    mean and variance are the whole image's (two passes, each summed over
+    the tile group)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
-                         _f32(self.weight), _f32(self.bias), self.eps)
-        return y.permute(0, 2, 3, 1).to(x.dtype)
+        group = _norm_group()
+        if group is None:
+            y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
+                             _f32(self.weight), _f32(self.bias), self.eps)
+            return y.permute(0, 2, 3, 1).to(x.dtype)
+        B, H, W, C = x.shape
+        G = self.num_groups
+        xf = x.float().reshape(B, H, W, G, C // G)
+        n = H * W * group.size * (C // G)
+        mean = tile_sum(xf.sum(dim=(1, 2, 4)), group) / n
+        d = xf - mean[:, None, None, :, None]
+        var = tile_sum((d * d).sum(dim=(1, 2, 4)), group) / n
+        y = (d * torch.rsqrt(var + self.eps)[:, None, None, :, None]).reshape(B, H, W, C)
+        return (y * _f32(self.weight) + _f32(self.bias)).to(x.dtype)
 
 
 class Embed(nn.Module):
@@ -151,25 +225,27 @@ class MultiheadSelfAttention(nn.Module):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"{d_model} not divisible by {num_heads} heads")
-        self.num_heads = num_heads
+        self.num_heads = num_heads          # this rank's, under ``tp``
+        self.head_dim = d_model // num_heads
         self.in_proj = Linear(d_model, 3 * d_model)
         self.out_proj = Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, S, d_model = x.shape
-        head_dim = d_model // self.num_heads
+        B, S, _ = x.shape
+        head_dim = self.head_dim
+        inner = self.num_heads * head_dim
         qkv = self.in_proj(x)
         if attn_mask is None:
             out = seq_attention(qkv, head_dim ** -0.5, self.num_heads)
         else:
             q, k, v = (t.reshape(B, S, self.num_heads, head_dim).transpose(1, 2)
-                       for t in qkv.split(d_model, dim=-1))
+                       for t in qkv.split(inner, dim=-1))
             logits = torch.einsum("bhqd,bhkd->bhqk", (q * head_dim ** -0.5).float(),
                                   k.float())
             probs = torch.softmax(logits + attn_mask.float(), dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
-            out = out.transpose(1, 2).reshape(B, S, d_model)
+            out = out.transpose(1, 2).reshape(B, S, inner)
         return self.out_proj(out)
 
 

@@ -7,6 +7,11 @@ spatial mean -> sum over slices.  :func:`load_lpips_weights` reads the
 calibration heads (``vgg.pth``) and a torchvision VGG16 state dict with
 ``torch.load``; without them the backbone is the seeded one and the
 distance is uncalibrated.
+
+Under the width split (``parallel.collectives.tile_parallel``) the VGG
+runs on the slabs (its convolutions exchange halos, the 2x2 pools stay
+within a slab of even width) and each slice's spatial mean is the whole
+image's, averaged over the ranks.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import tile_mean
 from .layers import Conv2d
 
 # VGG16 "features" plan: channels per conv, "M" = maxpool
@@ -88,7 +94,7 @@ class LPIPS(nn.Module):
         for i, (a, b) in enumerate(zip(fx, fy)):
             d = (_unit_normalize(a) - _unit_normalize(b)) ** 2
             val = torch.sum(d * getattr(self, f"lin_{i}"), dim=-1)   # (B, H, W)
-            total = total + torch.mean(val, dim=(1, 2))
+            total = total + tile_mean(torch.mean(val, dim=(1, 2)))
         return total
 
 

@@ -4,6 +4,15 @@ Counterpart of the JAX package's ``models/swin.py`` (reference:
 src/blocks/swin_transformer.py:64-156): cyclic shift by ``torch.roll``, a
 relative position bias in block 0 only, shift masks folded into a
 per-window additive bias, and the NHWC window-attention kernel.
+
+Under the width split (``parallel.collectives.tile_parallel``) a stack
+whose slab holds whole windows runs on the slab: the cyclic shift crosses
+the ranks (``tile_roll``) and each rank's shift mask covers its windows'
+place in the whole window grid, since the kernel indexes the bias by the
+local window index.  A slab narrower than a window, or not a multiple of
+one, runs the stack on the gathered width.  Under tensor parallelism the
+block's ``to_qkv`` / ``mlp_fc1`` hold this rank's heads / hidden units and
+``to_out`` / ``mlp_fc2`` the matching input columns (``layers.Linear.tp``).
 """
 from __future__ import annotations
 
@@ -13,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import window_attention_nhwc
+from ..parallel.collectives import (copy_to_model, run_gathered, tile_group,
+                                    tile_roll)
 from .layers import LayerNorm, Linear
 
 
@@ -76,6 +87,14 @@ def _shift_masks(window_size: int) -> tuple:
     return ul, lr.reshape(s, s)
 
 
+def _mask_columns(nww: int):
+    """(first, total): this rank's window columns in the whole grid."""
+    group = tile_group()
+    if group is None:
+        return 0, nww
+    return group.index * nww, group.size * nww
+
+
 def _full_shift_mask(nwh: int, nww: int, window_size: int) -> np.ndarray:
     """Per-window additive mask (nwh*nww, S, S)."""
     ul, lr = _shift_masks(window_size)
@@ -110,10 +129,16 @@ class WindowAttention(nn.Module):
         self._masks: dict = {}
 
     def _shift_mask(self, nwh: int, nww: int, device) -> torch.Tensor:
-        key = (nwh, nww, str(device))
+        """The shift mask of this rank's ``nww`` window columns: their
+        place in the whole window grid (the width split's slabs)."""
+        first, total = _mask_columns(nww)
+        key = (nwh, nww, first, total, str(device))
         if key not in self._masks:
+            full = _full_shift_mask(nwh, total, self.window_size)
+            s = self.window_size ** 2
+            cols = full.reshape(nwh, total, s, s)[:, first:first + nww]
             self._masks[key] = torch.from_numpy(
-                _full_shift_mask(nwh, nww, self.window_size)).to(device)
+                np.ascontiguousarray(cols).reshape(nwh * nww, s, s)).to(device)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,7 +148,7 @@ class WindowAttention(nn.Module):
             raise ValueError(f"feature map {H}x{W} is not a multiple of {ws}")
         d = ws // 2
         if self.shifted:
-            x = torch.roll(x, shifts=(-d, -d), dims=(1, 2))
+            x = tile_roll(torch.roll(x, shifts=-d, dims=1), -d)
         qkv = self.to_qkv(x)
         if self.relative:
             ws2 = self.window_size ** 2
@@ -132,13 +157,17 @@ class WindowAttention(nn.Module):
         else:
             bias = self.pos_embedding
         bias = bias.float()[None]      # f32 in every compute dtype
+        tp = getattr(self.to_qkv, "tp", None)    # an int8 QuantLinear has none
+        if tp is not None:
+            # the bias is every head's: its gradient sums the ranks' heads
+            bias = copy_to_model(bias, tp[0])
         if self.shifted:
             bias = bias + self._shift_mask(H // ws, W // ws, x.device)
         out = window_attention_nhwc(qkv, bias.contiguous(),
                                     self.head_dim ** -0.5, self.heads)
         out = self.to_out(out)
         if self.shifted:
-            out = torch.roll(out, shifts=(d, d), dims=(1, 2))
+            out = tile_roll(torch.roll(out, shifts=d, dims=1), d)
         return out
 
 
@@ -178,8 +207,14 @@ class SwinStack(nn.Module):
                                     int(width * mlp_ratio), window_size,
                                     shifted, rel))
         self.block = nn.ModuleList(blocks)
+        self.window_size = window_size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tile_group() is not None and x.shape[2] % self.window_size:
+            return run_gathered(self._blocks, x)
+        return self._blocks(x)
+
+    def _blocks(self, x: torch.Tensor) -> torch.Tensor:
         for blk in self.block:
             x = blk(x)
         return x

@@ -2,7 +2,14 @@
 the frozen teacher encoder that stage-feat training aligns to (reference:
 src/taming/modules/diffusionmodules/model.py:342-537,
 taming/models/vqgan.py:13-110).  GroupNorm(32, eps 1e-6) + swish resnet
-stacks and single-head attention at the configured resolutions."""
+stacks and single-head attention at the configured resolutions.
+
+Under the width split (``parallel.collectives.tile_parallel``) every
+module runs on its rank's slab: the convolutions exchange halos and the
+norms reduce their statistics over the ranks (``layers``), the attention
+block's queries attend over the keys and values of the whole map
+(gathered), and the downsampling's right pad is the right neighbour's
+first column (zeros at the image's edge)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VQGANSpec
+from ..parallel.collectives import tile_gather, tile_group, tile_halo
 from .layers import Conv2d, GroupNorm
 from .quantizer import VQGANQuantizer
 
@@ -57,8 +65,9 @@ class AttnBlock(nn.Module):
         B, H, W, C = x.shape
         h = self.norm(x)
         q = self.q(h).reshape(B, H * W, C)
-        k = self.k(h).reshape(B, H * W, C)
-        v = self.v(h).reshape(B, H * W, C)
+        # keys and values of the whole map (gathered across a width split)
+        k = tile_gather(self.k(h)).reshape(B, -1, C)
+        v = tile_gather(self.v(h)).reshape(B, -1, C)
         # f32 logits and softmax in every compute dtype
         logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (C ** -0.5)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -75,7 +84,10 @@ class Downsample(nn.Module):
         self.conv = Conv2d(ch, ch, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+        if tile_group() is None:
+            return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+        x = tile_halo(F.pad(x, (0, 0, 0, 0, 0, 1)), 0, 1)
+        return self.conv.conv_local(x)
 
 
 class Upsample(nn.Module):

@@ -48,6 +48,18 @@ def head_dim_launch_counts() -> dict:
     return dict(seq_attention.launches_by_head_dim)
 
 
+# the wrappers that count their launches by head count too
+HEADS_COUNTED = ("seq_attention", "window_attention_nhwc", "window_attention_nhwc_bwd")
+
+
+def heads_launch_counts() -> dict:
+    """Launches since the last :func:`reset_launch_counts` of the attention
+    kernels that take packed qkv, by head count (a tensor-parallel rank's
+    are its local heads)."""
+    return {name: dict(KERNEL_WRAPPERS[name].launches_by_heads)
+            for name in HEADS_COUNTED}
+
+
 def reset_launch_counts() -> None:
     int8_mm.launches = 0
     for fn in KERNEL_WRAPPERS.values():
@@ -55,6 +67,8 @@ def reset_launch_counts() -> None:
     for name in BF16_ENTRIES:
         KERNEL_WRAPPERS[name].launches_bf16 = 0
     seq_attention.launches_by_head_dim.clear()
+    for name in HEADS_COUNTED:
+        KERNEL_WRAPPERS[name].launches_by_heads.clear()
 
 
 __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
@@ -66,5 +80,6 @@ __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
            "rans_encode_plane_plain", "pack_substreams", "split_substreams",
            "KERNEL_WRAPPERS", "BF16_ENTRIES", "launch_counts",
            "bf16_launch_counts", "head_dim_launch_counts",
+           "heads_launch_counts", "HEADS_COUNTED",
            "reset_launch_counts", "QuantLinear", "int8_mm", "int8_mm_plain",
            "quantize_kernel", "quantize_linears"]

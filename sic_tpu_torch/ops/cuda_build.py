@@ -106,10 +106,11 @@ _count_lock = threading.Lock()
 
 
 def count_launch(wrapper, dtype: torch.dtype = torch.float32,
-                 head_dim: Optional[int] = None) -> None:
+                 head_dim: Optional[int] = None, heads: Optional[int] = None) -> None:
     """Add one to ``wrapper.launches``, to ``wrapper.launches_bf16`` for a
-    launch of its bf16 entry, and with ``head_dim`` to that head dim's
-    entry of ``wrapper.launches_by_head_dim``.  Wrappers launch from
+    launch of its bf16 entry, with ``head_dim`` to that head dim's entry of
+    ``wrapper.launches_by_head_dim`` and with ``heads`` to that head
+    count's entry of ``wrapper.launches_by_heads``.  Wrappers launch from
     several threads at once (``CodecRuntime.decode_only_many``), and ``+=``
     on an attribute is not atomic, so the add holds a lock."""
     with _count_lock:
@@ -119,6 +120,9 @@ def count_launch(wrapper, dtype: torch.dtype = torch.float32,
         if head_dim is not None:
             by = wrapper.launches_by_head_dim
             by[head_dim] = by.get(head_dim, 0) + 1
+        if heads is not None:
+            by = wrapper.launches_by_heads
+            by[heads] = by.get(heads, 0) + 1
 
 
 def check_launch(rc: int, name: str) -> None:

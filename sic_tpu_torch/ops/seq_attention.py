@@ -74,7 +74,7 @@ def _forward_kernel(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor
     rc = _entry(qkv.dtype)(qkv.data_ptr(), out.data_ptr(), B, S, C, heads,
                            float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "seq_attention")
-    cuda_build.count_launch(seq_attention, qkv.dtype, head_dim=d)
+    cuda_build.count_launch(seq_attention, qkv.dtype, head_dim=d, heads=heads)
     return out
 
 
@@ -113,6 +113,7 @@ def seq_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
 seq_attention.launches = 0
 seq_attention.launches_bf16 = 0
 seq_attention.launches_by_head_dim = {}
+seq_attention.launches_by_heads = {}
 
 
 def _entry(dtype: torch.dtype):

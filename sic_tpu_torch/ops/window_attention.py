@@ -117,7 +117,7 @@ def _forward_kernel(qkv, bias, scale, heads):
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, heads,
         ws, bias.shape[0], float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "window_attention_nhwc")
-    cuda_build.count_launch(window_attention_nhwc, qkv.dtype)
+    cuda_build.count_launch(window_attention_nhwc, qkv.dtype, heads=heads)
     return out
 
 
@@ -154,6 +154,7 @@ def window_attention_nhwc(qkv: torch.Tensor, bias: torch.Tensor,
 
 window_attention_nhwc.launches = 0
 window_attention_nhwc.launches_bf16 = 0
+window_attention_nhwc.launches_by_heads = {}
 
 
 def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
@@ -195,12 +196,13 @@ def window_attention_nhwc_bwd(qkv: torch.Tensor, bias: torch.Tensor,
         dbias.data_ptr(), ds.data_ptr(), stats.data_ptr(), B, H, W, C, heads,
         ws, nB, float(scale), cuda_build.stream_of(qkv))
     cuda_build.check_launch(rc, "window_attention_nhwc_bwd")
-    cuda_build.count_launch(window_attention_nhwc_bwd, qkv.dtype)
+    cuda_build.count_launch(window_attention_nhwc_bwd, qkv.dtype, heads=heads)
     return dqkv, dbias
 
 
 window_attention_nhwc_bwd.launches = 0
 window_attention_nhwc_bwd.launches_bf16 = 0
+window_attention_nhwc_bwd.launches_by_heads = {}
 
 
 def _entry(name: str, fn_name: str, n_pointers: int):

@@ -178,7 +178,7 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-# -- groups of a (data, pipe) process grid -------------------------------------
+# -- groups of a process grid ----------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Group:
@@ -194,30 +194,56 @@ class Group:
         return len(self.ranks)
 
 
+def axis_groups(shape, combos=()) -> dict:
+    """This process's :class:`Group` along each axis of the process grid
+    ``shape`` (``((name, size), ...)``, the last axis fastest: the global
+    rank is the row-major index of the grid position, as the JAX package's
+    ``make_mesh`` lays devices out), and along each tuple of axes in
+    ``combos`` (key ``"a_b"``: the ranks that share every other axis).  An
+    axis (or tuple) of size 1 has no entry; single-process, none has.
+    Every rank builds every group, in one order, as
+    ``torch.distributed.new_group`` needs."""
+    if not distributed():
+        return {}
+    import torch.distributed as dist
+    import numpy as np
+    names = [n for n, _ in shape]
+    sizes = [int(s) for _, s in shape]
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if int(np.prod(sizes)) != world:
+        raise ValueError(f"{world} processes do not form a "
+                         f"{' x '.join(map(str, sizes))} grid {tuple(names)}")
+    coords = [np.unravel_index(r, sizes) for r in range(world)]
+    mine = {}
+    for axes in [(n,) for n in names] + [tuple(c) for c in combos]:
+        idx = [names.index(a) for a in axes]
+        if int(np.prod([sizes[i] for i in idx])) == 1:
+            continue
+        lines = {}
+        for r, c in enumerate(coords):
+            rest = tuple(int(c[i]) for i in range(len(sizes)) if i not in idx)
+            lines.setdefault(rest, []).append(r)
+        for rest in sorted(lines):
+            ranks = tuple(lines[rest])
+            g = dist.new_group(list(ranks))
+            if rank in ranks:
+                mine["_".join(axes)] = Group(g, ranks, ranks.index(rank))
+    return mine
+
+
 def grid_groups(pp: int = 1) -> Tuple[Optional[Group], Optional[Group]]:
     """(data, pipe) groups of the current process on a (world/pp, pp)
     grid, pipe fastest (global rank = d * pp + p), the JAX package's
-    ``(data, pipe)`` mesh.  An axis of size 1 is None.  Every rank builds
-    every group, in one order, as ``torch.distributed.new_group`` needs."""
+    ``(data, pipe)`` mesh (:func:`axis_groups`).  An axis of size 1 is
+    None."""
     if not distributed():
         return None, None
     import torch.distributed as dist
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world = dist.get_world_size()
     if world % pp:
         raise ValueError(f"{world} processes not divisible by pp={pp}")
-    data_ways = world // pp
-    mine = {}
-    for d in range(data_ways):          # the pipes, one per data index
-        ranks = tuple(d * pp + p for p in range(pp))
-        g = dist.new_group(list(ranks)) if pp > 1 else None
-        if rank in ranks and pp > 1:
-            mine["pipe"] = Group(g, ranks, ranks.index(rank))
-    for p in range(pp):                 # the data groups, one per stage
-        ranks = tuple(d * pp + p for d in range(data_ways))
-        g = dist.new_group(list(ranks)) if data_ways > 1 else None
-        if rank in ranks and data_ways > 1:
-            mine["data"] = Group(g, ranks, ranks.index(rank))
-    return mine.get("data"), mine.get("pipe")
+    g = axis_groups((("data", world // pp), ("pipe", pp)))
+    return g.get("data"), g.get("pipe")
 
 
 def take_rows(x, data: Optional[Group]):
@@ -263,31 +289,41 @@ def global_mean(t: torch.Tensor, data: Optional[Group]) -> torch.Tensor:
     return t if data is None else _GlobalMean.apply(t, data)
 
 
+def buckets(items, tensor=lambda t: t):
+    """``items`` in consecutive lists whose tensors (``tensor(item)``) share
+    a dtype and device, each list of at most :data:`BUCKET_ELEMS` elements
+    or a single item: the unit of one flat collective."""
+    by_kind = {}
+    for it in items:
+        t = tensor(it)
+        by_kind.setdefault((t.dtype, t.device), []).append(it)
+    for group in by_kind.values():
+        chunk, n = [], 0
+        for it in group:
+            k = tensor(it).numel()
+            if chunk and n + k > BUCKET_ELEMS:
+                yield chunk
+                chunk, n = [], 0
+            chunk.append(it)
+            n += k
+        if chunk:
+            yield chunk
+
+
 def reduce_grads(params: Iterable[torch.Tensor], data: Optional[Group]) -> None:
-    """Average the gradients of ``params`` over the data group, in buckets
-    of at most :data:`BUCKET_ELEMS` elements of one dtype and device."""
+    """Average the gradients of ``params`` over the data group (or any
+    group whose ranks' gradients are averaged), in :func:`buckets`."""
     if data is None:
         return
     import torch.distributed as dist
-    grads = [p.grad for p in params if p.grad is not None]
-    buckets = {}
-    for g in grads:
-        buckets.setdefault((g.dtype, g.device), []).append(g)
-    for group in buckets.values():
-        i = 0
-        while i < len(group):
-            chunk, n = [], 0
-            while i < len(group) and (not chunk or n + group[i].numel() <= BUCKET_ELEMS):
-                chunk.append(group[i])
-                n += group[i].numel()
-                i += 1
-            flat = torch.cat([g.reshape(-1) for g in chunk])
-            dist.all_reduce(flat, group=data.group)
-            flat.div_(data.size)
-            off = 0
-            for g in chunk:
-                g.copy_(flat[off:off + g.numel()].view_as(g))
-                off += g.numel()
+    for chunk in buckets([p.grad for p in params if p.grad is not None]):
+        flat = torch.cat([g.reshape(-1) for g in chunk])
+        dist.all_reduce(flat, group=data.group)
+        flat.div_(data.size)
+        off = 0
+        for g in chunk:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
 
 def gather_to_first(obj, group: Optional[Group]):

@@ -27,6 +27,7 @@ The JAX package's single-chip memory options have their counterparts here:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, List, Tuple
 
@@ -215,10 +216,55 @@ class TrainState:
     data: Any = None
     pipe: Any = None
     full_trainable: Tuple[str, ...] = ()
+    mesh: Any = None
+    layout: Any = None
+    fsdp: dict = dataclasses.field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    @property
+    def tile(self):
+        """The tile group the images' width is split over (None: none)."""
+        return None if self.mesh is None else self.mesh.tile
+
+    @property
+    def grad_group(self):
+        """The ranks that average their gradients: data (and tile)."""
+        return self.data if self.mesh is None else self.mesh.grad_group
+
+    @contextlib.contextmanager
+    def step_scope(self):
+        """A step's scope: whole FSDP parameters, and the width split of
+        the mesh (each FSDP leaf goes back to its chunk at the step's
+        :func:`sync_grads`, or at the end of the block)."""
+        from ..parallel.collectives import tile_parallel
+        for f in self.fsdp.values():
+            f.unshard()
+        try:
+            with tile_parallel(self.tile):
+                yield
+        finally:
+            for f in self.fsdp.values():
+                f.reshard(reduce=False)
+
+    def sync_grads(self, params, part: str = "model") -> None:
+        """Average the gradients of ``params`` over the ranks that hold the
+        same parameters (data and tile); the leaves of ``self.fsdp[part]``
+        (an :class:`~sic_tpu_torch.parallel.mesh.FSDP`) are averaged over
+        tile, then reduce-scattered over data, and go back to their
+        chunks."""
+        from ..parallel.multihost import reduce_grads
+        params = list(params)
+        fsdp = self.fsdp.get(part)
+        if fsdp is None:
+            reduce_grads(params, self.grad_group)
+            return
+        planned = {id(p) for _, p, _ in fsdp.leaves}
+        reduce_grads([p for p in params if id(p) not in planned], self.grad_group)
+        reduce_grads([p for p in params if id(p) in planned], self.tile)
+        fsdp.reshard()
 
     def current_lmbda(self) -> float:
         """The lambda weight, as the float32 value the JAX state holds."""

@@ -23,6 +23,18 @@ with the global batch statistics; gradients are averaged over the group
 before each update; and the returned logs are global means, the same on
 every rank.
 
+On a process grid (``state.mesh``, :mod:`~sic_tpu_torch.parallel.mesh`)
+a step runs in :meth:`~.state.TrainState.step_scope`: FSDP leaves whole,
+the model's blocks split over ``model`` as the modules hold them, and the
+images' width split over ``tile``.  Under the width split every loss term
+is the whole image's: the mean absolute error and the perceptual slices'
+spatial means are averaged over the ranks, the rate comes from the
+gathered latent, the alignment terms and the discriminator (and so its
+BatchNorm statistics and the GAN terms) take gathered maps, and the
+adaptive weight takes the gradients' mean over the ranks.  Every rank then
+holds the same loss, and each gradient is the mean of the ranks'
+(``state.sync_grads``; :mod:`~sic_tpu_torch.parallel.collectives`).
+
 Under a bf16 compute dtype (``create_train_state(dtype=torch.bfloat16)``)
 the steps take the JAX steps' dtypes: the alignment terms (MSE, CE) of the
 bf16 latent and logits are bf16 and the sums that meet an f32 term (the VQ
@@ -39,8 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from ..entropy.fourpart import uniform_noise
-from ..parallel.multihost import (all_mean, global_mean, reduce_grads,
-                                  take_rows)
+from ..models.layers import conv_same
+from ..parallel.collectives import tile_gather, tile_mean
+from ..parallel.multihost import all_mean, global_mean, take_rows
 from .losses import (adaptive_d_weight, adopt_weight, feat_align_loss,
                      hinge_d_loss, vanilla_d_loss)
 from .state import TrainState, stage_grad_mask
@@ -96,9 +109,9 @@ def _last_conv_apply(h_pre, w, b):
     a bf16 compute dtype ``h_pre`` is bf16 and is promoted, as jnp's rule
     promotes mixed operands.  (The JAX package's ``lax`` convolution here
     refuses a bf16 ``h_pre`` beside the f32 kernel, so its pix step does
-    not run under ``Codec(spec, jnp.bfloat16)``.)"""
-    return F.conv2d(h_pre.to(w.dtype).permute(0, 3, 1, 2), w, b,
-                    padding=1).permute(0, 2, 3, 1)
+    not run under ``Codec(spec, jnp.bfloat16)``.)  On width slabs its
+    halo comes from the neighbouring ranks."""
+    return conv_same(h_pre.to(w.dtype), w, b)
 
 
 def _detach(logs: Dict, data=None, device=None) -> Dict[str, torch.Tensor]:
@@ -125,6 +138,12 @@ def rate_noise_shape(spec, x_shape):
     return (B, H // stride, W // stride, spec.quant_dim)
 
 
+def _align_inputs(out, teacher_latent, teacher_idx):
+    """The alignment terms' maps, whole (gathered across a width split)."""
+    return (tile_gather(out["vqgan_latent"]), tile_gather(out["logits"]),
+            tile_gather(teacher_latent), tile_gather(teacher_idx))
+
+
 class TrainSteps:
     """``feat_step``, ``pix_step`` and ``eval_step`` for one loss
     configuration."""
@@ -139,13 +158,13 @@ class TrainSteps:
                           else vanilla_d_loss)
 
     def _nll(self, state: TrainState, x, x_hat):
-        rec = torch.mean(torch.abs(x - x_hat))
+        rec = tile_mean(torch.mean(torch.abs(x - x_hat)))
         mode = self.img_cfg.perceptual
         if mode == "lpips":
             p = torch.mean(state.lpips(x, x_hat))
         elif mode == "msssim":
             from ..metrics import ms_ssim
-            p = torch.mean(1.0 - ms_ssim(x, x_hat))
+            p = torch.mean(1.0 - ms_ssim(tile_gather(x), tile_gather(x_hat)))
         else:
             p = torch.zeros((), dtype=x.dtype, device=x.device)
         return rec + self.img_cfg.perceptual_weight * p, rec, p
@@ -158,7 +177,8 @@ class TrainSteps:
         (every rank draws it, so the generators stay equal); else the
         model draws it from ``state.generator``."""
         if noise is None and state.data is not None:
-            B, *rest = rate_noise_shape(state.model.spec, x.shape)
+            B, H, W, q = rate_noise_shape(state.model.spec, x.shape)
+            rest = (H, W * (state.tile.size if state.tile else 1), q)
             full = uniform_noise((B * state.data.size, *rest), state.generator,
                                  x.device)
             noise = take_rows(full, state.data)
@@ -168,6 +188,10 @@ class TrainSteps:
     # -- stage feat / feat_wo_bpp ---------------------------------------------
     def feat_step(self, state: TrainState, x: torch.Tensor,
                   noise: Optional[torch.Tensor] = None) -> Dict:
+        with state.step_scope():
+            return self._feat_step(state, x, noise)
+
+    def _feat_step(self, state, x, noise):
         cfg = self.feat_cfg
         model = state.model
         lmbda = state.current_lmbda()
@@ -175,8 +199,10 @@ class TrainSteps:
             teacher_latent, teacher_idx = model.encode_to_vqgan(x)
         out = model(x, need_full_decode=False, training=True,
                     **self._noise_args(state, x, noise))
+        latent, logits, t_latent, t_idx = _align_inputs(out, teacher_latent,
+                                                        teacher_idx)
         loss, logs = feat_align_loss(
-            out["vqgan_latent"], out["logits"], teacher_latent, teacher_idx,
+            latent, logits, t_latent, t_idx,
             out["vq_loss"], out["bpp_loss"], mse_weight=cfg.mse_weight,
             ce_weight=cfg.ce_weight, vq_weight=cfg.vq_weight, sq_weight=lmbda)
         rate_push = cfg.rate_push_w * F.relu(
@@ -189,7 +215,7 @@ class TrainSteps:
         state.opt_ae.zero_grad(set_to_none=True)
         loss.backward()
         stage_grad_mask(state.trainable, "feat")
-        reduce_grads([p for _, p in state.trainable], state.data)
+        state.sync_grads(p for _, p in state.trainable)
         state.opt_ae.step()
         state.global_step += 1
         return _detach(logs, state.data, state.device)
@@ -197,6 +223,10 @@ class TrainSteps:
     # -- stage pix: generator + discriminator ---------------------------------
     def pix_step(self, state: TrainState, x: torch.Tensor,
                  noise: Optional[torch.Tensor] = None) -> Dict:
+        with state.step_scope():
+            return self._pix_step(state, x, noise)
+
+    def _pix_step(self, state, x, noise):
         cfg = self.img_cfg
         model, disc = state.model, state.disc
         lmbda = state.current_lmbda()
@@ -207,7 +237,11 @@ class TrainSteps:
                 teacher_latent, teacher_idx = model.encode_to_vqgan(x)
 
         def g_of(xh):
-            return -torch.mean(disc(xh, train=True))
+            # the discriminator sees whole images (gathered across tiles)
+            return -torch.mean(disc(tile_gather(xh), train=True))
+
+        def mean_over_ranks(g):
+            return all_mean(all_mean(g, state.tile), state.data)
 
         disc.requires_grad_(False)      # the generator loss moves no disc weight
         out = model(x, need_full_decode=True, training=True,
@@ -222,7 +256,7 @@ class TrainSteps:
             lambda w: self._nll(state, x, _last_conv_apply(h_pre, w, b_last))[0],
             lambda w: g_of(_last_conv_apply(h_pre, w, b_last)),
             disc_weight=cfg.disc_weight, max_weight=cfg.adaptive_disc_max,
-            reduce_grad=lambda g: all_mean(g, state.data))
+            reduce_grad=mean_over_ranks)
         loss = (nll + d_weight * disc_factor * g_loss
                 + cfg.codebook_weight * out["vq_loss"] + lmbda * out["bpp_loss"])
         rate_push = cfg.rate_push_w * F.relu(
@@ -231,8 +265,10 @@ class TrainSteps:
         logs = {}
         if cfg.align_weight > 0.0:
             fc = self.feat_cfg
+            latent, logits, t_latent, t_idx = _align_inputs(out, teacher_latent,
+                                                            teacher_idx)
             align, _ = feat_align_loss(
-                out["vqgan_latent"], out["logits"], teacher_latent, teacher_idx,
+                latent, logits, t_latent, t_idx,
                 out["vq_loss"], out["bpp_loss"], mse_weight=fc.mse_weight,
                 ce_weight=fc.ce_weight, vq_weight=0.0, sq_weight=0.0)
             loss = loss + cfg.align_weight * align   # vq and rate are above
@@ -247,19 +283,19 @@ class TrainSteps:
         state.opt_ae.zero_grad(set_to_none=True)
         loss.backward()
         stage_grad_mask(state.trainable, "pix")
-        reduce_grads([p for _, p in state.trainable], state.data)
+        state.sync_grads(p for _, p in state.trainable)
         state.opt_ae.step()
         disc.requires_grad_(True)
 
         # discriminator update on the detached reconstruction (reference:
         # :763-777); its BatchNorm statistics move twice, real then fake
-        x_hat = x_hat.detach()
-        logits_real = disc(x, train=True, update_stats=True)
+        x_whole, x_hat = tile_gather(x), tile_gather(x_hat.detach())
+        logits_real = disc(x_whole, train=True, update_stats=True)
         logits_fake = disc(x_hat, train=True, update_stats=True)
         d_loss = disc_factor * self.d_loss_fn(logits_real, logits_fake)
         state.opt_disc.zero_grad(set_to_none=True)
         d_loss.backward()
-        reduce_grads(disc.parameters(), state.data)
+        state.sync_grads(disc.parameters(), "disc")
         state.opt_disc.step()
         logs.update({"train/disc_loss": d_loss,
                      "train/logits_real": torch.mean(logits_real),
@@ -270,13 +306,19 @@ class TrainSteps:
     # -- validation -----------------------------------------------------------
     @torch.no_grad()
     def eval_step(self, state: TrainState, x: torch.Tensor) -> Dict:
+        with state.step_scope():
+            return self._eval_step(state, x)
+
+    def _eval_step(self, state, x):
         cfg = self.feat_cfg
         model = state.model
         lmbda = state.current_lmbda()
         teacher_latent, teacher_idx = model.encode_to_vqgan(x)
         out = model(x, need_full_decode=True, training=False)
+        latent, logits, t_latent, t_idx = _align_inputs(out, teacher_latent,
+                                                        teacher_idx)
         align, _ = feat_align_loss(
-            out["vqgan_latent"], out["logits"], teacher_latent, teacher_idx,
+            latent, logits, t_latent, t_idx,
             out["vq_loss"], out["bpp_loss"], mse_weight=cfg.mse_weight,
             ce_weight=cfg.ce_weight, vq_weight=cfg.vq_weight, sq_weight=lmbda,
             split="val")

@@ -15,6 +15,13 @@ validation and the lambda controller see the global batch's means, so
 every rank makes the same decisions; checkpoints are written by global
 rank 0 between barriers (under ``pp`` gathered from the stages into the
 whole model's layout first); a barrier closes every epoch.
+
+On a process grid (``create_train_state(mesh=..., fsdp=...)``: the JAX
+CLI's ``--tp``, ``--tile`` and ``--fsdp``) each rank holds its heads of the
+split blocks (``model``), its width slab of every batch (``tile``) and,
+with ``fsdp``, its chunks of the large leaves and their Adam moments
+(``data``); checkpoints and deployment parameters are gathered into the
+one-process layout, and a resumed checkpoint is cut back to the rank's.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from ..models.codec import Codec, configure_numerics, resolve_device
 from ..models.discriminator import NLayerDiscriminator
 from ..models.hybrid import is_cell_leaf
 from ..models.lpips import LPIPS, load_lpips_weights
+from ..parallel.mesh import (FSDP, Layout, apply_tp, named_leaves,
+                             param_names, shard_batch, tp_plan)
 from ..parallel.multihost import (barrier, gather_to_first, global_rank,
                                   take_rows)
 from ..weights import export_flax_params, init_seeded, load_flax_params
@@ -49,7 +58,8 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
                        dtype: Optional[torch.dtype] = None,
                        mu_dtype: Optional[torch.dtype] = None,
                        frozen_dtype: Optional[torch.dtype] = None,
-                       donate: bool = False, data=None, pp=None):
+                       donate: bool = False, data=None, pp=None,
+                       mesh=None, fsdp: bool = False):
     """Models, optimizers and steps, on ``device`` (CUDA unless named).
 
     ``codec_params``: a flat ``params/...`` dict for the codec (default: the
@@ -73,10 +83,21 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
     split over, which the steps and the discriminator's statistics reduce
     over; ``pp`` a :class:`~sic_tpu_torch.models.hybrid.PPConfig`, whose
     stage keeps only its trunk cells (their parameters, gradients and Adam
-    moments) after the whole model is initialised or loaded.  Returns
+    moments) after the whole model is initialised or loaded.
+
+    On a process grid: ``mesh`` (:class:`~sic_tpu_torch.parallel.mesh.Mesh`
+    over ``data``, ``model`` and ``tile``; its data group replaces
+    ``data``) splits the model's attention and MLP blocks over ``model``
+    (:func:`~sic_tpu_torch.parallel.mesh.apply_tp`) and the batches' width
+    over ``tile``; ``fsdp`` keeps each rank's chunks of the codec's and the
+    discriminator's leaves that the JAX package's FSDP rule splits over the
+    data group (``tp_plan`` / ``fsdp_plan``; under ``pp`` the stage's own
+    trunk cells stay whole, as ``pp_sharding`` leaves them).  Returns
     (model, state, steps)."""
     del donate
     steps = TrainSteps(feat_cfg, img_cfg)     # a bad flag fails before the build
+    if mesh is not None:
+        data = mesh.data
     dev = resolve_device(device)
     configure_numerics()
     with torch.device(dev):
@@ -110,6 +131,8 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
     trainable = partition(model, tune_titok)
     if frozen_dtype is not None:
         cast_frozen_params(model, frozen_dtype, tune_titok)
+    layout, shards = _shard(model, disc, mesh if mesh is not None else
+                            _data_mesh(data), fsdp, pp is not None)
     _, stage0 = strategy.stage_at(strategy.start_epoch)
     state = TrainState(
         model=model, disc=disc, lpips=lpips, trainable=trainable,
@@ -119,8 +142,38 @@ def create_train_state(spec: CodecSpec, strategy: TrainingStrategy,
         generator=gens[2], epoch_for_strategy=strategy.start_epoch,
         lmbda_idx=stage0.init_lmbda_idx, lmbda_list=tuple(stage0.lmbda_list),
         rate_floor=float(np.float32(stage0.bpp_lower)),
-        data=data, pipe=pp, full_trainable=full_trainable)
+        data=data, pipe=pp, full_trainable=full_trainable, mesh=mesh,
+        layout=layout, fsdp=shards)
     return model, state, steps
+
+
+def _data_mesh(data):
+    """A grid of the data group alone (the ``--pp`` runs' FSDP)."""
+    from ..parallel.mesh import Mesh
+    return None if data is None else Mesh((("data", data.size),), {"data": data})
+
+
+def _shard(model, disc, mesh, fsdp: bool, pp: bool = False):
+    """Split ``model`` over the mesh's model group and, with ``fsdp``, the
+    large leaves of ``model`` and ``disc`` over its data group (under
+    ``pp`` not the stage's trunk cells); returns the :class:`Layout` of the
+    checkpoint's names and {"model", "disc"} -> :class:`FSDP`."""
+    layout, shards = Layout(), {}
+    if mesh is None:
+        return layout, shards
+    layout.model, layout.data = mesh.model, (mesh.data if fsdp else None)
+    n_data = mesh.size("data") if fsdp else 1
+    for part, module in (("model", model), ("disc", disc)):
+        plan = tp_plan(module, mesh.size("model") if part == "model" else 1, n_data)
+        dims = {tname: plan[key][1] for key, tname, *_ in named_leaves(module)
+                if not (pp and is_cell_leaf(tname))}
+        if part == "model":
+            layout.tp.update({f"model.{k}": v
+                              for k, v in apply_tp(module, mesh.model).items()})
+        if fsdp and mesh.data is not None:
+            shards[part] = FSDP(module.named_parameters(), dims, mesh.data)
+            layout.fsdp.update({f"{part}.{k}": d for k, d in shards[part].dims.items()})
+    return layout, shards
 
 
 def _cpu(obj):
@@ -150,14 +203,47 @@ def _gather_cells(mine, state: TrainState):
     return mine
 
 
+def _opt_names(state: TrainState):
+    """For each optimizer, its parameter index -> layout name."""
+    names = param_names(state.model, "model.") | param_names(state.disc, "disc.")
+    return {opt: {i: names[id(p)] for i, p in enumerate(
+        p for g in getattr(state, opt).param_groups for p in g["params"])}
+        for opt in ("opt_ae", "opt_disc")}
+
+
+def _relayout(sd: dict, state: TrainState, convert) -> dict:
+    """``sd`` (a state dict) with every split leaf and its Adam moments
+    passed through ``convert(name, tensor)``, in one order on every rank."""
+    layout = state.layout
+    for part in ("model", "disc"):
+        sd[part] = {k: convert(f"{part}.{k}", v) if f"{part}.{k}" in layout.tp
+                    or f"{part}.{k}" in layout.fsdp else v
+                    for k, v in sd[part].items()}
+    for opt, names in _opt_names(state).items():
+        st = sd[opt]["state"]
+        for i in sorted(st):
+            n = names[i]
+            if n in layout.tp or n in layout.fsdp:
+                st[i] = {k: convert(n, v) if isinstance(v, torch.Tensor) and v.dim()
+                         else v for k, v in st[i].items()}
+    return sd
+
+
 def gathered_state_dict(state: TrainState) -> Optional[dict]:
-    """``state.state_dict()``; under ``pp`` the whole model's, on the first
-    stage (None on the others): every stage's model leaves, and Adam's
-    state re-indexed to the whole model's trainable order, so the file
-    loads into a run with or without ``pp``.  Collective over the stages."""
+    """``state.state_dict()`` in the one-process layout: the split leaves
+    and their Adam moments gathered (collective over the mesh), and under
+    ``pp`` the whole model's, on the first stage (None on the others):
+    every stage's model leaves, and Adam's state re-indexed to the whole
+    model's trainable order, so the file loads into a run with or without
+    ``pp``.  Collective over the stages (and the data and model ranks
+    under a layout)."""
     sd = state.state_dict()
+    if state.layout:
+        sd = _relayout(sd, state, state.layout.full)
     if state.pipe is None:
         return sd
+    if state.data is not None and state.data.index != 0:
+        return None
     names = _own_names(state)
     model = _gather_cells(sd["model"], state)
     opt = _gather_cells({names[i]: st for i, st in sd["opt_ae"]["state"].items()},
@@ -174,21 +260,29 @@ def gathered_state_dict(state: TrainState) -> Optional[dict]:
 
 
 def gathered_flax_params(state: TrainState) -> Optional[dict]:
-    """The codec's flat ``params/...`` dict (:func:`export_flax_params`);
-    under ``pp`` every stage's leaves, on the first stage (None on the
-    others).  Collective over the stages."""
-    flat = export_flax_params(state.model)
-    return flat if state.pipe is None else _gather_cells(flat, state)
+    """The codec's flat ``params/...`` dict (:func:`export_flax_params`)
+    in the one-process layout; under ``pp`` every stage's leaves, on the
+    first stage of the first data index (None elsewhere).  Collective over
+    the stages (and the mesh's ranks under a layout)."""
+    if state.layout:
+        named = [(f"model.{n}", p) for n, p in state.model.named_parameters()]
+        with state.layout.whole_params(named):
+            flat = export_flax_params(state.model)
+    else:
+        flat = export_flax_params(state.model)
+    if state.pipe is None:
+        return flat
+    if state.data is not None and state.data.index != 0:
+        return None
+    return _gather_cells(flat, state)
 
 
 def save_checkpoint(ckpt_dir, state: TrainState, name: str) -> str:
     """Write ``state`` as ``<ckpt_dir>/<name>``.  Across processes every
-    rank calls it: the first data index's stages gather their state, global
-    rank 0 writes, and all wait at a barrier until it has."""
+    rank calls it: the ranks gather their state, global rank 0 writes,
+    and all wait at a barrier until it has."""
     path = Path(ckpt_dir).resolve() / name
-    sd = None
-    if state.data is None or state.data.index == 0:
-        sd = gathered_state_dict(state)
+    sd = gathered_state_dict(state)
     if global_rank() == 0:
         path.parent.mkdir(parents=True, exist_ok=True)
         torch.save(sd, path)
@@ -212,13 +306,16 @@ def _stage_view(ck: dict, state: TrainState) -> dict:
 
 def load_checkpoint(path, state: TrainState) -> TrainState:
     """Restore a :func:`save_checkpoint` file into ``state`` (in place);
-    under ``pp`` this stage's part of it."""
+    under ``pp`` this stage's part of it, under a layout this rank's
+    chunks and heads of it."""
     if state.pipe is None:
-        state.load_state_dict(torch.load(path, map_location=state.device,
-                                         weights_only=False))
+        ck = torch.load(path, map_location=state.device, weights_only=False)
     else:
-        ck = torch.load(path, map_location="cpu", weights_only=False)
-        state.load_state_dict(_stage_view(ck, state))
+        ck = _stage_view(torch.load(path, map_location="cpu", weights_only=False),
+                         state)
+    if state.layout:
+        ck = _relayout(ck, state, state.layout.local)
+    state.load_state_dict(ck)
     return state
 
 
@@ -237,9 +334,12 @@ class Trainer:
     log_every: int = 50
 
     def _batch(self, batch) -> torch.Tensor:
-        """This rank's rows of a global batch, on the device."""
-        rows = take_rows(np.asarray(batch, np.float32), self.state.data)
-        return torch.as_tensor(rows, device=self.state.device)
+        """This rank's rows (and, on a mesh, its width slab) of a global
+        batch, on the device."""
+        x = np.asarray(batch, np.float32)
+        part = shard_batch(x, self.state.mesh) if self.state.mesh is not None \
+            else take_rows(x, self.state.data)
+        return torch.as_tensor(np.ascontiguousarray(part), device=self.state.device)
 
     def train_epoch(self, train_data: Iterable) -> str:
         """One epoch at the current schedule position; returns stage name."""
@@ -304,7 +404,8 @@ class Trainer:
     def log_images(self, batch) -> Dict[str, torch.Tensor]:
         """Reconstruction pairs for an image logger
         (reference: codec_sq_fixbpp.py:832-838)."""
-        out = self.model(self._batch(batch), need_full_decode=True)
+        with self.state.step_scope():
+            out = self.model(self._batch(batch), need_full_decode=True)
         return {"x": out["x"], "x_hat": out["x_hat"]}
 
     def fit(self, train_data_fn, val_data_fn, epochs: Optional[int] = None):

@@ -321,8 +321,11 @@ def _message(main, argv, capsys):
     (["--batch_size", "3"], {"WORLD_SIZE": "2"},
      "--batch_size 3 must divide by world_size 2"),
     (["--pp", "2", "--tp", "2"], {}, "not with --tp/--tile"),
-    (["--tp", "2"], {}, "item 10b"), (["--tile", "2"], {}, "item 10b"),
-    (["--fsdp"], {}, "item 10b")],
+    (["--tp", "2"], {"WORLD_SIZE": "3"}, "3 processes not divisible by tp*tile=2"),
+    (["--tile", "2", "--batch_size", "3"], {"WORLD_SIZE": "4"},
+     "--batch_size 3 must divide by the data-axis size 2"),
+    (["--fsdp", "--batch_size", "3"], {"WORLD_SIZE": "2"},
+     "--batch_size 3 must divide by world_size 2")],
     ids=["cells", "processes", "microbatch", "microbatch_data", "dp_batch",
          "pp_tp", "tp", "tile", "fsdp"])
 def test_refused_flags_give_the_jax_messages(tmp_path, monkeypatch, capsys,
@@ -330,7 +333,9 @@ def test_refused_flags_give_the_jax_messages(tmp_path, monkeypatch, capsys,
     """Each refusal before any rank waits for another.  Where the JAX CLI
     refuses the same flags before building its model, its message is
     compared too; the rest are its f-strings with the port's counts
-    (processes for devices), or the port's refusal of the GSPMD flags."""
+    (processes for devices).  The mesh flags (``tp``, ``tile``, ``fsdp``)
+    run now (``tests/test_torch_mesh_cli.py``); their cases here are the
+    JAX CLI's divisibility refusals of them."""
     from sic_tpu_torch.cli.train import main
     imgs = _train_images(tmp_path)
     _clear(monkeypatch, env)
