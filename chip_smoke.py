@@ -49,7 +49,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               kernel 5's bf16 entry at the two training shapes, dqkv within
               1.5x the plain bf16 version's error against f64, dbias within
               BWD_TOL of the plain version's, SDPA's bf16 autograd backward
-              as its yardstick;
+              as its yardstick, its four passes' device times
+              (passes_device_ms); every bf16 row's device time over SDPA's
+              in the same run (vs_library);
               each rANS row's bytes bound and chain bound (the longest
               substream's coded symbols times the probe's step), and its
               error against an f64 reference; every attention kernel
@@ -63,7 +65,9 @@ Phases, each printing one JSON line with the card's name and power limit:
 4. encode   - seeded flagship model (TiTok-L, fp32) and seeded CLIP
               ViT-B/32 on real images (artifacts_r05/heldout: eight 256x256,
               a 512x512 mosaic, a 256x768 strip): the compress CLI over the
-              ten, encode_only / encode_only_batched with the encode kernel
+              ten, the host coder's fan-out over the eight 256x256 images'
+              packed planes at workers 1 and 8 (byte-equal, timed),
+              encode_only / encode_only_batched with the encode kernel
               and with the host coder (byte-equal), every stream decoding
               back to the encoder's y_hat bit for bit, times and a profile;
 5. flagship - decode_only / decode_only_batched / the decompress CLI on
@@ -73,7 +77,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               batched and one stream at a time, timed A B B A, and the
               outputs of the two compared (batch invariance); one
               decode_only and one encode_only with timer=StageTimer(),
-              recording the JAX runtime's stage names;
+              recording the JAX runtime's stage names; the four 256x256
+              streams' batched host decode at workers 1 and 8 (the same
+              y_hat, timed);
 6. op       - the (G, s, d) window-attention op, forward and gradient, at
               kernel_check's geometry and on one flagship Swin layer's real
               qkv (FeatMerge's shifted feat_in layer on the 512x512
@@ -143,7 +149,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               trainable leaves moved, the VQGAN decoder side unchanged
               after the feat stages and moved after pix, the discriminator
               moved; then the train CLI at the 512-px preset (starts in
-              pix) for one epoch, its `last` checkpoint and
+              pix; TiTok-L's trunks at CLI_TRUNK_LAYERS of their 24 layers,
+              full width, as every train CLI and its round trip below) for
+              one epoch, its `last` checkpoint and
               deploy_params.npz, and one image compressed and decompressed
               with those params, h_hat equal to the encoder's y_hat; step
               times, peak memory and one profiled pix step (the CLI with
@@ -197,9 +205,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               "global", every other distance reported (cuBLAS and cuDNN
               sum otherwise at batch 1 than at 2); the train CLI with --pp 2
               --pp_microbatch 2 at 256 px (the qp 0 preset cut to one feat
-              and one pix epoch), its deploy_params.npz through the compress
-              and decompress CLIs, h_hat against y_hat; step times and peak
-              memory a rank.
+              and one pix epoch, trunks at CLI_TRUNK_LAYERS), its
+              deploy_params.npz through the compress and decompress CLIs,
+              h_hat against y_hat; step times and peak memory a rank.
 16. mesh    - the JAX package's mesh shardings across processes, two ranks
               on the one card (gloo), each this script (--rank-task mesh):
               a feat and a pix step of the seeded flagship at 256 px,
@@ -215,8 +223,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               gap; CodecRuntime(mesh=) at tile 2 over val0 and val1, its
               streams decoding in a one-process runtime to its y_hat bit
               for bit; the train CLI with --tp 2 and with --fsdp (the qp 0
-              preset cut to one feat and one pix epoch), each one's
-              deploy_params.npz through the compress and decompress CLIs.
+              preset cut to one feat and one pix epoch, trunks at
+              CLI_TRUNK_LAYERS), each one's deploy_params.npz through the
+              compress and decompress CLIs.
               Kernels 1, 2 and 5 must launch in every rank of the TP and
               tile runs, kernel 1 at 8 and 6 local heads, kernels 2 and 5
               at 6 and 8.
@@ -244,6 +253,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -261,6 +271,11 @@ WORK = ROOT / "chiprun_out" / "chip_smoke"
 TRAIN_WORK = ROOT / ".chip_smoke_train"
 MP_WORK = WORK / "multiprocess"      # the multiprocess phase's files and rank logs
 MESH_WORK = WORK / "mesh"            # the mesh phase's
+# the train CLIs (phases train, multiprocess and mesh) and their deploy
+# round trips: TiTok-L's trunks at this depth, their widths whole (two cells
+# of four layers: --pp 2 still has a stage a cell); the steps and the
+# sharded steps run the whole flagship
+CLI_TRUNK_LAYERS = 8
 GOLDEN = ROOT / "tests" / "fixtures" / "golden"
 HELDOUT = ROOT / "artifacts_r05" / "heldout"
 
@@ -494,9 +509,10 @@ class Smoke:
                if (c["hgmma"] == 0 and f != "bwd_dbias_kernel")
                or c["bf16"] != bf16_fn(f) * c["hgmma"]}
         n_bf16 = sum(bf16_fn(f) for fns in hgmma.values() for f in fns)
-        # kernels 1, 2, 6: two warpgroup counts each; kernel 5: its stats
-        # pass (two counts), dk-dv and dq passes
-        if bad or n_bf16 != 10:
+        # bf16 functions: kernels 1, 2 and 6 one each (64-row blocks at
+        # every length), kernel 5 its stats pass (64-row blocks), dk-dv and
+        # dq passes
+        if bad or n_bf16 != 6:
             raise AssertionError(f"HGMMA by kernel function: {hgmma}")
         self.chain = self.chain_probe()
         return {"built": sorted(reports), "build_s": round(time.perf_counter() - t0, 3),
@@ -690,6 +706,7 @@ class Smoke:
                "library_ms": self.time_ms(library),
                "device_ms": self.device_ms(kernel),
                "library_device_ms": self.device_ms(library)}
+        rec["vs_library"] = rec["device_ms"] / rec["library_device_ms"]
         rec["bound_ms"], rec["bound_by"] = self.bf16_bound(flops, nbytes)
         rec["tc_bound_ms"] = flops / BF16_TFLOPS * 1e3
         if not (k_out.dtype == torch.bfloat16 and rec["finite"] and rec["deterministic"]
@@ -952,6 +969,7 @@ class Smoke:
                         "library_device_method": "profiler"})
             rec["profiler_device_ms"], rec["passes_device_ms"] = \
                 self.profiled_device_ms(kernel, by_kernel=True)
+            rec["vs_library"] = rec["device_ms"] / rec["library_device_ms"]
             flops = 10 * B * nW * heads * s * s * d
             rec["bound_ms"], rec["bound_by"] = self.bf16_bound(
                 flops, B * H * W * (3 * C + C + 3 * C) * 2 + 2 * nB * s * s * 4)
@@ -1559,6 +1577,23 @@ class Smoke:
                 "a_512x512": median_ms(lambda: rt.encode_only(x["a_512x512"])),
                 "b_256x768": median_ms(lambda: rt.encode_only(x["b_256x768"])),
                 "group_of_8": median_ms(lambda: rt.encode_only_batched(x["group_of_8"]))}
+        # the host coder's fan-out over the group of eight: its packed
+        # planes coded on one thread and on eight, byte-equal
+        with torch.no_grad():
+            _z, h = rt._encode_networks(rt._images(x["group_of_8"]), False)
+            packed = [p.cpu().numpy() for _s, _r, p, _y in
+                      rt.h_coder.compress_plan_chunks(h)]
+
+        def host_encode(workers):
+            return [s for p in packed
+                    for s in rt.h_coder.encode_packed_many(p, workers=workers)]
+
+        out["host_encode_group_of_8_workers_ms_p50"] = {
+            str(w): median_ms(lambda w=w: host_encode(w)) for w in (1, 8)}
+        out["host_encode_workers_bytes_equal"] = host_encode(1) == host_encode(8)
+        out["cpu_count"] = os.cpu_count()
+        if not out["host_encode_workers_bytes_equal"]:
+            raise AssertionError("encode_packed_many: workers 8 differ from workers 1")
         rt.device_entropy = "device"
         out["profile_512x512"] = self._profile(lambda: rt.encode_only(x["a_512x512"]))
         rt.device_entropy = "auto"
@@ -1706,9 +1741,18 @@ class Smoke:
             "group_of_4": median_ms(decode_group)},
             "h_chain_ms_p50": {
             "a_512x512_kernel": median_ms(lambda: h_chain("a_512x512")),
-            "group_of_4_host": median_ms(lambda: rt.h_coder.decompress_batched(
-                [requests[s]["h_bit_stream"] for s in group],
-                (1, 8, 8, rt.spec.quant_dim), coding_batch=8))}}
+            **{f"group_of_4_host_workers_{w}": median_ms(
+                lambda w=w: rt.h_coder.decompress_batched(
+                    [requests[s]["h_bit_stream"] for s in group],
+                    (1, 8, 8, rt.spec.quant_dim), workers=w, coding_batch=8))
+               for w in (1, 8)}}}
+        # the host decoders' fan-out: one thread and eight, the same y_hat
+        y = {w: rt.h_coder.decompress_batched(
+            [requests[s]["h_bit_stream"] for s in group], (1, 8, 8, rt.spec.quant_dim),
+            workers=w, coding_batch=8) for w in (1, 8)}
+        out["host_decode_workers_y_hat_equal"] = bool(torch.equal(y[1], y[8]))
+        if not out["host_decode_workers_y_hat_equal"]:
+            raise AssertionError("decompress_batched: workers 8 differ from workers 1")
 
         out["profile_512x512"] = self._profile(lambda: decode_single("a_512x512"))
         out["profile_group_of_4"] = self._profile(decode_group)
@@ -3251,20 +3295,22 @@ class Smoke:
         from sic_tpu_torch.cli.train import main as train_main
         ckpt = TRAIN_WORK / "ckpt"
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = train_main(["--qp", "0", "--train_px", "512", "--epochs", "1",
-                          "--batch_size", "2", "--train_dir", str(HELDOUT),
-                          "--val_dir", str(HELDOUT), "--ckpt_dir", str(ckpt),
-                          "--device", "cuda"])
-        torch.cuda.synchronize()
-        rec = {"train_s": round(time.perf_counter() - t0, 3), "result": out,
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "files": sorted(p.name for p in ckpt.iterdir()),
-               "last_bytes": (ckpt / "last").stat().st_size}
-        gc.collect()
-        torch.cuda.empty_cache()
-        rec.update(self._deploy_round_trip(ckpt / "deploy_params.npz",
-                                           WORK / "encode_in" / "a_512x512.png"))
+        with _reduced_depth(CLI_TRUNK_LAYERS):
+            t0 = time.perf_counter()
+            out = train_main(["--qp", "0", "--train_px", "512", "--epochs", "1",
+                              "--batch_size", "2", "--train_dir", str(HELDOUT),
+                              "--val_dir", str(HELDOUT), "--ckpt_dir", str(ckpt),
+                              "--device", "cuda"])
+            torch.cuda.synchronize()
+            rec = {"train_s": round(time.perf_counter() - t0, 3), "result": out,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "files": sorted(p.name for p in ckpt.iterdir()),
+                   "last_bytes": (ckpt / "last").stat().st_size,
+                   "trunk_layers": CLI_TRUNK_LAYERS}
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec.update(self._deploy_round_trip(ckpt / "deploy_params.npz",
+                                               WORK / "encode_in" / "a_512x512.png"))
         rec["ok"] = (out["global_step"] == 4 and "last" in rec["files"]
                      and "deploy_params.npz" in rec["files"] and rec["round_trip_ok"])
         return rec
@@ -3634,8 +3680,9 @@ class Smoke:
             and [Path(p).name for p in idx1.ids] == [Path(p).name for p in idx2.ids]}
         train = self._run_ranks("train", [])
         rec["train"] = train
-        rec["deploy_round_trip"] = trip = self._deploy_round_trip(
-            TRAIN_WORK / "pp_ck" / "deploy_params.npz", src / "val0.png")
+        with _reduced_depth(CLI_TRUNK_LAYERS):   # as the ranks' train CLI ran
+            rec["deploy_round_trip"] = trip = self._deploy_round_trip(
+                TRAIN_WORK / "pp_ck" / "deploy_params.npz", src / "val0.png")
         # the ranks' launches in their multi-process runs, summed over both
         # tasks of both ranks (rank 0's one-process references apart)
         counts, bf16, by_dim = {}, {}, {}
@@ -3814,6 +3861,7 @@ class Smoke:
                          "chain_bound_ms": k.get("chain_bound_ms"),
                          "device_ms": k.get("device_ms"),
                          "library_device_ms": k.get("library_device_ms"),
+                         "vs_library": k.get("vs_library"),
                          "deterministic": k.get("deterministic"),
                          "library_ms": k.get("library_ms")})
             if not entry and name in self.heads_counts.get("mesh", {}):
@@ -4161,9 +4209,10 @@ def _rank_pp_cli(rank):
     Trainer._batch = recording
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train_main(["--qp", "0", "--train_px", "256", "--epochs", "2",
-                      "--batch_size", "2", "--train_dir", str(MP_WORK / "pp_train"),
-                      "--ckpt_dir", str(ckpt), "--pp", "2", "--pp_microbatch", "2"])
+    with _reduced_depth(CLI_TRUNK_LAYERS):
+        out = train_main(["--qp", "0", "--train_px", "256", "--epochs", "2",
+                          "--batch_size", "2", "--train_dir", str(MP_WORK / "pp_train"),
+                          "--ckpt_dir", str(ckpt), "--pp", "2", "--pp_microbatch", "2"])
     Trainer._batch = take
     rec = {"train_s": round(time.perf_counter() - t0, 3), "result": out,
            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "batches": seen}
@@ -4667,15 +4716,33 @@ def _rank_mesh(args):
     torch.cuda.empty_cache()
     barrier("mesh_references_done")
     lap("references")
-    rec["cli_tp"] = _mesh_cli(["--tp", "2"], "tp_ck")
-    rec["cli_fsdp"] = _mesh_cli(["--fsdp"], "fsdp_ck", last=True)
-    rec["launches"]["cli"] = _mesh_launches()
-    lap("clis")
-    # each rank one run's deployment parameters through the deploy CLIs
-    deploy = Path(rec["cli_tp" if rank == 0 else "cli_fsdp"]["deploy"])
-    rec["round_trip"] = _deploy_round_trip(deploy, HELDOUT / "val0.png")
+    with _reduced_depth(CLI_TRUNK_LAYERS):
+        rec["cli_tp"] = _mesh_cli(["--tp", "2"], "tp_ck")
+        rec["cli_fsdp"] = _mesh_cli(["--fsdp"], "fsdp_ck", last=True)
+        rec["launches"]["cli"] = _mesh_launches()
+        lap("clis")
+        # each rank one run's deployment parameters through the deploy CLIs
+        deploy = Path(rec["cli_tp" if rank == 0 else "cli_fsdp"]["deploy"])
+        rec["round_trip"] = _deploy_round_trip(deploy, HELDOUT / "val0.png")
+    rec["cli_trunk_layers"] = CLI_TRUNK_LAYERS
     lap("round_trip")
     return rec
+
+
+@contextlib.contextmanager
+def _reduced_depth(layers):
+    """The flagship spec with TiTok-L's trunks cut to ``layers`` of their
+    24 layers at their full width (1024 wide, 16 heads; the insert
+    positions past the cut drop out, as for any depth): the train CLIs and
+    their deploy round trips, whose time goes to building, checkpointing
+    and reading back the whole model."""
+    from sic_tpu_torch import config
+    keep = config._VIT_SIZES["large"]
+    config._VIT_SIZES["large"] = (keep[0], layers, keep[2])
+    try:
+        yield
+    finally:
+        config._VIT_SIZES["large"] = keep
 
 
 def rank_main(argv) -> int:

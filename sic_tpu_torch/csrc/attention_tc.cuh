@@ -8,10 +8,13 @@
 // TMA into a shared-memory ring, online softmax in f32 on the wgmma
 // accumulator fragments, the softmax steps and the epilogue shared.
 //
-// One block holds NWG consumer warpgroups (128 threads each); warpgroup w
-// owns query rows [64 w, 64 w + 64) of the block's tile of 64 * NWG rows,
-// and all of them share each 64-key tile of k, v (and of the bias).  No
-// producer warp: thread 0 issues the TMA loads, two key tiles ahead.
+// A split-TF32 block holds NWG consumer warpgroups (128 threads each);
+// warpgroup w owns query rows [64 w, 64 w + 64) of the block's tile of
+// 64 * NWG rows, and all of them share each 64-key tile of k, v (and of
+// the bias): no producer warp, thread 0 issues the TMA loads two key tiles
+// ahead, block barriers between tiles.  A bf16 block is one warpgroup on
+// 64 query rows: a ring of full and empty mbarriers, no block barrier
+// after set-up (see `attend_bf16`).
 //
 // Numbers (split TF32).  Every product is fp32 accuracy from three TF32
 // products: each operand x is split as hi = cvt.rna.tf32(x), lo =
@@ -27,9 +30,10 @@
 // than plain f32 against an f64 reference on an H100 (PERF.md).
 //
 // The bf16 body (see `attend_bf16`) has no split and stages nothing: one
-// k16 wgmma per 16-deep step, v read MN-major as it lands, P from the
-// logits fragment as it lies; its bf16 rounding of the probabilities and
-// of the output is what the JAX package's bf16 mode rounds.
+// k16 wgmma per 16-deep step, q and k K-major and v MN-major as they land,
+// P from the logits fragment as it lies; its bf16 rounding of the
+// probabilities and of the output is what the JAX package's bf16 mode
+// rounds, and O accumulates over the key tiles in the tensor cores.
 //
 // Operand layouts (split TF32).  tf32 wgmma takes both operands K-major
 // (the transpose bits exist only for 16-bit types):
@@ -314,23 +318,77 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
                  b - __uint_as_float(hi & 0xffff0000u));
 }
 
-// Shared-memory plan of the bf16 body: a 64-row tile of one head is 64 x
-// 64 bf16, one 8 KB box (a head row is one 128-byte swizzle row).  Per ring
-// stage: k, v (8 KB each) and, with a bias, its f32 tile (16 KB a
-// warpgroup, laid out as in Plan); the q tile beside the ring.
-template <int NWG, bool kBias>
+// Shared-memory plan of the bf16 body (one warpgroup, 64 query rows): a
+// 64-row tile of one head is 64 x 64 bf16, one 8 KB box (a head row is one
+// 128-byte swizzle row).  Per ring stage: k, v (8 KB each) and, with a
+// bias, its f32 tile (16 KB, laid out as in Plan); the q tile beside the
+// ring; then a full and an empty mbarrier a stage and q's.  Two stages:
+// 40 KB, four blocks an SM; with a bias 72 KB, three.
+template <bool kBias>
 struct Plan16 {
-  static constexpr int kRows = NWG * kWgRows;
-  static constexpr int kBiasBytes = kBias ? NWG * kTileBytes : 0;
+  static constexpr int kStages = 2;
+  static constexpr int kRows = kWgRows;
+  static constexpr int kBiasBytes = kBias ? kTileBytes : 0;
   static constexpr int kStageBytes = 2 * kBoxBytes + kBiasBytes;
   static constexpr int kK = 0;                       // within a stage
   static constexpr int kV = kBoxBytes;
   static constexpr int kB = 2 * kBoxBytes;
   static constexpr int kQ = kStages * kStageBytes;
-  static constexpr int kBar = kQ + NWG * kBoxBytes;
-  static constexpr int kBytes = kBar + 64;
+  static constexpr int kBar = kQ + kBoxBytes;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;       // slack to align the base
 };
+
+// Blocks an SM the launch bounds ask registers for, as many as the bf16
+// body's shared memory fits: four (at most 128 registers a thread), with a
+// bias three (168).  The f32 body: one.
+template <typename T, bool kBias>
+constexpr int min_blocks() {
+  if (std::is_same<T, float>::value) return 1;
+  return kBias ? 3 : 4;
+}
+
+// -- bf16 helpers --------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22; -inf -> 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one arrival (no transaction bytes): a consumer warp's release of a stage
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// d (64 x 64 f32) (+)= a (64 x 16 bf16, K-major in shared memory at
+// `adesc`) . b (16 x 64 bf16, K-major in shared memory at `bdesc`)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32],
+                                                        uint64_t adesc,
+                                                        uint64_t bdesc,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
 
 // -- the body ----------------------------------------------------------------
 
@@ -688,43 +746,74 @@ __device__ __forceinline__ void attend_tf32(const Geo& geo, int n, float scale,
   }
 }
 
-// The bf16 body: bf16 operands, f32 accumulation, one wgmma of k16 per
-// 16-deep step and no split.  q is the register A operand of S = q k^T
-// (K = the head dim; its fragments read once from the landed tile), k the
-// K-major B operand as TMA lands it; the logits are scaled, biased and
-// masked in f32, the online softmax runs in f32, and the unnormalised
-// probabilities exp(s - m), rounded to bf16, are the register A operand of
-// O = P v straight from the logits fragment (for 16-bit types the
-// accumulator's slots of keys 16kk.. are exactly the A fragment of step
-// kk); v is the MN-major B operand as TMA lands it (the transpose bit), so
-// nothing is staged.  Each key tile's P v goes to a fresh accumulator and
-// O = alpha O + P v is an f32 FMA, as in the split-TF32 body; O / l is
-// rounded once to bf16.
+// The bf16 body, laid out for Hopper: bf16 operands, f32 accumulation,
+// one k16 wgmma a 16-deep step, f32 logits and softmax.
+//
+// Roles.  Thread 0 issues every TMA load: the q tile and the ring's first
+// kStages key tiles at the start, then key tile i + kStages into stage
+// i % kStages as soon as that stage's empty mbarrier says every warp is
+// done with tile i.  No producer warp of its own: a ninth warp leaves 96
+// registers a thread at two blocks of eight warps an SM, and ptxas then
+// serializes the wgmma for want of registers (PERF.md).  Each warp
+// releases a stage by an arrival on its empty mbarrier.  No __syncthreads
+// runs after the barriers' set-up.
+//
+// Block shape (Plan16, min_blocks).  The softmax's instructions, not the
+// tensor cores, set the pace, so the SM wants several warpgroups at once,
+// each hiding another's softmax behind its products: one warpgroup a
+// block (64 query rows), four blocks an SM (three with a bias), every
+// flagship shape of kernels 1, 2, 5 and 6 in one wave.  On an H100 these
+// blocks beat or tied two warpgroups a block in ping-pong on named
+// barriers (PERF.md), which this body therefore does not keep.
+//
+// A consumer's key loop.  S_i = q k_i^T takes q and k as K-major tiles in
+// shared memory (no q fragments in registers); O += P_{i-1} v_{i-1} takes
+// the previous tile's probabilities as the register A operand and v
+// MN-major as it lands.  Both are issued together, one wait for both
+// (the tensor cores run them back to back), then the softmax of tile i:
+// logits scaled (and biased, and masked past n) in f32, the running max,
+// P = 2^((s - m) log2 e) on the special-function unit, O rescaled in
+// place by alpha before the next tile's P v accumulates into it.  O
+// accumulates over the key tiles in the tensor
+// cores' f32 (truncating) adds: within bf16's own rounding of the output
+// (PERF.md: the bf16 entries' error against f64).
 //
 // With a stats Geo (kernel 5's first pass on bf16 operands) the
 // probabilities go to O = P v split as bf16 hi + lo (two k16 wgmma a step,
 // lo first), so that O, and the row statistic D = g . O taken from it, is
-// near f32 as the TPU kernel's f32 inside is; the output's bf16 rounding
-// is not there to hide a rounded P.
+// near f32 as the TPU kernel's f32 inside is; lse = m + log l in the
+// natural base.
 template <int NWG, bool kBias, class Geo>
 __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
                                             int q0, uint8_t* smem_raw) {
+  static_assert(NWG == 1, "the bf16 body runs one warpgroup a block");
   constexpr bool kStats = WritesStats<Geo>::value;
-  using P = Plan16<NWG, kBias>;
+  using P = Plan16<kBias>;
+  constexpr int kS = P::kStages;
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBar);
-  uint64_t* qbar = full + kStages;
+  uint64_t* empty = full + kS;
+  uint64_t* qbar = empty + kS;
 
   const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = wg * kWgRows + warp * 16 + g;  // rows r0 and r0 + 8 of the tile
   const int ntiles = (n + kKeyTile - 1) / kKeyTile;
   const float NEG_INF = -INFINITY;
+  const bool issuer = tid == 0;
 
-  auto issue_tile = [&](int i, int st) {
+  if (issuer) {
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // every warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  auto issue_tile = [&](int i) {
+    const int st = i % kS;
     uint8_t* stage = smem + st * P::kStageBytes;
     mbar_expect_tx(&full[st], P::kStageBytes);
     const int k0 = i * kKeyTile;
@@ -733,82 +822,129 @@ __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
     if constexpr (kBias) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int b = 0; b < NWG; ++b)
-          geo.load_bias(stage + P::kB + h * NWG * kBoxBytes + b * kBoxBytes,
-                        &full[st], h, q0 + b * kBoxRows, k0);
+        geo.load_bias(stage + P::kB + h * kBoxBytes, &full[st], h, q0, k0);
     }
   };
-
-  init_bars(full, kStages + 1);  // the ring's and q's
-  if (tid == 0) {
-    mbar_expect_tx(qbar, NWG * kBoxBytes);
-#pragma unroll
-    for (int b = 0; b < NWG; ++b)
-      geo.load(smem + P::kQ + b * kBoxBytes, qbar, 0, 0, q0 + b * kBoxRows);
-    for (int i = 0; i < kStages && i < ntiles; ++i) issue_tile(i, i);
+  if (issuer) {
+    mbar_expect_tx(qbar, kBoxBytes);
+    geo.load(smem + P::kQ, qbar, 0, 0, q0);
+    for (int i = 0; i < kS && i < ntiles; ++i) issue_tile(i);
   }
 
-  // q as A fragments: step kk, registers (r0, 16kk+2t..), (r0+8, 16kk+2t..),
-  // (r0, 16kk+8+2t..), (r0+8, 16kk+8+2t..), two bf16 each
-  uint32_t qf[16];
-  mbar_wait(qbar, 0);
-  {
-    const uint8_t* qs = smem + P::kQ;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int r = r0 + ((s & 1) ? 8 : 0);
-        const int c = 16 * kk + 2 * t + ((s & 2) ? 8 : 0);
-        qf[4 * kk + s] = *reinterpret_cast<const uint32_t*>(qs + swz16(r, c));
-      }
-    }
-  }
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;  // rows r0 and r0 + 8 of the tile
+  // logits -> base-2 exponent: kernel 1's logits stay q k^T (its scale
+  // folds in here); a bias Geo's are scaled and biased first
+  const float c = kBias ? kLog2e : scale * kLog2e;
 
   float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
-
-  for (int i = 0; i < ntiles; ++i) {
-    const int st = i & 1;
-    uint8_t* stage = smem + st * P::kStageBytes;
-    mbar_wait(&full[st], (i >> 1) & 1);
-
-    // S = q k^T, four k16 steps along the head dim (32 bytes of a
-    // swizzled row each)
-    float s[32];
+  uint32_t pf[16], plo[16];
+  float s[32];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = 0.f;
-    const uint32_t k_a = smem_u32(stage + P::kK);
-    fence_regs(qf);
-    wgmma_fence();
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  const uint32_t q_a = smem_u32(smem + P::kQ);
+  auto stage_of = [&](int i) { return smem + (i % kS) * P::kStageBytes; };
+
+  // S = q k^T, four k16 steps along the head dim (32 bytes of a swizzled
+  // row each)
+  auto issue_s = [&](int i) {
+    const uint32_t k_a = smem_u32(stage_of(i) + P::kK);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n64k16_bf16<0>(s, qf[4 * kk], qf[4 * kk + 1], qf[4 * kk + 2],
-                              qf[4 * kk + 3], desc_sw128(k_a + 32 * kk), kk != 0);
+      wgmma_m64n64k16_bf16_ss(s, desc_sw128(q_a + 32 * kk),
+                              desc_sw128(k_a + 32 * kk), kk != 0);
+  };
+  // O += P v, four k16 steps along the keys, 16 rows of v (2048 bytes) each
+  auto issue_pv = [&](int i) {
+    const uint32_t v_a = smem_u32(stage_of(i) + P::kV);
+    if constexpr (kStats) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_bf16<1>(o, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
+                                plo[4 * kk + 3], desc_sw128(v_a + 2048 * kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_bf16<1>(o, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                              pf[4 * kk + 3], desc_sw128(v_a + 2048 * kk), 1);
+  };
+  auto fence_all = [&]() {
+    fence_regs(s);
+    fence_regs(o);
+    fence_regs(pf);
+    if constexpr (kStats) fence_regs(plo);
+  };
+  // a phase of wgmma: the products, one commit, one wait
+  auto phase_begin = [&]() {
+    fence_all();
+    wgmma_fence();
+  };
+  auto phase_end = [&]() {
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(qf);
-
-    // online softmax in f32 on the scaled logits
+    fence_all();
+  };
+  // every product of this warp has read tile i (and its softmax the
+  // bias): release its stage, and refill it with tile i + kStages
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % kS]);
+    if (issuer && i + kS < ntiles) {
+      mbar_wait(&empty[i % kS], (i / kS) & 1);
+      fence_async_smem();  // the bias reads before the TMA overwrites
+      issue_tile(i + kS);
+    }
+  };
+  // the online softmax of tile i on s: P (bf16, or hi + lo) into pf, the
+  // sums, O rescaled; keys past n are masked (`masked`: std::true_type)
+  // only in a ragged last tile, so that a whole tile spends no
+  // instructions on them (the softmax's instructions, not the tensor
+  // cores, set the pace of this body)
+  auto softmax = [&](int i, auto masked) {
+    const uint8_t* btile = stage_of(i) + P::kB;
+    const int k0 = i * kKeyTile;
+    float tmax[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] *= scale;
-    float tmax[2], alpha[2], m_use[2];
-    bias_mask_max<kBias>(s, stage + P::kB, P::kRows, r0, t, i * kKeyTile, n,
-                         tmax);
-    softmax_rescale(tmax, m, alpha, m_use);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * j + 2 * t + (e & 1);
+        float v = s[4 * j + e];
+        if constexpr (kBias) {
+          v = fmaf(v, scale, *reinterpret_cast<const float*>(
+                                 btile + swz(P::kRows, r0 + 8 * (e >> 1), kc)));
+        }
+        if constexpr (decltype(masked)::value) {
+          if (k0 + kc >= n) v = NEG_INF;
+        }
+        s[4 * j + e] = v;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
+      }
+    }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      tmax[row] = fmaxf(tmax[row], __shfl_xor_sync(0xffffffffu, tmax[row], 1));
+      tmax[row] = fmaxf(tmax[row], __shfl_xor_sync(0xffffffffu, tmax[row], 2));
+      const float m_new = fmaxf(m[row], tmax[row]);
+      // 0 while the row has seen only -inf: never -inf - -inf
+      const float m_use = (m_new == NEG_INF) ? 0.f : m_new;
+      alpha[row] = ex2((m[row] - m_use) * c);  // 0 while m is still -inf
+      m[row] = m_new;
+      mc[row] = m_use * c;
+    }
     float psum[2] = {0.f, 0.f};
-    uint32_t pf[16], plo[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = expf(s[4 * j + e] - m_use[e >> 1]);
+        p[e] = ex2(fmaf(s[4 * j + e], c, -mc[e >> 1]));
         psum[e >> 1] += p[e];
       }
       // chunk j = 2kk + h: registers 4kk + 2h (row r0) and 4kk + 2h + 1
@@ -822,44 +958,41 @@ __device__ __forceinline__ void attend_bf16(const Geo& geo, int n, float scale,
       }
     }
     update_sums(psum, alpha, l);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] *= alpha[(e >> 1) & 1];
+  };
 
-    // this tile's P v in a fresh accumulator: four k16 steps along the
-    // keys, 16 rows of v (2048 bytes) each
-    const uint32_t v_a = smem_u32(stage + P::kV);
-    float pv[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) pv[e] = 0.f;
-    fence_regs(pv);
-    fence_regs(pf);
-    if constexpr (kStats) fence_regs(plo);
-    wgmma_fence();
-    if constexpr (kStats) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_bf16<1>(pv, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
-                                plo[4 * kk + 3], desc_sw128(v_a + 2048 * kk),
-                                kk != 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n64k16_bf16<1>(pv, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
-                              pf[4 * kk + 3], desc_sw128(v_a + 2048 * kk),
-                              kStats || kk != 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(pv);
-    fence_regs(pf);
-    if constexpr (kStats) fence_regs(plo);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[e] = fmaf(o[e], alpha[(e >> 1) & 1], pv[e]);
-    __syncthreads();  // every warpgroup is done with this stage
-    if (tid == 0 && i + kStages < ntiles) {
-      fence_async_smem();  // the bias reads above before the TMA overwrites
-      issue_tile(i + kStages, st);
-    }
+  auto softmax_tile = [&](int i) {
+    if (i == ntiles - 1 && n % kKeyTile) softmax(i, std::true_type{});
+    else softmax(i, std::false_type{});
+  };
+
+  mbar_wait(qbar, 0);
+  // tile 0: S alone
+  mbar_wait(&full[0], 0);
+  phase_begin();
+  issue_s(0);
+  phase_end();
+  softmax_tile(0);
+  // tile i: S_i with P_{i-1} v_{i-1}
+  for (int i = 1; i < ntiles; ++i) {
+    mbar_wait(&full[i % kS], (i / kS) & 1);
+    phase_begin();
+    issue_s(i);
+    issue_pv(i - 1);
+    phase_end();
+    release(i - 1);
+    softmax_tile(i);
   }
+  // the last tile's P v
+  phase_begin();
+  issue_pv(ntiles - 1);
+  phase_end();
+  release(ntiles - 1);
+
   if constexpr (kStats) {
-    write_stats_rows(geo, o, m, l, q0, r0, t, n);
+    const float mn[2] = {kBias ? m[0] : m[0] * scale, kBias ? m[1] : m[1] * scale};
+    write_stats_rows(geo, o, mn, l, q0, r0, t, n);
   } else {
     write_rows(geo, o, l, q0, r0, t, n);
   }
@@ -879,11 +1012,17 @@ __device__ __forceinline__ void attend(const Geo& geo, int n, float scale,
   }
 }
 
+// Whether T runs the bf16 body.
+template <typename T>
+constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
 // The dynamic shared memory a block of the T body takes.
 template <typename T, int NWG, bool kBias>
 constexpr int alloc_bytes() {
   return std::is_same<T, float>::value ? Plan<NWG, kBias>::kAlloc
-                                       : Plan16<NWG, kBias>::kAlloc;
+                                       : Plan16<kBias>::kAlloc;
 }
 
 // Token t of a ws x ws window of an NHWC map, and the tile loads of one
@@ -918,10 +1057,11 @@ using WindowGeo = WindowGeoT<float>;
 // -- host ---------------------------------------------------------------------
 
 // Lets `kernel` use `bytes` of dynamic shared memory on the current device;
-// set once a device and kernel (the attribute outlives the call).  0 on
-// success.
+// with `max_shared`, also asks for the SM's largest shared-memory carveout
+// (so that two blocks of the bf16 body fit an SM); set once a device and
+// kernel (the attributes outlive the call).  0 on success.
 template <auto kernel>
-static inline int allow_smem(int bytes) {
+static inline int allow_smem(int bytes, bool max_shared = false) {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
@@ -929,6 +1069,10 @@ static inline int allow_smem(int bytes) {
   if (dev < 64 && done[dev]) return 0;
   rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                             bytes);
+  if (rc == cudaSuccess && max_shared)
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
   if (rc != cudaSuccess) return (int)rc;
   if (dev < 64) done[dev] = true;
   return 0;

@@ -50,8 +50,20 @@
 // The bf16 entry (sic_seq_attention_bf16; the JAX package's bf16 serving
 // mode): bf16 qkv and out, one bf16 wgmma per product on the tensor cores
 // with f32 accumulation, f32 logits and softmax (attention_tc.cuh's bf16
-// body).  Its bound is 4 * B * heads * S^2 * d over 989 TFLOP/s, with
-// 2-byte elements; the same grid, 48 KB of ring and 16 KB of q tile.
+// body).  Its bound is the larger of 4 * B * heads * S^2 * d over 989
+// TFLOP/s and its bytes at 2 bytes an element: bytes at every flagship
+// shape.  What holds it above that bound is latency: each block walks its
+// key tiles in turn, and the softmax's instructions take longer than the
+// tile's products.  So the design fills the SM with independent
+// warpgroups: one warpgroup a block (64 query rows) at every length, a
+// two-stage ring of k and v (40 KB with the q tile) on full and empty
+// mbarriers, at most 128 registers a thread (ptxas: 109, no spills), four
+// blocks an SM; trunk (4, 289, 3072): 5 x 16 x 4 = 320 blocks, cross (4,
+// 545, 2304): 9 x 12 x 4 = 432, both one wave of the card's 528 slots
+// (the f32 grid, 128-row blocks one an SM, takes 1.45 and 1.82 waves).
+// The softmax takes exp as one FFMA and one ex2.approx a logit,
+// the scale folded into the exponent, and masks keys only in a ragged
+// last tile.
 #include "attention_tc.cuh"
 
 namespace {
@@ -84,7 +96,8 @@ namespace {
 
 // grid: x = query tile, y = head, z = sequence
 template <typename T, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 1)
+__global__ void __launch_bounds__(NWG * 128,
+                      sic_tc::min_blocks<T, false>())
     seq_attention_kernel(const __grid_constant__ CUtensorMap map,
                          T* __restrict__ out, int S, int C, int d,
                          float scale) {
@@ -99,11 +112,13 @@ template <typename T, int NWG>
 int launch(const CUtensorMap& map, T* out, int B, int S, int C, int heads,
            int d, float scale, cudaStream_t stream) {
   constexpr int bytes = sic_tc::alloc_bytes<T, NWG, false>();
-  const int rc = sic_tc::allow_smem<seq_attention_kernel<T, NWG>>(bytes);
+  const int rc = sic_tc::allow_smem<seq_attention_kernel<T, NWG>>(
+      bytes, sic_tc::is_bf16<T>());
   if (rc != 0) return rc;
   const int rows = NWG * sic_tc::kWgRows;
   const dim3 grid((S + rows - 1) / rows, heads, B);
-  seq_attention_kernel<T, NWG><<<grid, NWG * 128, bytes, stream>>>(
+  seq_attention_kernel<T, NWG><<<grid, NWG * 128,
+                                     bytes, stream>>>(
       map, out, S, C, d, scale);
   return (int)cudaGetLastError();
 }
@@ -136,9 +151,13 @@ int run(const void* qkv, void* out, int B, int S, int C, int heads,
   const int rc = sic_tc::encode_map<T>(&map, qkv, 4, dims, strides, box);
   if (rc != 0) return rc;
   cudaStream_t s = (cudaStream_t)stream;
-  return S <= sic_tc::kWgRows
-             ? launch<T, 1>(map, (T*)out, B, S, C, heads, d, scale, s)
-             : launch<T, 2>(map, (T*)out, B, S, C, heads, d, scale, s);
+  if constexpr (sic_tc::is_bf16<T>()) {  // 64-row blocks, four an SM
+    return launch<T, 1>(map, (T*)out, B, S, C, heads, d, scale, s);
+  } else {
+    return S <= sic_tc::kWgRows
+               ? launch<T, 1>(map, (T*)out, B, S, C, heads, d, scale, s)
+               : launch<T, 2>(map, (T*)out, B, S, C, heads, d, scale, s);
+  }
 }
 
 }  // namespace

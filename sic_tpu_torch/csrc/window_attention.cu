@@ -43,16 +43,20 @@
 // The bf16 entry (sic_window_attention_bf16; every Swin layer in the JAX
 // package's bf16 serving mode): bf16 qkv and out, f32 bias, one bf16
 // wgmma per product with f32 accumulation, f32 logits and softmax
-// (attention_tc.cuh's bf16 body): the same grid, 113 KB of shared memory
-// (two stages of bf16 k and v, 8 KB each, and the f32 bias tile, 32 KB;
-// 16 KB of q tile).  Its bound is 4 * s * d flops a query over 989 TFLOP/s.
+// (attention_tc.cuh's bf16 body: one warpgroup on 64 queries a block, a
+// two-stage ring of k, v and the bias tile on full and empty mbarriers,
+// 72 KB with the q tile, three blocks an SM): 192 and 256 blocks at the
+// flagship's windows, one wave.  Its bound is 4 * s * d flops a query
+// over 989 TFLOP/s against its bytes at 2 bytes an element (4 a bias
+// element).
 #include "attention_tc.cuh"
 
 namespace {
 
 // grid: x = head * ntiles + query tile, y = window (i * nww + j), z = batch
 template <typename T, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 1)
+__global__ void __launch_bounds__(NWG * 128,
+                      sic_tc::min_blocks<T, true>())
     window_attention_kernel(const __grid_constant__ CUtensorMap map,
                             const __grid_constant__ CUtensorMap bias_map,
                             T* __restrict__ out, int H, int W, int C, int ws,
@@ -83,11 +87,13 @@ int launch(const CUtensorMap& map, const CUtensorMap& bias_map, T* out, int B,
            int H, int W, int C, int heads, int ws, int nB, float scale,
            cudaStream_t stream) {
   constexpr int bytes = sic_tc::alloc_bytes<T, NWG, true>();
-  const int rc = sic_tc::allow_smem<window_attention_kernel<T, NWG>>(bytes);
+  const int rc = sic_tc::allow_smem<window_attention_kernel<T, NWG>>(
+      bytes, sic_tc::is_bf16<T>());
   if (rc != 0) return rc;
   const int ntiles = ws * ws / (NWG * sic_tc::kWgRows);
   const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
-  window_attention_kernel<T, NWG><<<grid, NWG * 128, bytes, stream>>>(
+  window_attention_kernel<T, NWG><<<grid, NWG * 128,
+                                        bytes, stream>>>(
       map, bias_map, out, H, W, C, ws, nB, scale);
   return (int)cudaGetLastError();
 }
@@ -108,11 +114,16 @@ int run(const void* qkv, const void* bias, void* out, int B, int H, int W,
   rc = sic_tc::encode_square_map(&bias_map, bias, s, s, nB);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
-  return s % (2 * sic_tc::kWgRows) == 0
-             ? launch<T, 2>(map, bias_map, (T*)out, B, H, W, C, heads, ws, nB,
-                            scale, st)
-             : launch<T, 1>(map, bias_map, (T*)out, B, H, W, C, heads, ws, nB,
-                            scale, st);
+  if constexpr (sic_tc::is_bf16<T>()) {  // 64-row blocks, three an SM
+    return launch<T, 1>(map, bias_map, (T*)out, B, H, W, C, heads, ws, nB,
+                        scale, st);
+  } else {
+    return s % (2 * sic_tc::kWgRows) == 0
+               ? launch<T, 2>(map, bias_map, (T*)out, B, H, W, C, heads, ws,
+                              nB, scale, st)
+               : launch<T, 1>(map, bias_map, (T*)out, B, H, W, C, heads, ws,
+                              nB, scale, st);
+  }
 }
 
 }  // namespace

@@ -76,7 +76,7 @@
 //
 // The bf16 entry (sic_window_attention_bwd_bf16; every Swin layer's
 // gradient when training computes in bf16): bf16 qkv, g and dqkv, f32
-// bias, dbias and scratch, the same four passes and grids.  The TPU
+// bias, dbias and scratch, the same four passes.  The TPU
 // kernel upcasts qkv and g and computes in f32 inside, so the only
 // rounding it adds is dqkv's to bf16.  Here S = q k^T and dP = g v^T take
 // their bf16 operands exactly (one k16 wgmma a step, f32 accumulation);
@@ -85,13 +85,24 @@
 // first pass (D = g . O): there each goes in as bf16 hi + lo, two wgmma
 // a step, which leaves it about 2^-17 of itself, below dqkv's own
 // rounding (2^-9).  Each tile's product still goes to a fresh
-// accumulator added in f32.  v, g, q and k are read MN-major as TMA lands
-// them (the transpose bit of 16-bit wgmma), so the bf16 passes stage no
-// transposes: pass 2 holds k, v, P^T and a two-stage ring of (q, g, bias)
-// in 97 KB, pass 3 a two-stage ring of (dS, k) in 48 KB.  dqkv is rounded
-// once to bf16; dbias (pass 4, shared) is f32 as in the f32 entry.  Its
-// bound: the same 10 s^2 d flops a window and head over 989 TFLOP/s, at
-// 2 bytes an element of qkv, g and dqkv.
+// accumulator added in f32 in pass 3; in pass 2, dv and dk accumulate
+// over the query tiles in the tensor cores.  v, g, q and k are read
+// MN-major as TMA lands them (the transpose bit of 16-bit wgmma), so the
+// bf16 passes stage no transposes: pass 2 holds k, v, P^T and a two-stage
+// ring of (q, g, bias) in 97 KB, pass 3 a two-stage ring of (dS, k) in 48
+// KB.  dqkv is rounded once to bf16; dbias (pass 4, shared) is f32 as in
+// the f32 entry.  Its bound: the same 10 s^2 d flops a window and head
+// over 989 TFLOP/s, at 2 bytes an element of qkv, g and dqkv.
+//
+// The bf16 passes' schedule, set by what the card measured (PERF.md):
+// pass 1 runs attention_tc.cuh's bf16 body in one-warpgroup blocks, three
+// an SM (at 512 px 384 blocks, one wave; two-warpgroup blocks, one an SM
+// by their shared memory, would take 1.45); pass 2 fits two blocks an SM
+// (at most 128 registers: dv and dk need no fresh accumulator), takes P^T
+// by ex2, hands P^T from warpgroup 0 to 1 through an mbarrier pair and
+// refills its ring from warpgroup 1's first thread once all eight warps
+// have released a stage, with no block barrier after set-up; pass 3 runs
+// four blocks an SM.
 #include "attention_tc.cuh"
 
 namespace {
@@ -121,7 +132,8 @@ struct StatsGeo : sic_tc::WindowGeoT<T> {
 
 // grid: x = head * ntiles + query tile, y = window, z = batch
 template <typename T, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 1)
+__global__ void __launch_bounds__(NWG * 128,
+                      sic_tc::min_blocks<T, true>())
     bwd_stats_kernel(const __grid_constant__ CUtensorMap map,
                      const __grid_constant__ CUtensorMap bias_map,
                      const T* __restrict__ g, float2* __restrict__ stats,
@@ -557,9 +569,11 @@ __global__ void __launch_bounds__(128, 2)
 // warpgroup's 64, columns the K index) split into register A fragments
 // of bf16 hi and lo (for 16-bit types the accumulator's slots of columns
 // 16kk.. are the A fragment of step kk), b a (64 K rows, 64 bf16) MN-major
-// tile at shared address b_a.  The tile's product goes to a fresh
-// accumulator, added into acc with f32 adds.
-__device__ __forceinline__ void mma16_rs_add(float (&acc)[32],
+// tile at shared address b_a.  The products accumulate into acc in the
+// tensor cores' f32 over the query tiles (truncating adds, below dqkv's
+// bf16 rounding; PERF.md): no fresh accumulator, so that the pass fits
+// two blocks an SM.
+__device__ __forceinline__ void mma16_rs_acc(float (&acc)[32],
                                              const float (&x)[32],
                                              uint32_t b_a) {
   uint32_t hi[16], lo[16];
@@ -570,35 +584,31 @@ __device__ __forceinline__ void mma16_rs_add(float (&acc)[32],
       sic_tc::split_bf16(x[4 * j + 2 * row], x[4 * j + 2 * row + 1],
                          hi[2 * j + row], lo[2 * j + row]);
   }
-  float tile[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) tile[e] = 0.f;
-  sic_tc::fence_regs(tile);
+  sic_tc::fence_regs(acc);
   sic_tc::fence_regs(hi);
   sic_tc::fence_regs(lo);
   sic_tc::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    sic_tc::wgmma_m64n64k16_bf16<1>(tile, lo[4 * kk], lo[4 * kk + 1],
+    sic_tc::wgmma_m64n64k16_bf16<1>(acc, lo[4 * kk], lo[4 * kk + 1],
                                     lo[4 * kk + 2], lo[4 * kk + 3],
-                                    sic_tc::desc_sw128(b_a + 2048 * kk), kk != 0);
+                                    sic_tc::desc_sw128(b_a + 2048 * kk), 1);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    sic_tc::wgmma_m64n64k16_bf16<1>(tile, hi[4 * kk], hi[4 * kk + 1],
+    sic_tc::wgmma_m64n64k16_bf16<1>(acc, hi[4 * kk], hi[4 * kk + 1],
                                     hi[4 * kk + 2], hi[4 * kk + 3],
                                     sic_tc::desc_sw128(b_a + 2048 * kk), 1);
   sic_tc::wgmma_commit();
   sic_tc::wgmma_wait_all();
-  sic_tc::fence_regs(tile);
+  sic_tc::fence_regs(acc);
   sic_tc::fence_regs(hi);
   sic_tc::fence_regs(lo);
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] += tile[e];
 }
 
 // The pass-2 block: k and v (8 KB each), P^T passed between the
 // warpgroups (f32, 16 KB), then a two-stage ring of (q, g, bias) tiles
-// (8 + 8 + 16 KB), then three mbarriers (k and v, the ring's two).
+// (8 + 8 + 16 KB), then the mbarriers: k and v's, the ring's full and
+// empty pairs, P^T's full and empty pair.  97 KB: two blocks an SM.
 constexpr int kB16K = 0;
 constexpr int kB16V = kBoxBytes;
 constexpr int kB16Px = 2 * kBoxBytes;
@@ -610,11 +620,16 @@ constexpr int kB16Stage = 2 * kBoxBytes + kTileBytes;
 constexpr int kB16Bar = kB16Ring + 2 * kB16Stage;
 constexpr int kDkdv16Bytes = kB16Bar + 64 + 1024;
 
-// grid: x = head * nk + key tile, y = window, z = batch; 256 threads.
-// Warpgroup 0 takes S^T, P^T and dv, warpgroup 1 dP^T, dS^T and dk, as in
-// the f32 pass; each picks its operands by address, so no wgmma sits in a
-// branch.
-__global__ void __launch_bounds__(256, 1)
+// grid: x = head * nk + key tile, y = window, z = batch; 256 threads, two
+// blocks an SM (at most 128 registers a thread).  Warpgroup 0 takes S^T,
+// P^T and dv, warpgroup 1 dP^T, dS^T and dk, as in the f32 pass; each picks
+// its operands by address, so no wgmma sits in a branch.  No block
+// barrier after set-up: P^T goes from warpgroup 0 to 1 through an mbarrier
+// pair (full: its four warps wrote it; empty: warpgroup 1's four read
+// it), each stage of the ring is released by an arrival of each of the
+// eight warps on its empty mbarrier, and thread 0 of warpgroup 1 (the
+// later of the two, as it waits for P^T) refills it.
+__global__ void __launch_bounds__(256, 2)
     bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap map,
                          const __grid_constant__ CUtensorMap g_map,
                          const __grid_constant__ CUtensorMap bias_map,
@@ -626,6 +641,9 @@ __global__ void __launch_bounds__(256, 1)
   uint8_t* smem = sic_tc::align1024(smem_raw);
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + kB16Bar);
   uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + 2;
+  uint64_t* px_full = empty + 2;
+  uint64_t* px_empty = px_full + 1;
   float4* px = reinterpret_cast<float4*>(smem + kB16Px);  // [8][128] float4
 
   const int s = ws * ws;
@@ -660,7 +678,18 @@ __global__ void __launch_bounds__(256, 1)
                           k0 + h * 32, i0, win % nB);
   };
 
-  sic_tc::init_bars(kvbar, 3);
+  if (tid == 0) {
+    sic_tc::mbar_init(kvbar, 1);
+    for (int i = 0; i < 2; ++i) {
+      sic_tc::mbar_init(&full[i], 1);
+      sic_tc::mbar_init(&empty[i], 8);  // every warp of the block
+    }
+    sic_tc::mbar_init(px_full, 4);      // warpgroup 0's warps
+    sic_tc::mbar_init(px_empty, 4);     // warpgroup 1's warps
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sic_tc::fence_async_smem();
+  }
+  __syncthreads();
   if (tid == 0) {
     sic_tc::mbar_expect_tx(kvbar, 2 * kBoxBytes);
     sic_tc::tma_load_4d(smem + kB16K, &map, kvbar, C + head * kHeadDim, x0,
@@ -693,20 +722,21 @@ __global__ void __launch_bounds__(256, 1)
   const float* srow0 = reinterpret_cast<const float*>(stats + slab * s);
   float* ds_slab = ds + slab * s * s;
   const float NEG_INF = -INFINITY;
+  const float c = sic_tc::kLog2e;
 
   for (int it = 0; it < n; ++it) {
     const int i0 = it * kRows;
     const int st = it & 1;
     uint8_t* sp = stage(st);
-    // this tile's lse (warpgroup 0) or D (warpgroup 1) of queries
-    // 8j + 2t and 8j + 2t + 1
+    // this tile's lse (warpgroup 0, in base-2 units) or D (warpgroup 1) of
+    // queries 8j + 2t and 8j + 2t + 1
     float stv[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float4 v4 = *reinterpret_cast<const float4*>(
           srow0 + 2 * (i0 + 8 * j + 2 * t));
-      stv[2 * j] = wg == 0 ? v4.x : v4.y;
-      stv[2 * j + 1] = wg == 0 ? v4.z : v4.w;
+      stv[2 * j] = wg == 0 ? v4.x * c : v4.y;
+      stv[2 * j + 1] = wg == 0 ? v4.z * c : v4.w;
     }
     sic_tc::mbar_wait(&full[st], (it >> 1) & 1);
 
@@ -730,6 +760,8 @@ __global__ void __launch_bounds__(256, 1)
 
     // slot 4j+e holds key r0 + 8 (e >> 1), query 8j + 2t + (e & 1)
     if (wg == 0) {
+      // P^T = 2^((S^T scale + bias^T) log2 e - lse log2 e); a -inf logit
+      // gives 0
       const uint8_t* bias = sp + kB16Bias;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -737,19 +769,23 @@ __global__ void __launch_bounds__(256, 1)
         for (int e = 0; e < 4; ++e) {
           const int qc = 8 * j + 2 * t + (e & 1);
           const int kr = r0 + 8 * (e >> 1);
-          const float v = x[4 * j + e] * scale +
-                          *reinterpret_cast<const float*>(
-                              bias + sic_tc::swz(kRows, qc, kr));
-          x[4 * j + e] = (v == NEG_INF) ? 0.f : expf(v - stv[2 * j + (e & 1)]);
+          const float v = fmaf(x[4 * j + e], scale,
+                               *reinterpret_cast<const float*>(
+                                   bias + sic_tc::swz(kRows, qc, kr)));
+          x[4 * j + e] = (v == NEG_INF) ? 0.f
+                                        : sic_tc::ex2(fmaf(v, c, -stv[2 * j + (e & 1)]));
         }
+      }
+      if (it > 0) sic_tc::mbar_wait(px_empty, (it - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
         px[j * 128 + wtid] =
             make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
-      }
-    }
-    __syncthreads();  // P^T is passed on
-
-    if (wg == 1) {
+      __syncwarp();
+      if (lane == 0) sic_tc::mbar_arrive(px_full);
+    } else {
       // dS^T = P^T (dP^T - D), to the scratch as (query, key) rows
+      sic_tc::mbar_wait(px_full, it & 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float4 p = px[j * 128 + wtid];
@@ -762,11 +798,15 @@ __global__ void __launch_bounds__(256, 1)
           ds_slab[(int64_t)(i0 + qc) * s + k0 + kr] = x[4 * j + e];
         }
       }
+      __syncwarp();
+      if (lane == 0) sic_tc::mbar_arrive(px_empty);
     }
     // dv += P^T g (warpgroup 0) or dk += dS^T q (warpgroup 1)
-    mma16_rs_add(acc, x, sic_tc::smem_u32(sp + (wg == 0 ? kB16G : kB16Q)));
-    __syncthreads();  // the stage and P^T are free again
-    if (tid == 0 && it + 2 < n) {
+    mma16_rs_acc(acc, x, sic_tc::smem_u32(sp + (wg == 0 ? kB16G : kB16Q)));
+    __syncwarp();
+    if (lane == 0) sic_tc::mbar_arrive(&empty[st]);  // this warp is done with it
+    if (tid == 128 && it + 2 < n) {
+      sic_tc::mbar_wait(&empty[st], (it >> 1) & 1);
       sic_tc::fence_async_smem();  // the bias reads before the TMA overwrites
       issue(it + 2, st);
     }
@@ -927,11 +967,13 @@ int launch_stats(const CUtensorMap& map, const CUtensorMap& bias_map,
                  const T* g, float2* stats, int B, int H, int W, int C,
                  int heads, int ws, int nB, float scale, cudaStream_t st) {
   constexpr int bytes = sic_tc::alloc_bytes<T, NWG, true>();
-  const int rc = sic_tc::allow_smem<bwd_stats_kernel<T, NWG>>(bytes);
+  const int rc =
+      sic_tc::allow_smem<bwd_stats_kernel<T, NWG>>(bytes, sic_tc::is_bf16<T>());
   if (rc != 0) return rc;
   const int ntiles = ws * ws / (NWG * sic_tc::kWgRows);
   const dim3 grid(heads * ntiles, (H / ws) * (W / ws), B);
-  bwd_stats_kernel<T, NWG><<<grid, NWG * 128, bytes, st>>>(
+  bwd_stats_kernel<T, NWG><<<grid, NWG * 128, bytes,
+                             st>>>(
       map, bias_map, g, stats, H, W, C, ws, nB, scale);
   return (int)cudaGetLastError();
 }
@@ -966,11 +1008,16 @@ int run(const void* qkv, const void* bias, const void* g, void* dqkv,
   float* fds = (float*)ds_scratch;
   float2* fst = (float2*)stats_scratch;
 
-  rc = s % (2 * sic_tc::kWgRows) == 0
-           ? launch_stats<T, 2>(map, bias_map, tg, fst, B, H, W, C, heads, ws,
-                                nB, scale, st)
-           : launch_stats<T, 1>(map, bias_map, tg, fst, B, H, W, C, heads, ws,
-                                nB, scale, st);
+  if constexpr (sic_tc::is_bf16<T>()) {  // 64-row blocks, three an SM
+    rc = launch_stats<T, 1>(map, bias_map, tg, fst, B, H, W, C, heads, ws, nB,
+                            scale, st);
+  } else {
+    rc = s % (2 * sic_tc::kWgRows) == 0
+             ? launch_stats<T, 2>(map, bias_map, tg, fst, B, H, W, C, heads,
+                                  ws, nB, scale, st)
+             : launch_stats<T, 1>(map, bias_map, tg, fst, B, H, W, C, heads,
+                                  ws, nB, scale, st);
+  }
   if (rc != 0) return rc;
 
   const dim3 grid(heads * (s / kRows), nW, B);
@@ -986,14 +1033,14 @@ int run(const void* qkv, const void* bias, const void* g, void* dqkv,
     bwd_dq_kernel<<<grid, 128, kDqBytes, st>>>(map, ds_map, (float*)dqkv, H,
                                                W, C, ws, scale);
   } else {
-    rc = sic_tc::allow_smem<bwd_dkdv_bf16_kernel>(kDkdv16Bytes);
+    rc = sic_tc::allow_smem<bwd_dkdv_bf16_kernel>(kDkdv16Bytes, true);
     if (rc != 0) return rc;
     bwd_dkdv_bf16_kernel<<<grid, 256, kDkdv16Bytes, st>>>(
         map, g_map, bias_map, fst, fds, (__nv_bfloat16*)dqkv, H, W, C, ws, nB,
         scale);
     if ((rc = (int)cudaGetLastError()) != 0) return rc;
 
-    rc = sic_tc::allow_smem<bwd_dq_bf16_kernel>(kDq16Bytes);
+    rc = sic_tc::allow_smem<bwd_dq_bf16_kernel>(kDq16Bytes, true);
     if (rc != 0) return rc;
     bwd_dq_bf16_kernel<<<grid, 128, kDq16Bytes, st>>>(
         map, ds_map, (__nv_bfloat16*)dqkv, H, W, C, ws, scale);

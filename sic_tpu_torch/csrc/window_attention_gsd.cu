@@ -35,8 +35,9 @@
 //
 // The bf16 entry (sic_window_attention_gsd_bf16, as the JAX op takes bf16
 // q, k, v): bf16 operands and output, f32 bias, attention_tc.cuh's bf16
-// body; the maps' box is one whole 64-wide bf16 head row.  Its bound is
-// 4 * s * d flops a query over 989 TFLOP/s.
+// body (one warpgroup on 64 queries a block, three an SM: 192 blocks on
+// the flagship layer); the maps' box is one whole 64-wide bf16 head row.  Its bound is 4 * s * d flops a query over 989 TFLOP/s
+// against its bytes.
 #include "attention_tc.cuh"
 
 namespace {
@@ -65,7 +66,8 @@ struct GsdGeo {
 
 // grid: x = g * ntiles + query tile
 template <typename T, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 1)
+__global__ void __launch_bounds__(NWG * 128,
+                      sic_tc::min_blocks<T, true>())
     window_attention_gsd_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
@@ -86,12 +88,14 @@ int launch(const CUtensorMap (&maps)[4], T* out, int G, int s, int nW,
            float scale, cudaStream_t stream) {
   constexpr int bytes = sic_tc::alloc_bytes<T, NWG, true>();
   const int rc =
-      sic_tc::allow_smem<window_attention_gsd_kernel<T, NWG>>(bytes);
+      sic_tc::allow_smem<window_attention_gsd_kernel<T, NWG>>(
+      bytes, sic_tc::is_bf16<T>());
   if (rc != 0) return rc;
   constexpr int rows = NWG * sic_tc::kWgRows;
   const long long blocks = (long long)G * ((s + rows - 1) / rows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  window_attention_gsd_kernel<T, NWG><<<(unsigned)blocks, NWG * 128, bytes,
+  window_attention_gsd_kernel<T, NWG><<<(unsigned)blocks,
+                                        NWG * 128, bytes,
                                         stream>>>(maps[0], maps[1], maps[2],
                                                   maps[3], out, s, nW, scale);
   return (int)cudaGetLastError();
@@ -124,9 +128,13 @@ int run(const void* q, const void* k, const void* v, const void* bias,
   const int rc = sic_tc::encode_square_map(&maps[3], bias, s, row_floats, nW);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
-  return s % (2 * sic_tc::kWgRows) == 0
-             ? launch<T, 2>(maps, (T*)out, G, s, nW, scale, st)
-             : launch<T, 1>(maps, (T*)out, G, s, nW, scale, st);
+  if constexpr (sic_tc::is_bf16<T>()) {  // 64-row blocks, three an SM
+    return launch<T, 1>(maps, (T*)out, G, s, nW, scale, st);
+  } else {
+    return s % (2 * sic_tc::kWgRows) == 0
+               ? launch<T, 2>(maps, (T*)out, G, s, nW, scale, st)
+               : launch<T, 1>(maps, (T*)out, G, s, nW, scale, st);
+  }
 }
 
 }  // namespace

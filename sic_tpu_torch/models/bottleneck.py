@@ -14,8 +14,10 @@ from __future__ import annotations
 
 import copy
 import functools
+import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -387,12 +389,21 @@ class BottleneckCoder:
             self.coder.flush()
             return self.coder.get_encoded_stream()
 
-    def encode_packed_many(self, packed) -> list:
-        """One stream per image of a batched packed array (4, 2, B, ...),
-        each from its own pooled native encoder."""
+    def encode_packed_many(self, packed, workers: int = 8) -> list:
+        """One stream per image of a batched packed array (4, 2, B, ...):
+        the images fan out over at most ``min(workers, cpu count, B)``
+        threads, each coding with a native encoder of its own from the
+        encoder pool (the ctypes calls release the GIL), as the JAX
+        package's ``encode_packed_many`` does.  With one image or one
+        worker the images go one after another through
+        :meth:`encode_packed`.  The streams do not depend on ``workers``."""
         packed = _host(packed)
-        out = []
-        for b in range(packed.shape[2]):
+        B = packed.shape[2]
+        workers = min(workers, os.cpu_count() or 1, B)
+        if B == 1 or workers <= 1:
+            return [self.encode_packed(packed[:, :, b:b + 1]) for b in range(B)]
+
+        def _enc(b):
             try:
                 coder, group = self._enc_pool.get_nowait()
             except queue.Empty:
@@ -403,10 +414,12 @@ class BottleneckCoder:
                     coder.encode_with_indexes(packed[step, 0, b:b + 1],
                                               packed[step, 1, b:b + 1], group)
                 coder.flush()
-                out.append(coder.get_encoded_stream())
+                return coder.get_encoded_stream()
             finally:
                 self._enc_pool.put((coder, group))
-        return out
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(_enc, range(B)))
 
     def compress(self, y, q_idx: int = 0):
         """y: (B, H, W, feat_dim) -> (one host-coded stream for the batch,
@@ -532,34 +545,55 @@ class BottleneckCoder:
                                       coding_batch, probe)
 
     def decompress_batched(self, bit_streams, latent_shape, q_idx: int = 0,
-                           coding_batch: Optional[int] = None, probe=None):
+                           workers: int = 8, coding_batch: Optional[int] = None,
+                           probe=None):
         """Decode B independent per-image streams with BATCHED device steps
-        (4 host syncs in all), one pooled host decoder per stream.
-        ``latent_shape``: (1, H, W, quant_dim) shared by every stream."""
+        (4 host syncs in all), one pooled host decoder per stream; each
+        step's per-image host rANS decodes fan out over at most
+        ``min(workers, cpu count, B)`` threads (one after another with one
+        image or one worker), as in the JAX package, whose positions the
+        arguments keep (``probe``, the port's own, comes last).
+        ``latent_shape``: (1, H, W, quant_dim) shared by every stream.
+        y_hat does not depend on ``workers``."""
         B = len(bit_streams)
         _, H, W, C = latent_shape
+        workers = min(workers, os.cpu_count() or 1, B)
         coders = [self._checkout_decoder() for _ in bit_streams]
         dev = self.device
 
-        def get_symbols(step, idx_c, chunks, Bc):
-            idx_np = [a.cpu().numpy() for a in idx_c]  # one round for all B
-            out = []
-            for ci, (start, real) in enumerate(chunks):
-                sp = np.zeros((Bc,) + idx_np[ci].shape[1:], np.int16)
-                for off in range(real):
-                    coder, group = coders[start + off]
-                    sp[off] = coder.decode_stream(idx_np[ci][off], group
-                                                  ).reshape(sp.shape[1:])
-                out.append(torch.from_numpy(sp).to(dev))
-            return out
+        def make_get_symbols(pool):
+            def get_symbols(step, idx_c, chunks, Bc):
+                idx_np = [a.cpu().numpy() for a in idx_c]  # one round for all B
+
+                def _dec(i):
+                    coder, group = coders[i]
+                    ci, off = divmod(i, Bc)
+                    return coder.decode_stream(idx_np[ci][off], group)
+
+                syms = list(pool.map(_dec, range(B)) if pool is not None
+                            else map(_dec, range(B)))
+                out = []
+                for ci, (start, real) in enumerate(chunks):
+                    sp = np.zeros((Bc,) + idx_np[ci].shape[1:], np.int16)
+                    for off in range(real):
+                        sp[off] = syms[start + off].reshape(sp.shape[1:])
+                    out.append(torch.from_numpy(sp).to(dev))
+                return out
+            return get_symbols
 
         try:
             for (coder, _g), stream in zip(coders, bit_streams):
                 coder.set_stream(stream)
             if probe is not None:
                 probe["h_path"] = "host"
-            return self._run_decode_chain((B, H, W, C), q_idx, get_symbols,
-                                          coding_batch, probe)
+            if B == 1 or workers <= 1:
+                return self._run_decode_chain((B, H, W, C), q_idx,
+                                              make_get_symbols(None),
+                                              coding_batch, probe)
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                return self._run_decode_chain((B, H, W, C), q_idx,
+                                              make_get_symbols(pool),
+                                              coding_batch, probe)
         finally:
             for item in coders:
                 self._dec_pool.put(item)

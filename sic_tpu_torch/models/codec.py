@@ -546,6 +546,12 @@ class CodecRuntime:
     def _decode_pixels(self, z_indices, h_hat, stack_shape, output: str):
         if self.mesh is None:
             x = self.net.decode_stage(z_indices, h_hat, stack_shape)
+        elif h_hat.shape[0] % self.mesh.size("data"):
+            # rows that do not split over the data ranks run whole on each
+            # (as decode_stage runs a tile that straddles ranks); the JAX
+            # runtime shards only its encodes and decodes any batch
+            with tile_parallel(self.mesh.tile):
+                x = tile_gather(self.net.decode_stage(z_indices, h_hat, stack_shape))
         else:
             mesh, B = self.mesh, h_hat.shape[0]
             per = self._rows(B)
@@ -666,9 +672,13 @@ class CodecRuntime:
         z_future = self._io.submit(_z_all)
         fs = _nhwc_feat_shape(first["feat_shape"], self.spec.feat_width)
         latent_shape = (1, fs[1], fs[2], self.spec.quant_dim)
+        # workers=1: the native coder already threads each stream over its
+        # substreams, and a fan-out over the images on top was slower on an
+        # H100 host (PERF.md)
         with timed_stage(timer, "h_rans"):
             h_hat = self.h_coder.decompress_batched(
                 [e["h_bit_stream"] for e in enc_results], latent_shape,
+                workers=1,
                 coding_batch=self._check_coding_batch(first.get("coding_batch")),
                 probe=probe)
         if probe is not None:
@@ -811,8 +821,9 @@ class CodecRuntime:
             for start, real, packed_dev, _yh in chunk_plans:
                 with timed_stage(timer, "fetch"):
                     packed = self._fetch_packed(packed_dev)  # waits for this chunk
+                # one worker, as in decode_only_batched
                 pending.append((start, real, self._io.submit(
-                    self.h_coder.encode_packed_many, packed)))
+                    self.h_coder.encode_packed_many, packed, 1)))
             with timed_stage(timer, "h_rans"):
                 for start, real, fut in pending:
                     h_streams[start:start + real] = fut.result()

@@ -24,7 +24,9 @@ Tasks:
 - ``pp_fsdp`` (4 ranks, pipe 2 x data 2): a feat step under ``pp`` with
   and without FSDP.
 - ``runtime`` (2 ranks): ``CodecRuntime(mesh=)`` encodes at data 1 x
-  tile 2 and data 2 x tile 1.
+  tile 2 and data 2 x tile 1; at data 2 it also decodes one stream and
+  three streams (batches that do not split over the data ranks) beside a
+  one-process runtime in the same rank.
 """
 from __future__ import annotations
 
@@ -290,6 +292,15 @@ def runtime_task():
         res[shape] = {"encs": encs, "y_hat": probe["y_hat"].cpu(),
                       "path": probe["h_path"],
                       "x_hat": rt.decode_only_batched(encs).cpu()}
+        if shape == (2, 1):
+            # batches that do not split over the two data ranks, and the
+            # one-process runtime's pixels of the same streams in this rank
+            one = CodecRuntime(model.spec, model, device_entropy="host")
+            odd = [encs[0], encs[1], encs[0]]
+            res["odd"] = {name: (f(rt).cpu(), f(one).cpu()) for name, f in (
+                ("one_stream", lambda r: r.decode_only(**encs[0])),
+                ("three_streams", lambda r: r.decode_only_batched(odd)))}
+            one.close()
         rt.close()
     return res
 

@@ -119,3 +119,70 @@ def test_batched_decode_equals_per_image(pair):
     assert torch.equal(batched, y_hat)
     single = port.decompress(streams[1], (1, 8, 8, QUANT))
     assert torch.equal(single, y_hat[1:2])
+
+
+@pytest.fixture
+def many_cores(monkeypatch):
+    """Eight cores as the coders see them, so that the threaded path runs
+    on any host; the pools it starts, recorded by their worker counts."""
+    import sic_tpu_torch.models.bottleneck as mod
+    pools = []
+
+    class Recording(mod.ThreadPoolExecutor):
+        def __init__(self, max_workers=None, **kw):
+            pools.append(max_workers)
+            super().__init__(max_workers=max_workers, **kw)
+
+    monkeypatch.setattr(mod.os, "cpu_count", lambda: 8)
+    monkeypatch.setattr(mod, "ThreadPoolExecutor", Recording)
+    return pools
+
+
+@pytest.fixture(scope="module")
+def five_images(pair):
+    """One coding-batch chunk of five images: packed planes and y_hat."""
+    port, _ = pair
+    (_start, _real, packed, y_hat), = port.compress_plan_chunks(
+        torch.from_numpy(_y(5, 11)))
+    return packed, y_hat
+
+
+def test_encode_packed_many_threaded_equals_serial(pair, five_images, many_cores):
+    port, _ = pair
+    packed, _ = five_images
+    threaded = port.encode_packed_many(packed, workers=8)
+    assert many_cores == [5]          # min(workers, cpu count, B)
+    serial = port.encode_packed_many(packed, workers=1)
+    assert many_cores == [5]          # the serial path starts no pool
+    assert threaded == serial
+    assert serial == [port.encode_packed(packed[:, :, b:b + 1]) for b in range(5)]
+
+
+def test_decompress_batched_threaded_equals_serial(pair, five_images, many_cores):
+    port, _ = pair
+    packed, y_hat = five_images
+    streams = port.encode_packed_many(packed, workers=1)
+    serial = port.decompress_batched(streams, (1, 8, 8, QUANT), workers=1)
+    assert many_cores == []
+    threaded = port.decompress_batched(streams, (1, 8, 8, QUANT), workers=8)
+    assert many_cores == [5]
+    assert torch.equal(serial, y_hat) and torch.equal(threaded, y_hat)
+
+
+def test_decompress_batched_takes_workers_in_jax_position(pair, five_images, many_cores):
+    """The fourth positional argument is ``workers``, as in the JAX
+    package: a call written for one package means the same in the other."""
+    import inspect
+
+    from sic_tpu.models.bottleneck import BottleneckCoder as JCoder
+    port, _ = pair
+    packed, y_hat = five_images
+    streams = port.encode_packed_many(packed, 8)
+    got = port.decompress_batched(streams, (1, 8, 8, QUANT), 0, 3)
+    assert many_cores == [5, 3]
+    assert torch.equal(got, y_hat)
+    for name in ("decompress_batched", "encode_packed_many"):
+        ours = list(inspect.signature(getattr(BottleneckCoder, name)).parameters.items())
+        jax_params = list(inspect.signature(getattr(JCoder, name)).parameters.items())
+        assert [(k, p.default) for k, p in ours[:len(jax_params)]] == \
+            [(k, p.default) for k, p in jax_params]

@@ -868,13 +868,16 @@ def _bf16_within(out, plain, ref):
 
 def test_bf16_entries_compile_to_bf16_tensor_core_instructions(cuda):
     """Every kernel function of the three forward libraries holds HGMMA,
-    and those of the bf16 entries hold bf16 HGMMA only (cuobjdump -sass)."""
+    and those of the bf16 entries hold bf16 HGMMA only (cuobjdump -sass).
+    Each library has f32 functions at one and two warpgroups; the bf16
+    entries run one warpgroup a block at every length (three or four
+    blocks an SM), so each library holds three."""
     from sic_tpu_torch.ops import cuda_build
-    names = ("seq_attention", "window_attention", "window_attention_gsd")
-    cuda_build.build(names)
-    for name in names:
+    names = {"seq_attention": 3, "window_attention": 3, "window_attention_gsd": 3}
+    cuda_build.build(tuple(names))
+    for name, n_fns in names.items():
         counts = cuda_build.sass_hgmma(name)
-        assert len(counts) == 4, counts     # f32 and bf16, one and two warpgroups
+        assert len(counts) == n_fns, counts
         for fn, c in counts.items():
             assert c["hgmma"] > 0, (name, fn)
             if "bfloat16" in fn:
@@ -894,6 +897,29 @@ def test_seq_attention_bf16_kernel(cuda, B, S, C, heads):
     _bf16_within(out, ops.seq_attention_plain(qkv, 0.125, heads),
                  _seq_attention_f64(qkv, 0.125, heads))
     assert torch.equal(out, ops.seq_attention(qkv, 0.125, heads))
+
+
+@pytest.mark.parametrize("B,heads", [(1, 2), (12, 12)], ids=["few_blocks", "many_blocks"])
+@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 289, 545])
+def test_seq_attention_bf16_schedule(cuda, S, d, B, heads):
+    """Kernel 1's bf16 body (a ring of full and empty mbarriers refilled by
+    one thread, the softmax masking only a ragged last tile, 64-row blocks
+    four an SM) at sequence lengths around its 64-row tiles, every head dim
+    it takes, and grids of a few blocks and of more than four blocks an SM
+    (12 x 12 heads at 545 tokens: 1,296 blocks): within 1.5x the plain
+    bf16 version's error against f64, one launch counted, two calls
+    bit-equal."""
+    C = heads * d
+    qkv = _randn((B, S, 3 * C), 7 * S + d, cuda).to(torch.bfloat16)
+    scale = d ** -0.5
+    before = ops.bf16_launch_counts()["seq_attention"]
+    out = ops.seq_attention(qkv, scale, heads)
+    torch.cuda.synchronize()
+    assert ops.bf16_launch_counts()["seq_attention"] == before + 1
+    _bf16_within(out, ops.seq_attention_plain(qkv, scale, heads),
+                 _seq_attention_f64(qkv, scale, heads))
+    assert torch.equal(out, ops.seq_attention(qkv, scale, heads))
 
 
 @pytest.mark.parametrize("shifted", [False, True])
@@ -954,15 +980,43 @@ def test_window_attention_bwd_bf16_kernel(cuda, B, H, W, C, heads, nB):
     assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
 
 
+@pytest.mark.parametrize("C,heads", [(768, 12), (1024, 16)])
+@pytest.mark.parametrize("px,nB", [(256, 1), (512, 1), (512, 4)],
+                         ids=["256px_nb1", "512px_nb1", "512px_nbnw"])
+def test_window_attention_bwd_bf16_schedule(cuda, px, nB, C, heads):
+    """Kernel 5's bf16 passes at both training sizes (one window a map at
+    256 px; 2 x 2 windows at 512 px with a shared bias and one a window,
+    the shifted layers' -inf masks included) and both Swin widths: dqkv
+    within 1.5x the plain bf16 version's error against the f64 VJP, dbias
+    within TOL of the plain version's, two launches bit-equal."""
+    from sic_tpu_torch.models.swin import _full_shift_mask
+    bf = torch.bfloat16
+    n = px // 16
+    qkv = _randn((2, n, n, 3 * C), px + nB + C, cuda).to(bf)
+    g = _randn((2, n, n, C), px + 1, cuda).to(bf)
+    bias = _randn((1, 256, 256), px + 2, cuda)
+    if nB > 1:
+        bias = (bias + torch.from_numpy(_full_shift_mask(n // 16, n // 16, 16))
+                .to(cuda)).contiguous()
+    dqkv, dbias = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, heads)
+    want_q, want_b = ops.window_attention_nhwc_bwd_plain(qkv, bias, g, 0.125, heads)
+    f64_q, _ = _window_bwd_f64(qkv, bias, g, 0.125, heads)
+    _bf16_within(dqkv, want_q, f64_q)
+    assert dbias.shape == (nB, 256, 256) and _rel_err(dbias, want_b) <= TOL
+    again = ops.window_attention_nhwc_bwd(qkv, bias, g, 0.125, heads)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+
+
 def test_window_attention_bwd_bf16_compiles_to_bf16_tensor_core_instructions(cuda):
-    """Kernel 5's library: its bf16 entry's functions (the stats pass at
-    both warpgroup counts, the dk-dv and dq passes) hold bf16 HGMMA only,
-    its f32 ones none; the dbias pass (shared) holds none."""
+    """Kernel 5's library: its bf16 entry's functions (the stats pass in
+    one-warpgroup blocks, the dk-dv and dq passes) hold bf16 HGMMA only,
+    its f32 ones (the stats pass at both warpgroup counts, dk-dv, dq) none;
+    the dbias pass (shared) holds none."""
     from sic_tpu_torch.ops import cuda_build
     cuda_build.build(("window_attention_bwd",))
     counts = cuda_build.sass_hgmma("window_attention_bwd")
     bf16_fns = [f for f in counts if "bfloat16" in f or "_bf16" in f]
-    assert len(bf16_fns) == 4 and len(counts) == 9, counts
+    assert len(bf16_fns) == 3 and len(counts) == 8, counts
     for fn, c in counts.items():
         if fn == "bwd_dbias_kernel":
             assert c["hgmma"] == 0

@@ -28,7 +28,9 @@ port's own one-process runs.
 - ``CodecRuntime(mesh=)`` at data 1 x tile 2 and data 2 x tile 1: every
   rank gets the same streams, they decode in a one-process runtime to the
   mesh runtime's y_hat exactly, and the mesh runtime's own decode equals
-  the one-process decode's pixels within 2e-4.
+  the one-process decode's pixels within 2e-4; at data 2, a batch that
+  does not split over the data ranks (one stream, three streams) decodes
+  to the pixels of a one-process runtime in the same rank, bit for bit.
 """
 import numpy as np
 import pytest
@@ -421,3 +423,24 @@ def test_mesh_runtime_streams_decode_in_one_process(runtime_runs, shape):
     rt.close()
     assert torch.equal(probe["h_hat"], a["y_hat"])
     assert float((x_one - a["x_hat"]).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("which", ["one_stream", "three_streams"])
+def test_mesh_runtime_decodes_a_batch_that_does_not_split(runtime_runs, which):
+    """At data 2, decode_only of one stream and decode_only_batched of
+    three run the rows whole on each rank: each rank's pixels equal the
+    one-process runtime's in the same process, and the test process's."""
+    from sic_tpu_torch.models import CodecRuntime
+    encs = runtime_runs[0][(2, 1)]["encs"]
+    for r in runtime_runs:
+        got, one = r["odd"][which]
+        assert torch.equal(got, one)
+    assert torch.equal(runtime_runs[0]["odd"][which][0], runtime_runs[1]["odd"][which][0])
+    model = M.seeded_codec(golden=True)
+    rt = CodecRuntime(model.spec, model, device_entropy="host")
+    want = (rt.decode_only(**encs[0]) if which == "one_stream"
+            else rt.decode_only_batched([encs[0], encs[1], encs[0]]))
+    rt.close()
+    got = runtime_runs[0]["odd"][which][0]
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 2e-4
