@@ -1,0 +1,182 @@
+"""Shared layers of the port: NHWC convolution, pre-LN transformer blocks,
+and the compute-dtype rules the modules share.
+
+Sequences are batch-major ``(B, S, D)`` and feature maps NHWC, as in the
+JAX package.  The qkv projection stays packed so the attention kernel reads
+``[q | k | v]`` straight from one matmul's output (torch
+``nn.MultiheadAttention`` checkpoints map 1:1 onto ``in_proj``/``out_proj``).
+
+Compute dtype apart from storage dtype.  A :class:`Linear` or
+:class:`Conv2d` has a compute dtype (``compute_dtype``, f32 unless
+:func:`set_compute_dtype` names another) and casts its input, weight and
+bias to it on every call, as flax's Dense and Conv do with ``dtype``
+set; the gradient flows back through the cast to the stored parameter.
+So f32 parameters computed in bf16 are flax's ``dtype=bf16``, and bf16-
+stored (frozen) parameters computed in f32 are flax's ``dtype=None`` with
+bf16 parameters, where promotion upcasts the kernel.  :func:`cast_compute`
+also casts the weights to the compute dtype once, for the serving
+runtime's bf16 copy (the same numbers as the cast on every call).
+:class:`LayerNorm` and :class:`GroupNorm` normalise in f32 with their
+parameters upcast, whatever their storage, and return the input's dtype,
+as flax's norms compute their statistics and affine in f32.  Elementwise
+steps run in the activation's dtype; positional parameters are cast to it
+where the JAX module casts them.  In fp32 every rule is the identity.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import seq_attention
+
+
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype):
+    return None if p is None else p.to(dtype)
+
+
+def _f32(p: Optional[torch.Tensor]):
+    return _cast(p, torch.float32)
+
+
+class Linear(nn.Linear):
+    """nn.Linear in its compute dtype: input, weight and bias cast to it."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-5, the JAX package's) in f32, its parameters
+    upcast, returning the input's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, _f32(self.weight),
+                            _f32(self.bias), self.eps).to(x.dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every Linear and Conv2d in ``module`` compute in ``dtype``
+    (their parameters keep their storage dtype)."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            m.compute_dtype = dtype
+    return module
+
+
+class Conv2d(nn.Conv2d):
+    """Convolution on NHWC tensors with torch-layout (OIHW) weights, in its
+    compute dtype (input, weight and bias cast to it).
+
+    Padding follows flax's SAME for the odd kernels used here.  A 1x1
+    stride-1 convolution runs as a matmul over the channel axis."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
+                 stride: int = 1, groups: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if stride == 1 else 0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        if self.kernel_size == (1, 1) and self.stride == (1, 1) \
+                and self.groups == 1:
+            return F.linear(x, w[:, :, 0, 0], b)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the channel axis of an NHWC tensor, in f32 with its
+    parameters upcast, returning the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
+                         _f32(self.weight), _f32(self.bias), self.eps)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class Embed(nn.Module):
+    """A token-embedding table; its one parameter is named as flax's
+    ``nn.Embed`` leaf (``embedding``, (vocab, width))."""
+
+    def __init__(self, num: int, width: int):
+        super().__init__()
+        self.embedding = nn.Parameter(0.02 * torch.randn(num, width))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embedding[tokens]
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Packed-qkv self attention: through the sequence-attention kernel,
+    or, with an additive ``attn_mask`` (the CLIP text tower's causal mask),
+    through plain einsums with f32 logits, as the JAX package does (no
+    served path takes the masked branch)."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"{d_model} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
+        self.in_proj = Linear(d_model, 3 * d_model)
+        self.out_proj = Linear(d_model, d_model)
+
+    def forward(self, x: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, S, _ = x.shape
+        head_dim = self.head_dim
+        inner = self.num_heads * head_dim
+        qkv = self.in_proj(x)
+        if attn_mask is None:
+            out = seq_attention(qkv, head_dim ** -0.5, self.num_heads)
+        else:
+            q, k, v = (t.reshape(B, S, self.num_heads, head_dim).transpose(1, 2)
+                       for t in qkv.split(inner, dim=-1))
+            logits = torch.einsum("bhqd,bhkd->bhqk", (q * head_dim ** -0.5).float(),
+                                  k.float())
+            probs = torch.softmax(logits + attn_mask.float(), dim=-1).to(v.dtype)
+            out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+            out = out.transpose(1, 2).reshape(B, S, inner)
+        return self.out_proj(out)
+
+
+class MLP(nn.Module):
+    """Exact-GELU MLP (torch ``c_fc``/``c_proj`` naming)."""
+
+    def __init__(self, d_model: int, hidden: int):
+        super().__init__()
+        self.c_fc = Linear(d_model, hidden)
+        self.c_proj = Linear(hidden, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(F.gelu(self.c_fc(x)))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN transformer block (reference: titok/blocks.py:26-64)."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.ln_1 = LayerNorm(d_model)
+        self.attn = MultiheadSelfAttention(d_model, num_heads)
+        self.ln_2 = LayerNorm(d_model)
+        self.mlp = MLP(d_model, int(d_model * mlp_ratio))
+
+    def forward(self, x: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), attn_mask)
+        return x + self.mlp(self.ln_2(x))
