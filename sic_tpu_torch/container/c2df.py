@@ -29,6 +29,8 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from ..utils.profiling import timed_stage
+
 T_BYTES = 0
 T_STR = 1
 T_INT = 2
@@ -106,6 +108,11 @@ def _dump_entry(key: str, val: Any) -> Tuple[bytes, int, bytes]:
 
 def pack_c2df(enc_result: Dict[str, Any], header: Dict[str, Any]) -> bytes:
     """Serialize an encode-result dict + header dict into a ``.c2df`` blob."""
+    with timed_stage(None, "c2df.pack"):
+        return _pack(enc_result, header)
+
+
+def _pack(enc_result: Dict[str, Any], header: Dict[str, Any]) -> bytes:
     blob = io.BytesIO()
     ver = int(header.get("version", DEFAULT_VERSION))
     blob.write(MAGIC)
@@ -170,6 +177,11 @@ def _load_entry(tag: int, payload: bytes) -> Any:
 
 def unpack_c2df(src) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Parse a ``.c2df`` path/bytes into ``(enc_result, header)`` dicts."""
+    with timed_stage(None, "c2df.unpack"):
+        return _unpack(src)
+
+
+def _unpack(src) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     if isinstance(src, (str, Path)):
         data = Path(src).read_bytes()
     else:

@@ -34,6 +34,7 @@ from ..ops.rans_decode import (pack_substreams, rans_decode_plane,
 from ..ops.rans_encode import (encode_buffer_words, finalize_streams,
                                frame_substreams, initial_state,
                                rans_encode_plane, split_plane_rows)
+from ..utils.profiling import timed_stage
 from .dcvc import DepthConvBlock4
 from .layers import Conv2d
 
@@ -362,9 +363,11 @@ class BottleneckCoder:
             words = torch.zeros((S, nwords), dtype=torch.int32, device=y.device)
             state = initial_state(S, y.device)
             for step in (3, 2, 1, 0):           # last in, first out
-                words, state = rans_encode_plane(*rows[step], words, state,
-                                                 cdf, cdf_len, cdf_off)
-            state_np = state.cpu().numpy()
+                with timed_stage(None, "h_rans.step"):
+                    words, state = rans_encode_plane(*rows[step], words, state,
+                                                     cdf, cdf_len, cdf_off)
+            with timed_stage(None, "h_rans.fetch"):
+                state_np = state.cpu().numpy()
             if not state_np[:, 2].any():
                 break
             if nwords >= cap:
@@ -372,7 +375,9 @@ class BottleneckCoder:
                     f"rANS encode overflowed its worst-case buffer of {cap} "
                     f"words per substream")
             nwords = min(2 * nwords, cap)
-        parts = finalize_streams(words.cpu().numpy(), state_np, S)
+        with timed_stage(None, "h_rans.fetch"):
+            words_np = words.cpu().numpy()
+        parts = finalize_streams(words_np, state_np, S)
         streams = [frame_substreams(parts[b * nparts:(b + 1) * nparts])
                    for b in range(y.shape[0])]
         return streams, y_hat
@@ -381,7 +386,7 @@ class BottleneckCoder:
         """Host rANS over a packed-planes array (one stream for the whole
         batch)."""
         packed = _host(packed)
-        with self.lock:
+        with self.lock, timed_stage(None, "h_rans.code"):
             self.coder.reset()
             for step in range(packed.shape[0]):
                 self.coder.encode_with_indexes(packed[step, 0], packed[step, 1],
@@ -409,16 +414,18 @@ class BottleneckCoder:
             except queue.Empty:
                 coder, group = self._new_coder()
             try:
-                coder.reset()
-                for step in range(packed.shape[0]):
-                    coder.encode_with_indexes(packed[step, 0, b:b + 1],
-                                              packed[step, 1, b:b + 1], group)
-                coder.flush()
-                return coder.get_encoded_stream()
+                with timed_stage(None, "h_rans.code"):
+                    coder.reset()
+                    for step in range(packed.shape[0]):
+                        coder.encode_with_indexes(packed[step, 0, b:b + 1],
+                                                  packed[step, 1, b:b + 1], group)
+                    coder.flush()
+                    return coder.get_encoded_stream()
             finally:
                 self._enc_pool.put((coder, group))
 
-        with ThreadPoolExecutor(max_workers=workers) as pool:
+        with ThreadPoolExecutor(max_workers=workers) as pool, \
+                timed_stage(None, "h_rans.code"):
             return list(pool.map(_enc, range(B)))
 
     def compress(self, y, q_idx: int = 0):
@@ -445,21 +452,22 @@ class BottleneckCoder:
         means_c = [means0] * len(chunks)
         idx_c = [idx0] * len(chunks)
         for step in range(4):
-            if step > 0:
+            with timed_stage(None, "h_rans.step"):
+                if step > 0:
+                    for ci in range(len(chunks)):
+                        _s, means_c[ci], idx_c[ci] = self._spatial_step(
+                            step, y_hats[ci], common)
+                sym_chunks = get_symbols(step, idx_c, chunks, Bc)
+                if probe is not None:
+                    probe.setdefault("index_planes", []).append(torch.cat(
+                        [a[:real] for a, (_s, real) in zip(idx_c, chunks)]
+                    ).int().cpu())
+                    probe.setdefault("symbol_planes", []).append(torch.cat(
+                        [a[:real] for a, (_s, real) in zip(sym_chunks, chunks)]
+                    ).int().cpu())
                 for ci in range(len(chunks)):
-                    _s, means_c[ci], idx_c[ci] = self._spatial_step(
-                        step, y_hats[ci], common)
-            sym_chunks = get_symbols(step, idx_c, chunks, Bc)
-            if probe is not None:
-                probe.setdefault("index_planes", []).append(torch.cat(
-                    [a[:real] for a, (_s, real) in zip(idx_c, chunks)]
-                ).int().cpu())
-                probe.setdefault("symbol_planes", []).append(torch.cat(
-                    [a[:real] for a, (_s, real) in zip(sym_chunks, chunks)]
-                ).int().cpu())
-            for ci in range(len(chunks)):
-                y_hats[ci] = y_hats[ci] + self._recon_step(sym_chunks[ci],
-                                                           means_c[ci], step)
+                    y_hats[ci] = y_hats[ci] + self._recon_step(
+                        sym_chunks[ci], means_c[ci], step)
         outs = [m.decode_transform(yh * quant_step, q_idx)[:real]
                 for yh, (_s, real) in zip(y_hats, chunks)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -472,10 +480,12 @@ class BottleneckCoder:
         dev = self.device
 
         def get_symbols(step, idx_c, chunks, Bc):
-            idx_np = [a.cpu().numpy() for a in idx_c]  # one transfer round
+            with timed_stage(None, "h_rans.fetch"):
+                idx_np = [a.cpu().numpy() for a in idx_c]  # one transfer round
             idx_real = np.concatenate(
                 [a[:real] for a, (_s, real) in zip(idx_np, chunks)])
-            sym_np = coder.decode_stream(idx_real, group).reshape(idx_real.shape)
+            with timed_stage(None, "h_rans.code"):
+                sym_np = coder.decode_stream(idx_real, group).reshape(idx_real.shape)
             out, off = [], 0
             for _start, real in chunks:
                 sp = np.zeros((Bc,) + sym_np.shape[1:], np.int16)
@@ -563,15 +573,22 @@ class BottleneckCoder:
 
         def make_get_symbols(pool):
             def get_symbols(step, idx_c, chunks, Bc):
-                idx_np = [a.cpu().numpy() for a in idx_c]  # one round for all B
+                with timed_stage(None, "h_rans.fetch"):
+                    idx_np = [a.cpu().numpy() for a in idx_c]  # one round for all B
 
                 def _dec(i):
                     coder, group = coders[i]
                     ci, off = divmod(i, Bc)
                     return coder.decode_stream(idx_np[ci][off], group)
 
-                syms = list(pool.map(_dec, range(B)) if pool is not None
-                            else map(_dec, range(B)))
+                def _dec_on_pool(i):
+                    with timed_stage(None, "h_rans.code"):
+                        return _dec(i)
+
+                # one span on this thread, waiting for the pool or decoding
+                with timed_stage(None, "h_rans.code"):
+                    syms = list(pool.map(_dec_on_pool, range(B)) if pool is not None
+                                else map(_dec, range(B)))
                 out = []
                 for ci, (start, real) in enumerate(chunks):
                     sp = np.zeros((Bc,) + idx_np[ci].shape[1:], np.int16)

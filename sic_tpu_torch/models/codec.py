@@ -12,6 +12,7 @@ coder or on the device rANS kernels, then the generative decode to pixels.
 from __future__ import annotations
 
 import copy
+import itertools
 import queue
 import threading
 import time
@@ -443,6 +444,8 @@ class CodecRuntime:
         self.router = EncodeRouter()
         self.encode_path_counts = {"device": 0, "host": 0}
         self._count_lock = threading.Lock()
+        # numbers each entry point's call in its spans (a trace's only)
+        self._calls = itertools.count()
 
     def close(self) -> None:
         self._io.shutdown(wait=True)
@@ -604,14 +607,16 @@ class CodecRuntime:
             raise ValueError(
                 f"inconsistent semantic-stream geometry: token_length="
                 f"{token_length}, z_indices_shape={tuple(z_indices_shape)}")
+        call = next(self._calls)
+
         def _z():
-            with timed_stage(timer, "z_rans"):
+            with timed_stage(timer, "z_rans", call):
                 return self._decode_z(z_bit_stream, token_length, z_coder)
 
         z_future = self._io.submit(_z)
         B, Hf, Wf, _ = _nhwc_feat_shape(feat_shape, self.spec.feat_width)
         latent_shape = (B, Hf, Wf, self.spec.quant_dim)
-        with timed_stage(timer, "h_rans"):
+        with timed_stage(timer, "h_rans", call):
             if self._use_device_entropy(h_bit_stream, latent_shape):
                 h_hat = self.h_coder.decompress_device(
                     h_bit_stream, latent_shape, coding_batch=coding_batch,
@@ -623,7 +628,7 @@ class CodecRuntime:
         if probe is not None:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result().astype(np.int64).reshape(zshape))
-        with timed_stage(timer, "decode_device"):
+        with timed_stage(timer, "decode_device", call):
             return self._decode_pixels(z.to(self.device), h_hat, stack_shape,
                                        output)
 
@@ -661,9 +666,10 @@ class CodecRuntime:
             if e.get("coding_batch") != first.get("coding_batch"):
                 raise ValueError("decode_only_batched needs one coding_batch")
         n_latent = int(first["z_indices_shape"][-1])
+        call = next(self._calls)
 
         def _z_all():
-            with timed_stage(timer, "z_rans"):
+            with timed_stage(timer, "z_rans", call):
                 outs = [self._decode_z(e["z_bit_stream"], e["token_length"],
                                        e.get("z_coder", "rans"))
                         for e in enc_results]
@@ -675,7 +681,7 @@ class CodecRuntime:
         # workers=1: the native coder already threads each stream over its
         # substreams, and a fan-out over the images on top was slower on an
         # H100 host (PERF.md)
-        with timed_stage(timer, "h_rans"):
+        with timed_stage(timer, "h_rans", call):
             h_hat = self.h_coder.decompress_batched(
                 [e["h_bit_stream"] for e in enc_results], latent_shape,
                 workers=1,
@@ -684,7 +690,7 @@ class CodecRuntime:
         if probe is not None:
             probe["h_hat"] = h_hat
         z = torch.from_numpy(z_future.result()).to(self.device)
-        with timed_stage(timer, "decode_device"):
+        with timed_stage(timer, "decode_device", call):
             if not per_stream_networks or self.mesh is not None:
                 return self._decode_pixels(z, h_hat, first["stack_shape"], output)
             nt = z.shape[0] // len(enc_results)
@@ -701,7 +707,8 @@ class CodecRuntime:
     def _fetch_packed(self, packed: torch.Tensor) -> np.ndarray:
         """Packed planes to the host, feeding the router the realized cost."""
         t0 = time.perf_counter()
-        out = packed.cpu().numpy()
+        with timed_stage(None, "h_rans.fetch"):
+            out = packed.cpu().numpy()
         self.router.note_fetch(out.nbytes, time.perf_counter() - t0)
         return out
 
@@ -726,23 +733,24 @@ class CodecRuntime:
             4 * (H // 32) * (W // 32) * q, 1, latent_shape)
         self._count_path(use_dev)
         stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
-        with timed_stage(timer, "encode_device"):
+        call = next(self._calls)
+        with timed_stage(timer, "encode_device", call):
             z_indices, h = self._encode_stage(x)
             if use_dev:
                 streams, y_hat = self.h_coder.compress_device(h)
             else:
                 packed, y_hat = self.h_coder.compress_plan(h)
-        with timed_stage(timer, "fetch"):
+        with timed_stage(timer, "fetch", call):
             if not use_dev:
                 packed = self._fetch_packed(packed)
             z_np = z_indices.cpu().numpy()
-        with timed_stage(timer, "h_rans"):
+        with timed_stage(timer, "h_rans", call):
             h_bit_stream = streams[0] if use_dev else \
                 self.h_coder.encode_packed(packed)
         if probe is not None:
             probe["y_hat"] = y_hat
             probe["h_path"] = "device" if use_dev else "host"
-        with timed_stage(timer, "z_rans"):
+        with timed_stage(timer, "z_rans", call):
             z_bit_stream = self.encode_z(z_np)
         return {
             "z_bit_stream": z_bit_stream,
@@ -789,7 +797,8 @@ class CodecRuntime:
             return [self.encode_only(x, timer=timer, probe=probe)]
         stack_shape = (H // self.spec.tile_px, W // self.spec.tile_px)
         n_tiles = stack_shape[0] * stack_shape[1]
-        with timed_stage(timer, "encode_device"):
+        call = next(self._calls)
+        with timed_stage(timer, "encode_device", call):
             z_indices, h = self._encode_networks(x, per_stream_networks)
         n_chunks = len(self.h_coder._chunk_batches(B))
         q = self.spec.quant_dim
@@ -799,32 +808,34 @@ class CodecRuntime:
         self._count_path(use_dev)
 
         def _z_all():
-            with timed_stage(timer, "z_rans"):
+            with timed_stage(timer, "z_rans", call):
                 z_np = z_indices.cpu().numpy()
                 return [self.encode_z(z_np[b * n_tiles:(b + 1) * n_tiles])
                         for b in range(B)]
 
         if use_dev:
             t0 = time.perf_counter()
-            with timed_stage(timer, "h_rans"):
+            with timed_stage(timer, "h_rans", call):
                 h_streams, y_hat = self.h_coder.compress_device(h)
             self.router.note_device_encode(
                 time.perf_counter() - t0, sum(len(s) for s in h_streams),
                 packed_bytes, n_chunks)
             z_streams = _z_all()
         else:
-            with timed_stage(timer, "encode_device"):
+            with timed_stage(timer, "encode_device", call):
                 chunk_plans = self.h_coder.compress_plan_chunks(h)
             z_future = self._io.submit(_z_all)
             h_streams: list = [None] * B
             pending = []
             for start, real, packed_dev, _yh in chunk_plans:
-                with timed_stage(timer, "fetch"):
+                with timed_stage(timer, "fetch", call):
                     packed = self._fetch_packed(packed_dev)  # waits for this chunk
                 # one worker, as in decode_only_batched
                 pending.append((start, real, self._io.submit(
                     self.h_coder.encode_packed_many, packed, 1)))
-            with timed_stage(timer, "h_rans"):
+            with timed_stage(timer, "h_rans", call), \
+                    timed_stage(None, "h_rans.code", call):
+                # the coder runs on the pool: this thread waits for it
                 for start, real, fut in pending:
                     h_streams[start:start + real] = fut.result()
             z_streams = z_future.result()

@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import timed_stage
 from .layers import Embed, LayerNorm, Linear, ResidualAttentionBlock
 
 
@@ -127,6 +128,13 @@ def generate(model: MaskGITGenerator, generator: torch.Generator,
     """Iterative confidence-based sampling (reference: titok/maskgit.py:
     81-138): ``condition`` (B,) class ids on the model's device ->
     (B, image_seq_len) token ids in [0, codebook_size)."""
+    with timed_stage(None, "maskgit.generate"):
+        return _generate(model, generator, condition, guidance_scale,
+                         randomize_temperature, num_sample_steps)
+
+
+def _generate(model, generator, condition, guidance_scale,
+              randomize_temperature, num_sample_steps):
     s = model.spec
     dev = condition.device
     B, L, mask_id = condition.shape[0], s.image_seq_len, s.mask_token_id
@@ -134,34 +142,36 @@ def generate(model: MaskGITGenerator, generator: torch.Generator,
     no_drop = torch.zeros((B,), dtype=torch.bool, device=dev)
     all_drop = torch.ones((B,), dtype=torch.bool, device=dev)
     for step in range(num_sample_steps):
-        temp, mask_len = step_schedule(step, num_sample_steps, L,
-                                       randomize_temperature)
-        temp = temp.to(dev)
-        is_mask = ids == mask_id
+        with timed_stage(None, "maskgit.step"):
+            temp, mask_len = step_schedule(step, num_sample_steps, L,
+                                           randomize_temperature)
+            temp = temp.to(dev)
+            is_mask = ids == mask_id
 
-        logits = model(ids, condition, no_drop).float()
-        if guidance_scale != 0:
-            uncond = model(ids, condition, all_drop).float()
-            logits = logits + (logits - uncond) * guidance_scale
+            logits = model(ids, condition, no_drop).float()
+            if guidance_scale != 0:
+                uncond = model(ids, condition, all_drop).float()
+                logits = logits + (logits - uncond) * guidance_scale
 
-        noisy = logits + temp * _gumbel(generator, logits.shape).to(dev)
-        sampled = torch.argmax(noisy, dim=-1)
-        samp_logit = torch.gather(logits, -1, sampled[..., None])[..., 0]
-        sampled = torch.where(is_mask, sampled, ids)
-        samp_logit = torch.where(is_mask, samp_logit,
-                                 torch.full_like(samp_logit, math.inf))
+            noisy = logits + temp * _gumbel(generator, logits.shape).to(dev)
+            sampled = torch.argmax(noisy, dim=-1)
+            samp_logit = torch.gather(logits, -1, sampled[..., None])[..., 0]
+            sampled = torch.where(is_mask, sampled, ids)
+            samp_logit = torch.where(is_mask, samp_logit,
+                                     torch.full_like(samp_logit, math.inf))
 
-        # at least one position is masked again, and at most all but one
-        # of those still masked in the batch's least-masked sequence
-        masked_least = int(is_mask.sum(dim=-1).min())
-        mask_len = max(1.0, min(masked_least - 1.0, mask_len))
+            # at least one position is masked again, and at most all but one
+            # of those still masked in the batch's least-masked sequence
+            with timed_stage(None, "maskgit.sync"):    # waits for the card
+                masked_least = int(is_mask.sum(dim=-1).min())
+            mask_len = max(1.0, min(masked_least - 1.0, mask_len))
 
-        confidence = samp_logit + temp * _gumbel(generator, samp_logit.shape).to(dev)
-        sorted_conf = torch.sort(confidence, dim=-1).values
-        cut_off = sorted_conf[:, int(mask_len) - 1][:, None]
-        if step == num_sample_steps - 1:
-            ids = sampled
-        else:
-            ids = torch.where(confidence <= cut_off,
-                              torch.full_like(sampled, mask_id), sampled)
+            confidence = samp_logit + temp * _gumbel(generator, samp_logit.shape).to(dev)
+            sorted_conf = torch.sort(confidence, dim=-1).values
+            cut_off = sorted_conf[:, int(mask_len) - 1][:, None]
+            if step == num_sample_steps - 1:
+                ids = sampled
+            else:
+                ids = torch.where(confidence <= cut_off,
+                                  torch.full_like(sampled, mask_id), sampled)
     return ids

@@ -13,6 +13,7 @@ import torch
 
 from . import zstd
 from ..models.codec import resolve_device
+from ..utils.profiling import timed_stage
 from ..weights import init_seeded
 from .clip_model import CLIPModel, CLIPSpec, SimpleTokenizer, preprocess_image
 
@@ -62,15 +63,21 @@ class ClipCodec:
         return self.spec.model_id
 
     @torch.no_grad()
-    def images_to_unit_vecs(self, batch) -> np.ndarray:
-        """(B, 224, 224, 3) pre-normalized array -> (B, D) unit f32."""
+    def _embed(self, batch) -> np.ndarray:
         x = torch.as_tensor(np.asarray(batch, np.float32)).to(self.device)
         return self.model.encode_image(x).cpu().numpy()
 
+    def images_to_unit_vecs(self, batch) -> np.ndarray:
+        """(B, 224, 224, 3) pre-normalized array -> (B, D) unit f32."""
+        with timed_stage(None, "clip.embed"):
+            return self._embed(batch)
+
     def image_to_unit_vec(self, img) -> np.ndarray:
         """PIL image or HWC array ([-1,1], [0,1] or u8) -> (D,) unit f32."""
-        return self.images_to_unit_vecs(
-            preprocess_image(img, self.spec.image_size)[None])[0]
+        with timed_stage(None, "clip.embed"):
+            with timed_stage(None, "clip.preprocess"):
+                x = preprocess_image(img, self.spec.image_size)
+            return self._embed(x[None])[0]
 
     @torch.no_grad()
     def text_to_unit_vec(self, text) -> np.ndarray:
@@ -79,11 +86,12 @@ class ClipCodec:
         return self.model.encode_text(tokens).cpu().numpy()
 
     def quantize_u8_and_compress(self, z_unit: np.ndarray) -> Tuple[bytes, Dict]:
-        q = quantize_clip_u8(z_unit)
-        meta = {"model_id": self.model_id, "dim": int(z_unit.shape[0]),
-                "quant": "u8_symmetric_-1_1", "codec": "zstd",
-                "zstd_level": 19}
-        return zstd.compress(q.tobytes(), level=19), meta
+        with timed_stage(None, "clip.zstd"):
+            q = quantize_clip_u8(z_unit)
+            meta = {"model_id": self.model_id, "dim": int(z_unit.shape[0]),
+                    "quant": "u8_symmetric_-1_1", "codec": "zstd",
+                    "zstd_level": 19}
+            return zstd.compress(q.tobytes(), level=19), meta
 
 
 def decode_clip_stream(clip_stream: bytes, clip_meta: Dict) -> np.ndarray:
