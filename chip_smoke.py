@@ -12,7 +12,7 @@ under the mesh shardings (FSDP, tensor parallelism, the width split).
 
 Phases, each printing one JSON line with the card's name and power limit:
 
-1. build    - the six CUDA kernels (one nvcc per source, in parallel) and
+1. build    - the seven CUDA kernels (one nvcc per source, in parallel) and
               the native rANS coder, from the sources in the checkout; the
               HGMMA (wgmma) count of each kernel function of the four
               attention libraries (kernels 1, 2, 5 and 6; split TF32, and
@@ -55,7 +55,12 @@ Phases, each printing one JSON line with the card's name and power limit:
               each rANS row's bytes bound and chain bound (the longest
               substream's coded symbols times the probe's step), and its
               error against an f64 reference; every attention kernel
-              launched twice on one input must give the same bits;
+              launched twice on one input must give the same bits; the
+              fused GroupNorm (+ SiLU) at the pixel decoders' shapes
+              (GN_SHAPES) within GN_TOL of its plain version, twice to the
+              same bits, beside PyTorch's composite ops that the port ran
+              before it (timed only), with its two-pass and one-pass bytes
+              bounds;
 3. golden   - the JAX-encoded tests/fixtures/golden stream through the CLI
               (host coder) and through the rANS decode kernel, against the
               committed pixels; then golden_input() encoded on the card by
@@ -238,8 +243,10 @@ for generation, each rank of phase 15 at its start, each rank of phase 16
 around each of its sharded runs) and read just after (phases 15 and 16: by
 each rank, summed over the ranks), by wrapper, by bf16 entry and (kernel
 1) by head dim (phase 16 also by head count), and phase 10's int8 GEMMs
-apart; every kernel of
-the path must have launched, and the (G, s, d) kernel on no model path.
+apart, and the GroupNorm kernel's launches and composite calls apart;
+every kernel of the path must have launched, the (G, s, d) kernel on no
+model path, and every GroupNorm of phases 5, 7, 9 and 13 (inference) in
+the kernel (composite 0).
 Every phase but 9, 10 and 12 runs fp32 and asks for it (the train CLI's
 moments and frozen storage aside).  Then a ``{"kernels":
 [...]}`` line (the bf16 entries as rows of their own), the nvidia-smi
@@ -307,6 +314,16 @@ BF16_F64_RATIO = 1.5
 # order only
 GSD_FWD_TOL = 1e-5
 GSD_GRAD_TOL = 1e-4
+# the fused GroupNorm (+ SiLU) vs its plain version, as a share of the
+# output's largest magnitude (f32 sums of groups of up to 4 M elements in
+# another order; the kernel's SiLU takes the hardware's exp2); a bf16
+# output may differ by one ulp more, where that gap moves the rounding
+GN_TOL = 1e-5
+# its shapes, (B, H, W, C), dtype, SiLU: the flagship pixel decoder in bf16
+# at 512x512 and at its attention blocks' 32x32, MaskGIT-VQGAN's in f32
+GN_SHAPES = {"flagship_512px_bf16": ((8, 512, 512, 128), "bfloat16", True),
+             "flagship_32px_attn_bf16": ((8, 32, 32, 512), "bfloat16", False),
+             "maskgit_256px_f32": ((16, 256, 256, 128), "float32", True)}
 # the JAX CLI's three best scores for val3.c2df over artifacts_r05/faiss
 R05_VAL3_TOP3 = (("val3", 0.99724), ("val4", 0.99316), ("val6", 0.99262))
 SEED = 0
@@ -353,6 +370,7 @@ class Smoke:
         self.bf16_counts = {}  # path -> launches of the bf16 entries in that run
         self.head_dim_counts = {}  # path -> kernel 1's launches by head dim
         self.heads_counts = {}     # path -> the packed-qkv kernels' launches by head count
+        self.gn_counts = {}   # path -> the GroupNorm kernel's launches and composite calls
         self.requests = {}    # stem -> decode_only kwargs + the encoder's y_hat
 
     def phase(self, name, fn):
@@ -376,6 +394,7 @@ class Smoke:
         from sic_tpu_torch import ops
         self.bf16_counts[path] = ops.bf16_launch_counts()
         self.head_dim_counts[path] = ops.head_dim_launch_counts()
+        self.gn_counts[path] = ops.group_norm_counts()
         self.counts[path] = ops.launch_counts()
         return self.counts[path]
 
@@ -681,6 +700,75 @@ class Smoke:
         out["rans_encode"] = enc
         out["rans_encode_overflow"] = self._rans_encode_overflow()
         self.kernels["rans_encode_plane"] = enc["4x1024"]
+        out["group_norm"] = gn = self._group_norm_checks(g)
+        self.kernels["group_norm_nhwc"] = gn["flagship_512px_bf16"]
+        self.kernels["group_norm_nhwc_f32"] = gn["maskgit_256px_f32"]
+        return out
+
+    def _group_norm_checks(self, g):
+        """The fused GroupNorm (+ SiLU) against its plain version at
+        GN_SHAPES, within GN_TOL, and twice to the same bits; eager and
+        device ms beside the plain version's and the library yardstick's:
+        PyTorch's composite ops that the port ran before the kernel (f32
+        copy, ``F.group_norm`` on the permuted view, cast, ``F.silu``),
+        timed only.  ``bound_ms`` is the two-pass design's bytes (x read
+        twice, y written once: 6 B an element in bf16, 12 in f32);
+        ``one_pass_bound_ms`` the function's own (read once, written once),
+        which a kernel reaches only where the statistics come from the
+        convolution that makes x: the tensor (537 MB at 512x512) does not
+        stay on chip between the two passes.  The input is what the L2
+        holds from the previous call, as in the decoder, where the norm
+        reads the convolution's fresh output."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from sic_tpu_torch.ops import group_norm_nhwc, group_norm_nhwc_plain
+        dev = torch.device("cuda")
+
+        def composite(x, w, b, silu):
+            y = F.group_norm(x.float().permute(0, 3, 1, 2), 32, w, b, 1e-6)
+            y = y.permute(0, 2, 3, 1).to(x.dtype)
+            return F.silu(y) if silu else y
+
+        out = {}
+        for tag, (shape, dtype, silu) in GN_SHAPES.items():
+            C = shape[-1]
+            dt = getattr(torch, dtype)
+            x = (torch.randn(shape, device=dev, generator=g) * 2
+                 + torch.randn(C, device=dev, generator=g) * 3).to(dt)
+            w = 1 + 0.5 * torch.randn(C, device=dev, generator=g)
+            b = 0.5 * torch.randn(C, device=dev, generator=g)
+            got = group_norm_nhwc(x, w, b, 32, 1e-6, silu)
+            want = group_norm_nhwc_plain(x, w, b, 32, 1e-6, silu).float()
+            gap = (got.float() - want).abs()
+            tol = GN_TOL * float(want.abs().max())
+            if dt == torch.bfloat16:     # one ulp of the larger of the two
+                big = torch.maximum(got.float().abs(), want.abs()).clamp_min(2.0 ** -126)
+                tol = tol + torch.exp2(torch.floor(torch.log2(big)) - 7)
+            excess = float((gap - tol).max())
+            del want, tol
+            n_bytes = x.numel() * x.element_size()
+            rec = {"shape": list(shape), "dtype": dtype, "silu": silu,
+                   "max_abs_err": float(gap.max()), "excess_over_tol": excess,
+                   "deterministic": torch.equal(got, group_norm_nhwc(x, w, b, 32, 1e-6, silu)),
+                   "ms": self.time_ms(lambda: group_norm_nhwc(x, w, b, 32, 1e-6, silu)),
+                   "device_ms": self.device_ms(
+                       lambda: group_norm_nhwc(x, w, b, 32, 1e-6, silu)),
+                   "plain_ms": self.time_ms(
+                       lambda: group_norm_nhwc_plain(x, w, b, 32, 1e-6, silu), iters=5),
+                   "library_ms": self.time_ms(lambda: composite(x, w, b, silu), iters=5),
+                   "library_device_ms": self.device_ms(lambda: composite(x, w, b, silu),
+                                                       iters=5),
+                   "bound_ms": 3 * n_bytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+                   "one_pass_bound_ms": 2 * n_bytes / HBM_BYTES_S * 1e3}
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            rec["one_pass_bound_share"] = rec["one_pass_bound_ms"] / rec["device_ms"]
+            rec["vs_library"] = rec["library_device_ms"] / rec["device_ms"]
+            del x, got, gap
+            torch.cuda.empty_cache()
+            if not (excess <= 0 and rec["deterministic"]):
+                raise AssertionError(f"group_norm_nhwc {tag}: {rec}")
+            out[tag] = rec
         return out
 
     def _bf16_row(self, kernel, plain, library, relayout, ref, flops, nbytes):
@@ -1682,9 +1770,11 @@ class Smoke:
                "request_ms": ms, "cli_s": round(cli_s, 3), "peak_mem_gb": peak_gb,
                "cli_vs_runtime_max_u8_diff": cli_diff,
                "timer_stage_ms": stages, "launches": counts, **timing}
+        rec["group_norm"] = gn = self.gn_counts["decode"]
         need = ("seq_attention", "window_attention_nhwc", "rans_decode_plane")
         if n_cli != 6 or not all(exact.values()) \
                 or min(counts[k] for k in need) < 1 \
+                or gn["composite"] != 0 or gn["launches"] < 39 \
                 or paths["a_512x512"] != "device" or max(cli_diff.values()) > 1 \
                 or set(stages["decode_only"]) != {"z_rans", "h_rans", "decode_device"} \
                 or set(stages["encode_only"]) != {"encode_device", "fetch", "h_rans",
@@ -2160,7 +2250,8 @@ class Smoke:
                "concurrent_groups": groups,
                "search_c2df_top3": search_c2df[:3],
                "ndjson_ok": [ok_c, ok_i, ok_t],
-               "latency_ms_p50": latency, "launches": counts}
+               "latency_ms_p50": latency, "launches": counts,
+               "group_norm": self.gn_counts["serve"]}
 
         # the search CLI over the same indexes, same queries, in this run.
         # query-image reads the file through [-1, 1] floats as the JAX CLI
@@ -2208,6 +2299,8 @@ class Smoke:
                 and len(search_img) == len(search_txt) == 8
                 and min(counts[k] for k in need) >= 1
                 and counts["window_attention"] == 0
+                and rec["group_norm"]["composite"] == 0
+                and rec["group_norm"]["launches"] >= 39
                 and wave["ids_equal_stable_sort"] and wave["scores_equal_stable_sort"]):
             raise AssertionError(f"serve check failed: {rec}")
         return rec
@@ -2646,6 +2739,7 @@ class Smoke:
                "cli": cli, "cli_files": n_dec, "cli_s": round(cli_s, 3),
                "cli_streams_equal_runtime": cli_equal, "cli_png_shape": list(png.shape),
                "served": served, "launches": counts, "bf16_launches": bf16_counts,
+               "group_norm": self.gn_counts["bf16"],
                "h_paths": {k: v.get("h_path")
                            for k, v in {**enc_probes, **dec_probes}.items()},
                **timing}
@@ -2662,6 +2756,8 @@ class Smoke:
                 and min(bf16_counts[k] for k in need) >= 1
                 and counts["rans_decode_plane"] >= 1 and counts["rans_encode_plane"] >= 1
                 and counts["window_attention"] == 0
+                and rec["group_norm"]["composite"] == 0
+                and rec["group_norm"]["launches"] >= 39
                 and {enc_probes[k]["h_path"] for k in enc_probes} == {"device"}):
             raise AssertionError(f"bf16 phase: {rec}")
         return rec
@@ -3401,7 +3497,7 @@ class Smoke:
                "cli_pngs": names, "cli_png_shapes": [list(p.shape) for p in pngs],
                "cli_pngs_equal_in_process": all(
                    p.shape == w.shape and np.array_equal(p, w) for p, w in zip(pngs, want)),
-               "launches": counts,
+               "launches": counts, "group_norm": self.gn_counts["generate"],
                "seq_attention_launches_by_head_dim": by_head_dim}
 
         def median_ms(fn, reps=5):
@@ -3432,6 +3528,7 @@ class Smoke:
               and rec["latent_concat_finite"] and len(names) == 4
               and all(p.shape == (256, 256, 3) for p in pngs)
               and counts["seq_attention"] > 0
+              and rec["group_norm"]["composite"] == 0 and rec["group_norm"]["launches"] > 0
               and by_head_dim.get(48, 0) > 0 and by_head_dim.get(64, 0) > 0
               and cpu["logits_rel_diff"] <= GENERATE_CPU_TOL
               and cpu["pixels_rel_diff"] <= GENERATE_CPU_TOL)
@@ -3874,6 +3971,24 @@ class Smoke:
                     for d, n in c.items():
                         by[str(d)] = by.get(str(d), 0) + n
                 rows[-1]["launches_by_head_dim"] = by
+        # the GroupNorm kernel ports no TPU kernel: its launches and the
+        # composite calls (autograd, width slabs) by main-path run; its
+        # checks at the flagship's bf16 shape, the f32 one beside
+        k, k32 = (self.kernels.get(n, {}) for n in ("group_norm_nhwc", "group_norm_nhwc_f32"))
+        rows.append({"name": "group_norm_nhwc", "route": "cuda",
+                     "source": "sic_tpu_torch/csrc/group_norm.cu", "dtype": k.get("dtype"),
+                     "replaces": None,
+                     "launches": sum(c["launches"] for c in self.gn_counts.values()),
+                     "composite": sum(c["composite"] for c in self.gn_counts.values()),
+                     "by_path": self.gn_counts,
+                     **{f: k.get(f) for f in (
+                         "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "bound_share", "one_pass_bound_ms", "one_pass_bound_share",
+                         "device_ms", "library_device_ms", "vs_library", "deterministic",
+                         "library_ms")},
+                     "f32": {f: k32.get(f) for f in ("shape", "max_abs_err", "ms",
+                                                     "device_ms", "bound_ms", "bound_share",
+                                                     "library_device_ms", "deterministic")}})
         return {"kernels": rows}
 
 
@@ -4536,7 +4651,8 @@ def _tile_split_shapes(modules, n=2):
         var = sum((d * d).sum(dim=(1, 2, 4)) for d in ds) / cnt
         inv = torch.rsqrt(var + m.eps)[:, None, None, :, None]
         y = torch.cat([(d * inv).reshape(B, H, W // n, C) for d in ds], 2)
-        return (y * m.weight.float() + m.bias.float()).to(x.dtype)
+        y = (y * m.weight.float() + m.bias.float()).to(x.dtype)
+        return F.silu(y) if m.silu else y
 
     skip = set()
     for root in modules:

@@ -40,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import seq_attention
+from ..ops.group_norm import (count_composite, group_norm_nhwc,
+                              group_norm_nhwc_plain)
 from ..ops.quant import QuantLinear
 from ..parallel.collectives import (copy_to_model, reduce_from_model,
                                     tile_group, tile_halo, tile_sum)
@@ -182,16 +184,38 @@ def _norm_group():
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over the channel axis of an NHWC tensor, in f32 with its
-    parameters upcast, returning the input's dtype.  On width slabs its
-    mean and variance are the whole image's (two passes, each summed over
-    the tile group)."""
+    parameters upcast, returning the input's dtype; with ``silu`` (no
+    parameter) SiLU follows, fused.  On width slabs its mean and variance
+    are the whole image's (two passes, each summed over the tile group).
+
+    Which path runs is decided by what the call shows: on width slabs,
+    the two passes; with autograd recording (grad mode on and the input,
+    weight or bias requiring grad), the plain version, which is
+    differentiable; both are PyTorch's composite ops, counted in
+    ``ops.group_norm_counts()["composite"]``.  Otherwise
+    :func:`~sic_tpu_torch.ops.group_norm_nhwc`: the plain version for a
+    CPU tensor and the fused kernel for a CUDA one."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 silu: bool = False):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.silu = silu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         group = _norm_group()
-        if group is None:
-            y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
-                             _f32(self.weight), _f32(self.bias), self.eps)
-            return y.permute(0, 2, 3, 1).to(x.dtype)
+        if group is not None:
+            count_composite()
+            y = self._split_norm(x, group)
+            return F.silu(y) if self.silu else y
+        args = (self.weight, self.bias, self.num_groups, self.eps, self.silu)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            count_composite()
+            return group_norm_nhwc_plain(x, *args)
+        return group_norm_nhwc(x.contiguous(), *args)
+
+    def _split_norm(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The norm of a width slab, its statistics summed over ``group``."""
         B, H, W, C = x.shape
         G = self.num_groups
         xf = x.float().reshape(B, H, W, G, C // G)

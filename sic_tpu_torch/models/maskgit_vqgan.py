@@ -25,7 +25,6 @@ import dataclasses
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .layers import Conv2d, GroupNorm
@@ -50,8 +49,9 @@ class MaskGITVQGANSpec:
 
 
 def _gn(ch: int) -> GroupNorm:
-    # torch GroupNorm(32, ch, eps=1e-6), as the reference
-    return GroupNorm(32, ch, eps=1e-6)
+    # torch GroupNorm(32, ch, eps=1e-6), as the reference, then swish
+    # (every norm here is followed by one)
+    return GroupNorm(32, ch, eps=1e-6, silu=True)
 
 
 class PixelResnetBlock(nn.Module):
@@ -67,8 +67,8 @@ class PixelResnetBlock(nn.Module):
             self.nin_shortcut = Conv2d(out_ch, out_ch, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if hasattr(self, "nin_shortcut"):
             # the upstream quirk: the shortcut reads the block's output
             x = self.nin_shortcut(h)
@@ -116,7 +116,7 @@ class PixelEncoder(nn.Module):
                 h = _avg_pool2(h)
         for j in range(s.num_res_blocks):
             h = getattr(self, f"mid_{j}")(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h))
 
 
 class PixelDecoder(nn.Module):
@@ -152,7 +152,7 @@ class PixelDecoder(nn.Module):
             if i != 0:
                 h = getattr(self, f"up_{i}_upsample_conv")(_repeat2(h))
         latent = h
-        img = self.conv_out(F.silu(self.norm_out(h)))
+        img = self.conv_out(self.norm_out(h))
         return (img, latent) if return_latent else img
 
 

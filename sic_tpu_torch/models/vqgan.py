@@ -24,24 +24,24 @@ from .layers import Conv2d, GroupNorm
 from .quantizer import VQGANQuantizer
 
 
-def _norm(ch: int) -> GroupNorm:
-    return GroupNorm(32, ch, eps=1e-6)
+def _norm(ch: int, silu: bool = False) -> GroupNorm:
+    return GroupNorm(32, ch, eps=1e-6, silu=silu)
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: Optional[int] = None):
         super().__init__()
         out_ch = out_ch or in_ch
-        self.norm1 = _norm(in_ch)
+        self.norm1 = _norm(in_ch, silu=True)
         self.conv1 = Conv2d(in_ch, out_ch, 3)
-        self.norm2 = _norm(out_ch)
+        self.norm2 = _norm(out_ch, silu=True)
         self.conv2 = Conv2d(out_ch, out_ch, 3)
         if in_ch != out_ch:
             self.nin_shortcut = Conv2d(in_ch, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -130,7 +130,7 @@ class Encoder(nn.Module):
         if s.use_attn:
             self.mid_attn_1 = AttnBlock(block_in)
         self.mid_block_2 = ResnetBlock(block_in)
-        self.norm_out = _norm(block_in)
+        self.norm_out = _norm(block_in, silu=True)
         self.conv_out = Conv2d(block_in, s.z_channels, 3)
 
     def _add(self, name: str, module: nn.Module) -> None:
@@ -145,7 +145,7 @@ class Encoder(nn.Module):
         if self.use_attn:
             h = self.mid_attn_1(h)
         h = self.mid_block_2(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h))
 
 
 class Decoder(nn.Module):
@@ -176,7 +176,7 @@ class Decoder(nn.Module):
             if i_level != 0:
                 self._add(f"up_{i_level}_upsample", Upsample(block_in))
                 curr_res *= 2
-        self.norm_out = _norm(block_in)
+        self.norm_out = _norm(block_in, silu=True)
         self.conv_out = Conv2d(block_in, s.out_ch, 3)
 
     def _add(self, name: str, module: nn.Module) -> None:
@@ -192,7 +192,7 @@ class Decoder(nn.Module):
         h = self.mid_block_2(h)
         for name in self.plan:
             h = getattr(self, name)(h)
-        h = F.silu(self.norm_out(h))
+        h = self.norm_out(h)
         out = self.conv_out(h)
         return (out, h) if return_pre else out
 

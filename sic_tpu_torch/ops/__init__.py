@@ -3,7 +3,10 @@
 wrapper takes the plain version for CPU tensors and launches its kernel for
 CUDA tensors; it counts its launches.  ``quant`` holds the int8 mode's
 W8A8 Linear, whose product is cuBLASLt's int8 GEMM (``int8_mm``, counted
-apart: it ports no TPU kernel)."""
+apart: it ports no TPU kernel); ``group_norm`` the VQGAN decoders' fused
+NHWC GroupNorm + SiLU (counted apart too, by :func:`group_norm_counts`:
+it ports no TPU kernel)."""
+from .group_norm import group_norm_nhwc, group_norm_nhwc_plain
 from .quant import (QuantLinear, int8_mm, int8_mm_plain, quantize_kernel,
                     quantize_linears)
 from .rans_decode import (pack_substreams, rans_decode_plane,
@@ -60,8 +63,18 @@ def heads_launch_counts() -> dict:
             for name in HEADS_COUNTED}
 
 
+def group_norm_counts() -> dict:
+    """GroupNorms since the last :func:`reset_launch_counts`: ``launches``
+    of the kernel and ``composite`` calls that ran PyTorch's ops (under
+    autograd, or on width slabs)."""
+    return {"launches": group_norm_nhwc.launches,
+            "composite": group_norm_nhwc.composite}
+
+
 def reset_launch_counts() -> None:
     int8_mm.launches = 0
+    group_norm_nhwc.launches = 0
+    group_norm_nhwc.composite = 0
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     for name in BF16_ENTRIES:
@@ -82,4 +95,5 @@ __all__ = ["seq_attention", "seq_attention_plain", "window_attention_nhwc",
            "bf16_launch_counts", "head_dim_launch_counts",
            "heads_launch_counts", "HEADS_COUNTED",
            "reset_launch_counts", "QuantLinear", "int8_mm", "int8_mm_plain",
-           "quantize_kernel", "quantize_linears"]
+           "quantize_kernel", "quantize_linears", "group_norm_nhwc",
+           "group_norm_nhwc_plain", "group_norm_counts"]

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("seq_attention", "window_attention", "window_attention_bwd",
-           "rans_decode", "rans_encode", "window_attention_gsd")
+           "rans_decode", "rans_encode", "window_attention_gsd", "group_norm")
 _HEADERS = ("attention_tc.cuh", "mbarrier.cuh", "rans_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

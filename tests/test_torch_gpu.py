@@ -8,7 +8,9 @@ have no CPU mode).  The file imports no JAX, so on a machine without it:
 Attention kernels agree with their plain versions within 1e-4 in fp32
 (summation order only); their bf16 entries err against an f64 reference
 no more than 1.5 times the plain bf16 version does; the rANS kernels agree
-with the native coder and with their plain versions exactly.  The runtime
+with the native coder and with their plain versions exactly; the GroupNorm
+kernel agrees with its plain version within 1e-5 of the output's scale in
+fp32, and within that plus one ulp in bf16.  The runtime
 tests that check fp32 behaviour ask for fp32 (the card's default is bf16).
 """
 from pathlib import Path
@@ -1194,6 +1196,99 @@ def test_titok_decode_tokens_at_full_width_on_the_card(cuda):
     assert ops.head_dim_launch_counts()[64] == before + 24
     assert got.shape == (1, 256, 256, 3) and torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+# -- the fused NHWC GroupNorm + SiLU ----------------------------------------------
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 numbers at |v| (8 significand bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape,dtype", [((8, 512, 512, 128), torch.bfloat16),
+                                         ((8, 32, 32, 512), torch.bfloat16),
+                                         ((16, 256, 256, 128), torch.float32)])
+def test_group_norm_kernel_matches_plain(cuda, shape, dtype, silu):
+    """The pixel decoders' shapes (flagship bf16 at 512x512 and at the
+    attention blocks' 32x32, MaskGIT-VQGAN f32 at 256x256), inputs off
+    zero mean.  Both compute in f32 and round once; only the order of the
+    statistics' sums differs (groups of up to 4 M elements), and the
+    kernel's SiLU takes the hardware's exp2 and reciprocal.  So the f32
+    outputs differ by at most 1e-5 of the output's scale, and the bf16
+    ones by that f32 gap plus one bf16 ulp (the rounding it can move; near
+    zero the f32 gap is many ulps of the value).  Two launches give the
+    same bits."""
+    from sic_tpu_torch.ops.group_norm import group_norm_nhwc, group_norm_nhwc_plain
+    C = shape[-1]
+    x = (_randn(shape, C, cuda) * 2.0 + _randn((C,), 1, cuda) * 3.0).to(dtype)
+    w, b = 1.0 + 0.5 * _randn((C,), 2, cuda), 0.5 * _randn((C,), 3, cuda)
+    before = ops.group_norm_counts()
+    got = group_norm_nhwc(x, w, b, 32, 1e-6, silu)
+    assert ops.group_norm_counts() == {"launches": before["launches"] + 1,
+                                       "composite": before["composite"]}
+    assert got.dtype == dtype and got.is_contiguous() and got.shape == x.shape
+    assert torch.equal(got, group_norm_nhwc(x, w, b, 32, 1e-6, silu))
+    want = group_norm_nhwc_plain(x, w, b, 32, 1e-6, silu)
+    got, want = got.float(), want.float()
+    tol = 1e-5 * float(want.abs().max())
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    excess = (got - want).abs() - tol
+    assert float(excess.max()) <= 0, (float(excess.max()), float((got - want).abs().max()))
+
+
+def test_group_norm_kernel_refuses_what_it_cannot_take(cuda):
+    """Groups of 3 bf16 channels (a 16-byte vector would straddle two),
+    fp16, a strided input, channels that do not split into the groups, no
+    images: each raises and launches nothing."""
+    from sic_tpu_torch.ops.group_norm import group_norm_nhwc
+    before = ops.group_norm_counts()["launches"]
+    for x, groups in ((torch.zeros((1, 4, 4, 96), device=cuda, dtype=torch.bfloat16), 32),
+                      (torch.zeros((1, 4, 4, 128), device=cuda, dtype=torch.float16), 32),
+                      (torch.zeros((1, 4, 128, 4), device=cuda).transpose(2, 3), 32),
+                      (torch.zeros((1, 4, 4, 128), device=cuda), 7),
+                      (torch.zeros((0, 4, 4, 128), device=cuda), 32)):
+        C = x.shape[-1]
+        with pytest.raises(ValueError):
+            group_norm_nhwc(x, torch.ones(C, device=cuda), torch.zeros(C, device=cuda),
+                            groups, 1e-6, True)
+    assert ops.group_norm_counts()["launches"] == before
+
+
+def test_flagship_vqgan_decode_runs_every_group_norm_in_the_kernel(cuda):
+    """The flagship's VQGAN decode (its 39 GroupNorms: 34 in resnet blocks
+    and norm_out with SiLU, 4 in attention blocks without) of one 32x32
+    latent to 512x512 in bf16 under no_grad launches the kernel 39 times
+    and runs no composite norm; under autograd every norm is composite
+    (the plain version) and the kernel is not launched.  Against the fp32
+    decode, the kernel's pixels err on average no more than 1.25 times the
+    plain version's (both round once; only the order of the statistics'
+    sums and SiLU's exp differ)."""
+    import copy
+    from sic_tpu_torch.config import flagship_spec
+    from sic_tpu_torch.models.layers import cast_compute
+    from sic_tpu_torch.models.vqgan import VQGAN
+    from sic_tpu_torch.weights import init_seeded
+    spec = flagship_spec().vqgan
+    m32 = VQGAN(spec)
+    init_seeded(m32, seed=3)
+    m32 = m32.to(cuda).eval()
+    m = cast_compute(copy.deepcopy(m32), torch.bfloat16)
+    z = _randn((1, 32, 32, spec.embed_dim), 4, cuda)
+    with torch.no_grad():
+        ref = m32.decode(z)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = m.decode(z.to(torch.bfloat16))
+    assert ops.group_norm_counts() == {"launches": 39, "composite": 0}
+    assert got.shape == (1, 512, 512, 3) and torch.isfinite(got.float()).all()
+    ops.reset_launch_counts()
+    composite = m.decode(z.to(torch.bfloat16)).detach()
+    assert ops.group_norm_counts() == {"launches": 0, "composite": 39}
+    err = float((got.float() - ref).abs().mean())
+    assert err <= 1.25 * float((composite.float() - ref).abs().mean()), err
 
 
 # -- the int8 mode: cuBLASLt's int8 GEMM through torch._int_mm -------------------
