@@ -25,8 +25,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               clock, for the rANS rows' chain bound;
 2. kernels  - each kernel against its plain PyTorch version on the card at
               the flagship's shapes (kernel 1 also at the MaskGIT
-              generator's, head dim 48, and the tiny generator's, head dim
-              32, in both entries; rANS decode also against the native
+              generator's, head dim 48, the tiny generator's, head dim
+              32, and TiTok-S-128's U-ViT generator's and TiTok-S
+              decoder's, S 129 and 385, in both entries; rANS decode also against the native
               decoder at 4 x 1024, 1 x 4096 and 32 x 256; rANS encode also
               against the native encoder, and through one forced buffer
               overflow; the
@@ -333,7 +334,12 @@ SEED = 0
 # four classes, and the generate CLI's tiny one (head dim 32)
 SEQ_SHAPES = {"trunk": (4, 289, 1024, 16), "cross": (4, 545, 768, 12),
               "clip": (1, 50, 768, 12), "maskgit": (4, 33, 768, 16),
-              "tiny_generator": (2, 9, 64, 2)}
+              "tiny_generator": (2, 9, 64, 2), "uvit": (16, 129, 1024, 16),
+              "titok_s_decoder": (16, 385, 512, 8)}
+# TiTok-S-128's rows (the U-ViT generator and TiTok-S's decoder at the
+# benchmark's batch of 16) draw from a generator of their own, so that
+# every other row's inputs stay as they were
+S128_SEQ_SHAPES = ("uvit", "titok_s_decoder")
 # a --tp 2 rank's: the trunk's and the cross blocks' local heads (8, 6);
 # kernel 2's rows at 6 and 8 local heads are in the kernels phase's loop
 TP_SEQ_SHAPES = {"trunk_tp2": (4, 289, 512, 8), "cross_tp2": (4, 545, 384, 6)}
@@ -589,14 +595,16 @@ class Smoke:
         # the CLIP image tower (one image, 1 + 7*7 tokens), head dim 64;
         # the MaskGIT generator at full width (head dim 48) and the generate
         # CLI's tiny one (head dim 32), whose inputs come from a generator
-        # of their own, so that every other row's stay as they were
+        # of their own, so that every other row's stay as they were; the
+        # U-ViT generator (S 129) and TiTok-S's decoder (S 385), head dim 64
         g_narrow = torch.Generator(device=dev).manual_seed(SEED + 1)
         # the rows at --tp 2's local heads draw from a generator of their own
         g_tp = torch.Generator(device=dev).manual_seed(SEED + 2)
+        own = dict.fromkeys(TP_SEQ_SHAPES, g_tp) | dict.fromkeys(
+            S128_SEQ_SHAPES, torch.Generator(device=dev).manual_seed(SEED + 3))
         for tag, (B, S, C, heads) in (SEQ_SHAPES | TP_SEQ_SHAPES).items():
-            qkv = torch.randn((B, S, 3 * C), device=dev,
-                              generator=g_tp if tag in TP_SEQ_SHAPES else
-                              g if C // heads == 64 else g_narrow)
+            qkv = torch.randn((B, S, 3 * C), device=dev, generator=own.get(
+                tag, g if C // heads == 64 else g_narrow))
             scale = (C // heads) ** -0.5
             k_out = ops.seq_attention(qkv, scale, heads)
             p_out = ops.seq_attention_plain(qkv, scale, heads)
@@ -812,9 +820,10 @@ class Smoke:
         dev, bf = torch.device("cuda"), torch.bfloat16
         out = {}
         g_narrow = torch.Generator(device=dev).manual_seed(SEED + 2)
+        g_s128 = torch.Generator(device=dev).manual_seed(SEED + 3)
         for tag, (B, S, C, heads) in SEQ_SHAPES.items():
-            qkv = torch.randn((B, S, 3 * C), device=dev,
-                              generator=g if C // heads == 64 else g_narrow).to(bf)
+            gen = g_s128 if tag in S128_SEQ_SHAPES else g if C // heads == 64 else g_narrow
+            qkv = torch.randn((B, S, 3 * C), device=dev, generator=gen).to(bf)
             d = C // heads
             scale = d ** -0.5
             q, k, v = (t.view(B, S, heads, d).transpose(1, 2) for t in qkv.split(C, dim=-1))

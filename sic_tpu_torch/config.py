@@ -109,6 +109,15 @@ def small_spec(**overrides) -> CodecSpec:
     return dataclasses.replace(base, **overrides)
 
 
+def titok_s128_spec() -> TiTokSpec:
+    """TiTok-S-128 (configs/infer/titok_s128.yaml of 1d-tokenizer): ViT-S
+    encoder and decoder, 128 latent tokens of 16 channels, a 4096-entry
+    codebook; the tokenizer of the U-ViT generator
+    (``models/maskgit_uvit.py``)."""
+    return TiTokSpec(model_size="small", num_latent_tokens=128, token_size=16,
+                     codebook_size=4096, patch_size=16, tile_px=256)
+
+
 def tiny_spec(**overrides) -> CodecSpec:
     """Test-scale spec (CPU-friendly); same topology, tiny widths."""
     base = CodecSpec(

@@ -90,11 +90,11 @@ def _row_parallel(x, w, b, group):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm (eps 1e-5, the JAX package's) in f32, its parameters
-    upcast, returning the input's dtype."""
+    """LayerNorm (eps 1e-5, the JAX package's, unless ``eps`` names
+    another) in f32, its parameters upcast, returning the input's dtype."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, _f32(self.weight),
@@ -243,15 +243,16 @@ class MultiheadSelfAttention(nn.Module):
     """Packed-qkv self attention: through the sequence-attention kernel,
     or, with an additive ``attn_mask`` (the CLIP text tower's causal mask),
     through plain einsums with f32 logits, as the JAX package does (no
-    served path takes the masked branch)."""
+    served path takes the masked branch).  ``qkv_bias=False``: the qkv
+    projection has no bias (U-ViT's blocks)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"{d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads          # this rank's, under ``tp``
         self.head_dim = d_model // num_heads
-        self.in_proj = Linear(d_model, 3 * d_model)
+        self.in_proj = Linear(d_model, 3 * d_model, bias=qkv_bias)
         self.out_proj = Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor,
@@ -288,10 +289,11 @@ class MLP(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block (reference: titok/blocks.py:26-64)."""
 
-    def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True):
         super().__init__()
         self.ln_1 = LayerNorm(d_model)
-        self.attn = MultiheadSelfAttention(d_model, num_heads)
+        self.attn = MultiheadSelfAttention(d_model, num_heads, qkv_bias)
         self.ln_2 = LayerNorm(d_model)
         self.mlp = MLP(d_model, int(d_model * mlp_ratio))
 

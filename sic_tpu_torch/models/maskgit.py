@@ -16,6 +16,17 @@ temperature, ``arccos(ratio) / (pi / 2)`` and ``floor(L * mask_ratio)``)
 is computed on the CPU in float32 tensors, as XLA computes it (divisions
 by constants as products with their reciprocals), so a mask length never
 floors differently at a boundary.
+
+Guidance (reference: 1d-tokenizer ``modeling/maskgit.py`` ``generate``):
+``"constant"`` (the JAX package's, the default) takes ``cond + (cond -
+uncond) * scale``; ``"power-cosine"`` (TiTok-S-128's) takes ``uncond +
+(cond - uncond) * cfg`` with ``cfg = (scale - 1) * (1 - cos(pi * (step /
+n) ** 3)) / 2 + 1`` (:func:`guidance_cfg`; the power is the published
+sampler's default, :data:`GUIDANCE_SCALE_POW`), both passes at every step.
+``softmax_temperature_annealing`` divides the guided logits by ``0.5 +
+0.8 * (1 - ratio)`` (:func:`softmax_temperature`).  Both factors are
+float32 numbers computed on the CPU.  :func:`generate` drives the
+MaskGIT generator and the U-ViT one (``models/maskgit_uvit.py``) alike.
 """
 from __future__ import annotations
 
@@ -120,21 +131,51 @@ def step_schedule(step: int, num_sample_steps: int, seq_len: int,
     return temp, float(mask_len)
 
 
+GUIDANCE_DECAYS = ("constant", "power-cosine")
+# the power of the power-cosine schedule (the published sampler's default)
+GUIDANCE_SCALE_POW = 3.0
+
+
+def guidance_cfg(step: int, num_sample_steps: int, guidance_scale: float) -> float:
+    """The power-cosine guidance factor of sampler step ``step``:
+    ``(scale - 1) * (1 - cos(pi * (step / n) ** pow)) / 2 + 1``, in
+    float32 on the CPU (1 at step 0, rising towards ``scale``)."""
+    f32 = torch.float32
+    t = torch.tensor(step / num_sample_steps, dtype=f32) \
+        ** torch.tensor(GUIDANCE_SCALE_POW, dtype=f32)
+    s = (1.0 - torch.cos(t * math.pi)) * 0.5
+    return float((guidance_scale - 1.0) * s + 1.0)
+
+
+def softmax_temperature(step: int, num_sample_steps: int) -> float:
+    """The annealed softmax temperature of sampler step ``step``: ``0.5 +
+    0.8 * (1 - (step + 1) / n)``, rounded to float32."""
+    ratio = (step + 1) / num_sample_steps
+    return float(torch.tensor(0.5 + 0.8 * (1.0 - ratio), dtype=torch.float32))
+
+
 @torch.no_grad()
-def generate(model: MaskGITGenerator, generator: torch.Generator,
+def generate(model: nn.Module, generator: torch.Generator,
              condition: torch.Tensor, guidance_scale: float = 3.0,
              randomize_temperature: float = 4.5,
-             num_sample_steps: int = 8) -> torch.Tensor:
+             num_sample_steps: int = 8, guidance_decay: str = "constant",
+             softmax_temperature_annealing: bool = False) -> torch.Tensor:
     """Iterative confidence-based sampling (reference: titok/maskgit.py:
     81-138): ``condition`` (B,) class ids on the model's device ->
-    (B, image_seq_len) token ids in [0, codebook_size)."""
+    (B, image_seq_len) token ids in [0, codebook_size).  ``model``: a
+    :class:`MaskGITGenerator` or a ``maskgit_uvit.UViTGenerator``."""
+    if guidance_decay not in GUIDANCE_DECAYS:
+        raise ValueError(f"guidance_decay {guidance_decay!r} is none of "
+                         f"{GUIDANCE_DECAYS}")
     with timed_stage(None, "maskgit.generate"):
         return _generate(model, generator, condition, guidance_scale,
-                         randomize_temperature, num_sample_steps)
+                         randomize_temperature, num_sample_steps, guidance_decay,
+                         softmax_temperature_annealing)
 
 
 def _generate(model, generator, condition, guidance_scale,
-              randomize_temperature, num_sample_steps):
+              randomize_temperature, num_sample_steps, guidance_decay,
+              softmax_temperature_annealing):
     s = model.spec
     dev = condition.device
     B, L, mask_id = condition.shape[0], s.image_seq_len, s.mask_token_id
@@ -149,9 +190,15 @@ def _generate(model, generator, condition, guidance_scale,
             is_mask = ids == mask_id
 
             logits = model(ids, condition, no_drop).float()
-            if guidance_scale != 0:
+            if guidance_decay == "power-cosine":
+                cfg = guidance_cfg(step, num_sample_steps, guidance_scale)
+                uncond = model(ids, condition, all_drop).float()
+                logits = uncond + (logits - uncond) * cfg
+            elif guidance_scale != 0:
                 uncond = model(ids, condition, all_drop).float()
                 logits = logits + (logits - uncond) * guidance_scale
+            if softmax_temperature_annealing:
+                logits = logits / softmax_temperature(step, num_sample_steps)
 
             noisy = logits + temp * _gumbel(generator, logits.shape).to(dev)
             sampled = torch.argmax(noisy, dim=-1)

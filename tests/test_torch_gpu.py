@@ -10,7 +10,9 @@ Attention kernels agree with their plain versions within 1e-4 in fp32
 no more than 1.5 times the plain bf16 version does; the rANS kernels agree
 with the native coder and with their plain versions exactly; the GroupNorm
 kernel agrees with its plain version within 1e-5 of the output's scale in
-fp32, and within that plus one ulp in bf16.  The runtime
+fp32, and within that plus one ulp in bf16; the full-width generators and
+TiTok decoders agree with the CPU, or with the plain reference on the card,
+within 1e-3 of their outputs' largest magnitude.  The runtime
 tests that check fp32 behaviour ask for fp32 (the card's default is bf16).
 """
 from pathlib import Path
@@ -87,12 +89,15 @@ def _gsd_f64(q, k, v, bias, scale):
 @pytest.mark.parametrize("B,S,C,heads", [(4, 289, 1024, 16), (4, 545, 768, 12),
                                          (3, 100, 128, 2), (2, 1, 128, 2),
                                          (3, 17, 128, 2), (2, 50, 768, 12),
-                                         (2, 63, 128, 2), (3, 65, 128, 2)])
+                                         (2, 63, 128, 2), (3, 65, 128, 2),
+                                         (16, 129, 1024, 16), (16, 385, 512, 8)])
 def test_seq_attention_kernel_matches_plain(cuda, B, S, C, heads, magnitude):
     """Ragged S (a tile past a sequence's end reads zeros, never the next
     sequence's rows: B > 1 everywhere) and qkv x 4 (logits in the tens,
     where a single TF32 pass would err by about 0.05).  Two launches on
-    the same input give the same bits."""
+    the same input give the same bits.  The last two shapes are
+    TiTok-S-128's generator (the U-ViT) and TiTok-S's decoder at the
+    benchmark's batch of 16."""
     qkv = _randn((B, S, 3 * C), S, cuda) * magnitude
     before = ops.launch_counts()["seq_attention"]
     out = ops.seq_attention(qkv, 0.125, heads)
@@ -1196,6 +1201,53 @@ def test_titok_decode_tokens_at_full_width_on_the_card(cuda):
     assert ops.head_dim_launch_counts()[64] == before + 24
     assert got.shape == (1, 256, 256, 3) and torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_uvit_generator_and_titok_s_decoder_at_full_width_on_the_card(cuda):
+    """TiTok-S-128's generator (the U-ViT, 1024 wide, 21 blocks, 16 heads
+    of 64: kernel 1 at qkv (2, 129, 3072)) and TiTok-S's decoder (512 wide,
+    8 blocks, 8 heads of 64: (2, 385, 1536)) at published widths, with the
+    benchmark's seeded draw, through the normal path on the card against
+    the plain reference (``portbench/reference/maskgit_uvit.py``,
+    ``portbench/reference/titok.py``) on the card with TF32 off: logits
+    and pixels within 1e-3 of their largest magnitude, kernel 1 launched
+    in every block at each shape."""
+    import dataclasses
+
+    from portbench.harness.weights import init_seeded
+    from portbench.reference import config as rc, maskgit_uvit as ref
+    from portbench.reference import maskgit_vqgan as rv, titok as rt
+    from sic_tpu_torch.config import titok_s128_spec
+    from sic_tpu_torch.models.maskgit_uvit import UViTGenerator, UViTSpec
+    from sic_tpu_torch.models.maskgit_vqgan import MaskGITVQGANSpec
+    from sic_tpu_torch.models.titok import TiTok
+    ts, ps = titok_s128_spec(), MaskGITVQGANSpec()
+    with torch.device(cuda):
+        gen, titok = UViTGenerator(UViTSpec()), TiTok(ts, ps)
+        rgen = ref.UViTGenerator(ref.UViTSpec())
+        rtitok = rt.TiTok(rc.TiTokSpec(**dataclasses.asdict(ts)),
+                          rv.MaskGITVQGANSpec(**dataclasses.asdict(ps)))
+    for a, b, seed in ((gen, rgen, 1), (titok, rtitok, 0)):
+        init_seeded(a, seed)
+        init_seeded(b, seed)
+        a.eval().requires_grad_(False)
+        b.eval().requires_grad_(False)
+    g = np.random.default_rng(0)
+    ids = torch.from_numpy(g.integers(0, 4097, (2, 128))).to(cuda)
+    cond, drop = torch.tensor([3, 999], device=cuda), torch.tensor([False, True], device=cuda)
+    tokens = torch.from_numpy(g.integers(0, 4096, (2, 128))).to(cuda)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got, px = gen(ids, cond, drop), titok.decode_tokens(tokens)
+        shapes = ops.heads_launch_counts()["seq_attention"]
+        with ref.fp32():
+            want, want_px = rgen(ids, cond, drop), rtitok.decode_tokens(tokens)
+    assert ops.head_dim_launch_counts() == {64: 21 + 8}
+    assert shapes == {16: 21, 8: 8}
+    assert got.shape == (2, 128, 4096) and px.shape == (2, 256, 256, 3)
+    for a, b in ((got, want), (px, want_px)):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
 
 
 # -- the fused NHWC GroupNorm + SiLU ----------------------------------------------

@@ -8,12 +8,15 @@
   stages, in ``decode_only_batched`` and the host path of
   ``encode_only_batched``;
 - compress's per-image spans (``clip.embed`` > ``clip.preprocess``,
-  ``clip.zstd``, ``c2df.pack``, ``c2df.unpack``) and the sampler's
-  (``maskgit.generate``, ``maskgit.step``, ``maskgit.sync``);
+  ``clip.zstd``, ``c2df.pack``, ``c2df.unpack``), the sampler's
+  (``maskgit.generate``, ``maskgit.step``, ``maskgit.sync``) and the U-ViT
+  generator's (``maskgit.uvit.down``, ``.mid``, ``.up`` > ``.skip``);
 - ``profile_trace`` records a span entered on a pool thread, with the call
   number it carries;
-- the four readers under ``portbench/metrics/`` on a hand-built trace in
-  the Chrome format the harness reads.
+- six readers under ``portbench/metrics/`` on a hand-built trace in the
+  Chrome format the harness reads: four of host spans, and two of the
+  device time launched inside spans (``maskgit.step``,
+  ``maskgit.uvit.skip``).
 """
 import json
 import threading
@@ -204,6 +207,33 @@ def test_generate_spans_each_step_and_its_sync(tmp_path):
     assert all(_inside(s, step) for s in sync)
 
 
+def test_uvit_generator_spans_its_stages_and_skips(tmp_path):
+    """Each pass of the U-ViT generator spans its in, mid and out blocks
+    (``maskgit.uvit.down``, ``.mid``, ``.up``) inside the sampler's step,
+    and each out block's concatenation and skip projection
+    (``maskgit.uvit.skip``) inside ``.up``."""
+    from sic_tpu_torch.models.maskgit import generate
+    from sic_tpu_torch.models.maskgit_uvit import UViTGenerator, UViTSpec
+    torch.manual_seed(0)
+    gen = UViTGenerator(UViTSpec(codebook_size=64, condition_num_classes=10,
+                                 image_seq_len=8, hidden=64, num_layers=4,
+                                 num_heads=2, intermediate_size=128)).eval()
+    steps = 3
+    run = (lambda: generate(gen, torch.Generator().manual_seed(1), torch.tensor([0, 3]),
+                            num_sample_steps=steps, guidance_decay="power-cosine"))
+    ids, ranges = _traced(run, tmp_path)
+    assert torch.equal(ids, run())
+    tid = threading.get_native_id()
+    step = _named(ranges, "maskgit.step", tid)
+    passes = 2 * steps
+    for name in ("maskgit.uvit.down", "maskgit.uvit.mid", "maskgit.uvit.up"):
+        spans = _named(ranges, name, tid)
+        assert len(spans) == passes and all(_inside(s, step) for s in spans), name
+    skip = _named(ranges, "maskgit.uvit.skip", tid)
+    assert len(skip) == 2 * passes
+    assert all(_inside(s, _named(ranges, "maskgit.uvit.up", tid)) for s in skip)
+
+
 # -- profile_trace ----------------------------------------------------------------
 
 def test_profile_trace_records_a_span_on_a_pool_thread(tmp_path):
@@ -236,18 +266,26 @@ RANGES = [("portbench.window", MAIN, 0, 1000),
           ("h_rans.code", MAIN, -50, 20), ("h_rans.code", MAIN, 100, 200),
           ("h_rans.code", MAIN, 300, 350), ("h_rans.fetch", MAIN, 200, 260),
           ("clip.embed", MAIN, 400, 500), ("maskgit.generate", MAIN, 500, 900),
+          ("maskgit.step", MAIN, 510, 660), ("maskgit.uvit.skip", MAIN, 640, 650),
           ("h_rans.fetch", MAIN, 1100, 1200)]
 OTHER_RANGES = [(name, OTHER, 0, 1000) for name in
-                ("h_rans.code", "h_rans.fetch", "clip.embed", "maskgit.generate")]
+                ("h_rans.code", "h_rans.fetch", "clip.embed", "maskgit.generate",
+                 "maskgit.step", "maskgit.uvit.skip")]
 KERNELS = [(520, 600), (650, 700), (880, 950)]
-# by hand: host ms an image in the spans on MAIN clipped to the window, and
-# the card's idle time inside maskgit.generate ([500, 900] less 80 + 50 + 20)
+# by hand: host ms an image in the spans on MAIN clipped to the window, the
+# card's idle time inside maskgit.generate ([500, 900] less 80 + 50 + 20),
+# and the device time of the kernels launched (5 us before each starts)
+# inside maskgit.step (the first two) and maskgit.uvit.skip (the second)
 EXPECTED = {"h_code_ms_per_img": (20 + 100 + 50) * 1e-3 / IMAGES,
             "h_fetch_ms_per_img": 60 * 1e-3 / IMAGES,
             "clip_ms_per_img": 100 * 1e-3 / IMAGES,
-            "sampler_idle_ms_per_img": (400 - 150) * 1e-3 / IMAGES}
+            "sampler_idle_ms_per_img": (400 - 150) * 1e-3 / IMAGES,
+            "gen_device_ms_per_img": (80 + 50) * 1e-3 / IMAGES,
+            "uvit_skip_ms_per_img": 50 * 1e-3 / IMAGES}
 SPAN = {"h_code_ms_per_img": "h_rans.code", "h_fetch_ms_per_img": "h_rans.fetch",
-        "clip_ms_per_img": "clip.embed", "sampler_idle_ms_per_img": "maskgit.generate"}
+        "clip_ms_per_img": "clip.embed", "sampler_idle_ms_per_img": "maskgit.generate",
+        "gen_device_ms_per_img": "maskgit.step",
+        "uvit_skip_ms_per_img": "maskgit.uvit.skip"}
 
 
 def _chrome(ranges):
